@@ -1,0 +1,313 @@
+"""Design-space exploration — the "co-optimization" of the paper's title.
+
+Port of the array-native half of `repro.core.dse`:
+
+    space = DesignSpace.paper_grid()        # declarative (core.space)
+    batch = sweep(space)                    # ONE vectorized evaluation
+    front = pareto_front(batch)             # masked tensor dominance
+    best  = best_design(batch)              # paper's selection rule
+
+`sweep` lowers the whole (tech x scheme x layers [x corners]) space to a
+flat operand batch, runs the fused row-cycle engine over it (the CUDA
+kernel on the GPU) and scores every metric as flat (B,) tensors on the
+same device.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..device import as_f32, resolve_device
+from . import calibration as cal
+from . import contracts, transient
+from .batch import DesignBatch, DesignPoint
+from .density import bit_density_lowered, stack_height_lowered
+from .energy import read_energy_lowered, write_energy_lowered
+from .netlist import build_ladder_lowered
+from .parasitics import BLParasitics, bl_parasitics_lowered
+from .routing import bonding_geometry_lowered
+from .sense import sense_margin_lowered
+from .space import MC_AXES, MC_LOG_W, DesignSpace, LoweredSpace, SpaceView
+
+__all__ = [
+    "DesignBatch", "DesignPoint", "DesignSpace",
+    "SweepPlan", "plan_sweep", "finalize_sweep",
+    "score_columns", "score_from_events", "assemble_batch",
+    "sweep", "pareto_mask", "pareto_front", "best_design", "as_batch",
+]
+
+# Corner axes `sweep` knows how to route into the physics models (the
+# reserved mc_* channels of a with_mc space ride the same mechanism).
+SUPPORTED_CORNER_AXES = ("rh_toggles", "trc_cycles")
+
+
+def _no_sharding(sharding) -> None:
+    if sharding is not None:
+        raise NotImplementedError(
+            "sharding= is not ported yet; it lands with the multi-GPU slice")
+
+
+@dataclass(frozen=True)
+class SweepPlan:
+    """A lowered, dispatch-ready sweep: everything `sweep` does before the
+    fused engine runs.  `plan_sweep` and `finalize_sweep` are the exact two
+    halves of `sweep`."""
+    space: DesignSpace
+    sp: LoweredSpace
+    par: BLParasitics                               # over the lowered space
+    operands: transient.FusedOperands | None        # None: transient off
+
+    def __len__(self) -> int:
+        return len(self.sp)
+
+    @property
+    def with_transient(self) -> bool:
+        return self.operands is not None
+
+
+def plan_sweep(space: DesignSpace | None = None,
+               with_transient: bool = True, device="cuda") -> SweepPlan:
+    """Lower a `DesignSpace` to a dispatch-ready `SweepPlan` on `device`.
+
+    Validates corner axes, assembles the parasitic decomposition, and
+    (when the transient is on) lowers the whole space to ONE
+    `FusedOperands` batch.
+    """
+    if space is None:
+        space = DesignSpace.paper_grid()
+    sp = space.lower(device=device)
+    unknown = [k for k in sp.corners
+               if k not in SUPPORTED_CORNER_AXES and k not in MC_AXES
+               and k != MC_LOG_W]
+    if unknown:
+        raise ValueError(f"unsupported corner axes {unknown}; sweep "
+                         f"understands {SUPPORTED_CORNER_AXES}")
+    par = bl_parasitics_lowered(sp)
+    operands = None
+    if with_transient:
+        ladder_c, ladder_g = build_ladder_lowered(sp, par)
+        operands = transient.lower_design_operands(
+            sp, ladder_c=ladder_c, ladder_g=ladder_g)
+    return SweepPlan(space=space, sp=sp, par=par, operands=operands)
+
+
+def score_columns(view, cbl_ff, trc=None, t_sense=None, t_fire=None,
+                  dv_sense=None) -> dict:
+    """Per-row scoring of a design-space view -> column dict.
+
+    The transient columns (`trc`, `t_sense`, `t_fire`, `dv_sense`) are
+    either all given (post-rollup, design-point length) or all None
+    (`with_transient=False`: NaN-filled).  Every output is an elementwise
+    (B,) tensor; keys match `DesignBatch` field names.
+    """
+    dev = view.device
+    cbl = as_f32(cbl_ff, dev)
+    dens = bit_density_lowered(view)
+    height = stack_height_lowered(view)
+    margin = sense_margin_lowered(view, cbl_ff=cbl)
+    margin_d = sense_margin_lowered(view, with_disturb=True, cbl_ff=cbl)
+    e_wr = write_energy_lowered(view, cbl_ff=cbl)
+    e_rd = read_energy_lowered(view, cbl_ff=cbl)
+    geom = bonding_geometry_lowered(view)
+
+    if trc is not None:
+        # margin actually available at the SA fire: the simulated signal at
+        # the enable instant minus the SA offset (per sample on MC spaces)
+        sa_offset = view.corner("mc_sa_offset_mv", None)
+        if sa_offset is None:
+            sa_offset = view.tech("sa_offset_mv")
+        margin_fire = dv_sense * 1e3 - as_f32(sa_offset, dev)
+    else:
+        trc = torch.full((len(view),), float("nan"), dtype=torch.float32,
+                         device=dev)
+        t_sense = t_fire = margin_fire = trc
+
+    feasible = (geom.manufacturable
+                & (margin >= cal.MIN_FUNCTIONAL_MARGIN_MV - 1e-9)
+                & (margin_d >= cal.MIN_DISTURBED_MARGIN_MV - 1e-9)
+                & view.valid)
+    if dv_sense is not None:
+        # a design whose timing never closed (NaN tRC: a phase timed out)
+        # is invalid as a design, not merely slow
+        feasible = feasible & torch.isfinite(trc)
+
+    return dict(
+        density_gb_mm2=dens, height_um=height, cbl_ff=cbl,
+        margin_mv=margin, margin_disturbed_mv=margin_d,
+        trc_ns=trc, t_sense_ns=t_sense, t_fire_ns=t_fire,
+        margin_fire_mv=margin_fire, e_write_fj=e_wr, e_read_fj=e_rd,
+        hcb_pitch_um=geom.hcb_pitch_um, blsa_area_um2=geom.blsa_area_um2,
+        manufacturable=geom.manufacturable, feasible=feasible)
+
+
+def score_from_events(view, cbl_ff, sa_tau_ns, t_overhead_ns, evt) -> dict:
+    """Rollup + scoring from raw fused-engine event columns -> column dict.
+
+    `evt` is the engine's (B_ops, 4) output BEFORE replica de-interleave;
+    on replica spaces the main rows sit at odd indices.
+    """
+    sa_tau, overhead = sa_tau_ns, t_overhead_ns
+    if view.replica:
+        evt = evt[1::2]
+        sa_tau = sa_tau[1::2]
+        overhead = overhead[1::2]
+    t_sense, _t_restore, trc = transient._regen_and_totals(
+        sa_tau, overhead, evt[:, 0], evt[:, 1], evt[:, 2], evt[:, 3])
+    return score_columns(view, cbl_ff, trc=trc, t_sense=t_sense,
+                         t_fire=evt[:, 0], dv_sense=evt[:, 1])
+
+
+def assemble_batch(sp: LoweredSpace, cols: dict) -> DesignBatch:
+    """Zip scored metric columns with a lowered space's identity columns
+    into the contract-checked `DesignBatch`."""
+    dev = sp.device
+    batch = DesignBatch(
+        tech_idx=torch.as_tensor(sp.tech_idx, dtype=torch.int32, device=dev),
+        scheme_idx=torch.as_tensor(sp.scheme_idx, dtype=torch.int32,
+                                   device=dev),
+        layers=sp.layers, valid=torch.as_tensor(sp.valid, device=dev),
+        corners={k: torch.as_tensor(v, dtype=torch.float32, device=dev)
+                 for k, v in sp.corners.items()},
+        tech_names=sp.tech_names, scheme_names=sp.scheme_names,
+        n_samples=sp.samples, base_len=sp.base_len, **cols)
+    contracts.check_batch(batch, where="dse.sweep")
+    return batch
+
+
+def finalize_sweep(plan: SweepPlan,
+                   res: transient.RowCycleResult | None = None) -> DesignBatch:
+    """Score a planned sweep into a `DesignBatch`.
+
+    `res` is the fused-engine result for `plan.operands` (None iff the plan
+    was made with `with_transient=False`); it is scored from its raw
+    events, as `sweep` does.
+    """
+    if plan.with_transient != (res is not None):
+        raise ValueError(
+            "finalize_sweep needs the fused-engine result exactly when "
+            "the plan lowered transient operands (with_transient="
+            f"{plan.with_transient}, res={'set' if res is not None else 'None'})")
+    view = SpaceView.from_lowered(plan.sp)
+    cbl = plan.par.c_bl_total_ff
+    if res is None:
+        cols = score_columns(view, cbl)
+    else:
+        cols = score_from_events(view, cbl, plan.operands.sa_tau_ns,
+                                 plan.operands.t_overhead_ns, res.events)
+    return assemble_batch(plan.sp, cols)
+
+
+def sweep(space: DesignSpace | None = None, with_transient: bool = True,
+          backend: str = "auto",
+          b_chunk: int = transient.DEFAULT_B_CHUNK,
+          sharding=None, device="cuda") -> DesignBatch:
+    """Score a whole `DesignSpace` in one vectorized pass -> `DesignBatch`.
+
+    `plan_sweep` -> one chunked fused-engine pass
+    (`transient.simulate_row_cycle_many` on the lowered operands) ->
+    `finalize_sweep`, all on `device`.  `backend` is the kernel dispatch
+    of `kernels.ops.row_cycle_fused` ("auto": the CUDA kernel on the GPU,
+    the plain version on the CPU).
+    """
+    _no_sharding(sharding)
+    device = resolve_device(device)
+    plan = plan_sweep(space, with_transient=with_transient, device=device)
+    res = None
+    if plan.operands is not None:
+        res = transient.simulate_row_cycle_many(
+            plan.operands, backend=backend, b_chunk=b_chunk, device=device)
+    return finalize_sweep(plan, res)
+
+
+# ---------------------------------------------------------------------------
+# Pareto front / selection (vectorized dominance)
+# ---------------------------------------------------------------------------
+
+def pareto_mask(batch: DesignBatch, require_feasible: bool = True,
+                block: int = 4096, extra_maximize=(),
+                extra_minimize=(), sharding=None) -> torch.Tensor:
+    """Non-dominated mask maximizing density & disturbed margin, minimizing
+    tRC & read energy.  The O(B^2) pairwise comparison runs as masked
+    broadcasts over blocks of `block` dominators, so peak memory is
+    O(block * B).  `extra_maximize` / `extra_minimize` append further (B,)
+    objective columns.  NaN metrics never dominate and are never
+    dominated.
+    """
+    _no_sharding(sharding)
+    cand = batch.valid
+    if require_feasible:
+        cand = cand & batch.feasible
+    dev = batch.device
+    hi = torch.stack([batch.density_gb_mm2, batch.margin_disturbed_mv,
+                      *(as_f32(x, dev) for x in extra_maximize)], dim=1)
+    lo = torch.stack([batch.trc_ns, batch.e_read_fj,
+                      *(as_f32(x, dev) for x in extra_minimize)], dim=1)
+    b = hi.shape[0]
+    dominated = torch.zeros((b,), dtype=torch.bool, device=dev)
+    for i0 in range(0, b, block):          # dominator blocks
+        hi_i, lo_i = hi[i0:i0 + block], lo[i0:i0 + block]
+        cand_i = cand[i0:i0 + block]
+        ge = ((hi_i[:, None, :] >= hi[None, :, :]).all(-1)
+              & (lo_i[:, None, :] <= lo[None, :, :]).all(-1))
+        gt = ((hi_i[:, None, :] > hi[None, :, :]).any(-1)
+              | (lo_i[:, None, :] < lo[None, :, :]).any(-1))
+        dominated |= (ge & gt & cand_i[:, None] & cand[None, :]).any(dim=0)
+    return cand & ~dominated
+
+
+def as_batch(points_or_batch) -> DesignBatch:
+    """A `DesignBatch` passes through; a legacy `list[DesignPoint]` is
+    bridged via `DesignBatch.from_points` (on the CPU)."""
+    if isinstance(points_or_batch, DesignBatch):
+        return points_or_batch
+    return DesignBatch.from_points(list(points_or_batch))
+
+
+def pareto_front(points_or_batch, require_feasible: bool = True,
+                 extra_maximize=(), extra_minimize=()):
+    """Non-dominated set.  `DesignBatch` in -> filtered `DesignBatch` out;
+    legacy `list[DesignPoint]` in -> list out (order preserved)."""
+    batch = as_batch(points_or_batch)
+    mask = pareto_mask(batch, require_feasible,
+                       extra_maximize=extra_maximize,
+                       extra_minimize=extra_minimize)
+    if batch is points_or_batch:
+        return batch.select(mask)
+    return [p for p, m in zip(points_or_batch, mask.tolist()) if m]
+
+
+def best_design(points_or_batch,
+                density_target: float = cal.DENSITY_TARGET_GB_MM2,
+                min_yield: float | None = None, yield_frac=None):
+    """The paper's selection rule: hit the density target with a functional,
+    manufacturable design; break ties by tRC then read energy then height.
+    Returns a `DesignPoint` (or None if nothing qualifies).
+
+    `min_yield` adds a Monte-Carlo yield floor on an explicit (B,)
+    `yield_frac` column or the batch's `corners["yield_frac"]`.
+    """
+    batch = as_batch(points_or_batch)
+    host = lambda x: x.detach().cpu().numpy() if isinstance(
+        x, torch.Tensor) else np.asarray(x)
+    cand = (host(batch.valid) & host(batch.feasible)
+            & (host(batch.density_gb_mm2) >= density_target - 1e-9))
+    if min_yield is not None:
+        if yield_frac is None:
+            yield_frac = batch.corners.get("yield_frac")
+        if yield_frac is None:
+            raise ValueError(
+                "min_yield needs a yield column: pass yield_frac= or use "
+                "a batch with corners['yield_frac']")
+        cand &= host(yield_frac) >= min_yield - 1e-9
+    idx = np.flatnonzero(cand)
+    if idx.size == 0:
+        return None
+    trc = host(batch.trc_ns).astype(np.float64)[idx]
+    trc = np.where(np.isnan(trc), np.inf, trc)
+    e_rd = host(batch.e_read_fj).astype(np.float64)[idx]
+    height = host(batch.height_um).astype(np.float64)[idx]
+    order = np.lexsort((height, e_rd, trc))     # last key is primary
+    return batch.point(int(idx[order[0]]))
