@@ -14,14 +14,21 @@ cycle:
 
 tRC = t_overhead + t(ACT+RESTORE) + t(PRE).
 
-One `kernels.ops.row_cycle_fused` call per chunk runs all three phases
-with in-kernel crossing detection and returns O(B) events.  The phased
-engine (`traces=True`, the Fig. 8 waveforms) is not ported yet.
+Two execution engines, same physics:
+
+  fused (default)      — one `kernels.ops.row_cycle_fused` call per chunk
+          runs all three phases with in-kernel crossing detection and
+          returns O(B) events (the CUDA kernel `csrc/row_cycle.cu`).
+  phased (traces=True) — three `kernels.ops.rc_multistep` calls (four with
+          `replica=True`) that materialize the per-phase (T, B, N)
+          waveforms for Fig. 8 (the CUDA kernel `csrc/rc_multistep.cu`);
+          also the reference the fused engine is held against (within one
+          dt).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import NamedTuple
 
 import torch
@@ -64,6 +71,44 @@ class RowCycleResult:
     t_fire_ns: torch.Tensor       # SA-enable fire time (ACT first crossing)
     events: torch.Tensor | None = None   # raw (B, 4) engine events BEFORE
     # replica de-interleave; `dse.finalize_sweep` scores from these
+    traces: dict = field(default_factory=dict)  # phase -> (T, B, N)
+    # waveforms (phased engine only; {} from the fused engine)
+
+
+def _f32(x: float, device) -> torch.Tensor:
+    """A 0-d float32 tensor on `device`: dividing or comparing by it is
+    one float32 operation, as in the reference (a Python-scalar divisor
+    becomes a reciprocal multiply on CUDA)."""
+    return torch.tensor(x, dtype=torch.float32, device=device)
+
+
+def _first_crossing_ns(trace_ok: torch.Tensor, dt: float) -> torch.Tensor:
+    """Time of first True along axis 0 of (T, B); NaN if never crossed.
+
+    A crossing on the very last step returns the finite T*dt — distinct
+    from never-crossed.
+    """
+    any_ok = trace_ok.any(dim=0)
+    # argmax gives the first maximal index; CUDA has no argmax over bool
+    idx = torch.argmax(trace_ok.to(torch.int32), dim=0)
+    t = (idx + 1).to(torch.float32) * _f32(dt, trace_ok.device)
+    return torch.where(any_ok, t, torch.nan)
+
+
+def wl_ramp(tech: TechCal, t_ns: torch.Tensor,
+            rising: bool = True) -> torch.Tensor:
+    """WL voltage profile (normalized 0..1) of an RC-limited wordline."""
+    tau = tau_ns(tech.r_wl_kohm, tech.c_wl_ff)
+    x = 1.0 - torch.exp(-t_ns / _f32(max(tau, 1e-3), t_ns.device))
+    return x if rising else 1.0 - x
+
+
+def _step_index(t_ns: torch.Tensor, window_ns: float, n_steps: int):
+    """Trace index of an event time (its step), the window's last step for
+    a NaN (never crossed) event."""
+    t_idx = torch.where(torch.isnan(t_ns), window_ns, t_ns)
+    idx = (t_idx / _f32(DT_NS, t_ns.device)).to(torch.int32) - 1
+    return torch.clamp(idx, 0, n_steps - 1).long()
 
 
 def _regen_and_totals(tech_sa_tau, tech_overhead, t_dev, dv_sense,
@@ -323,14 +368,16 @@ def simulate_row_cycle(tech: TechCal, scheme: str, layers,
                        device="cuda") -> RowCycleResult:
     """Simulate ACT/RESTORE/PRE on the ladder; batched over `layers`.
 
-    Runs the fused trace-free engine on `device`.  ``replica=True`` closes
-    the SA-enable timing with a replica bitline (scaled by
-    ``tech.replica_cells``) instead of the fixed own-90% crossing.
+    Runs the fused trace-free engine on `device`; ``traces=True`` runs the
+    phased engine instead and returns the full (T, B, N) waveforms
+    (Fig. 8).  ``replica=True`` closes the SA-enable timing with a replica
+    bitline (scaled by ``tech.replica_cells``) instead of the fixed
+    own-90% crossing.
     """
     if traces:
-        raise NotImplementedError(
-            "traces=True needs the phased engine and its rc_multistep "
-            "kernel, which are not ported yet (a later slice of the port)")
+        return simulate_row_cycle_phased(tech, scheme, layers,
+                                         store_v=store_v, backend=backend,
+                                         replica=replica, device=device)
     device = resolve_device(device)
     ladder = build_bl_ladder(tech, scheme, layers, device)
     if store_v is None:
@@ -358,6 +405,102 @@ def simulate_row_cycle(tech: TechCal, scheme: str, layers,
     return RowCycleResult(
         t_sense_ns=t_sense, t_restore_ns=t_restore, t_precharge_ns=t_pre,
         trc_ns=trc, dv_sense_v=dv_sense, t_fire_ns=t_dev)
+
+
+def simulate_row_cycle_phased(tech: TechCal, scheme: str, layers,
+                              store_v: float | None = None,
+                              backend: str = "auto",
+                              replica: bool = False,
+                              device="cuda") -> RowCycleResult:
+    """Phased three-call engine: materializes full (T, B, N) waveforms.
+
+    The Fig. 8 plotting path and the reference the fused engine is held
+    against (event times within one dt) — including the replica-closed
+    timing mode, where the SA enable fires on the replica bitline's own
+    first crossing instead of the main array's.  Each phase is one
+    `kernels.ops.rc_multistep` call (`backend` as there).
+    """
+    device = resolve_device(device)
+    ladder = build_bl_ladder(tech, scheme, layers, device)
+    b, n = ladder.c.shape
+    vdd, vpre = cal.VDD_ARRAY, cal.VBL_PRE
+    if store_v is None:
+        store_v = tech.writeback_eff * vdd
+    f32 = torch.float32
+    rows = torch.arange(b, device=device)
+    c, g = ladder.c, ladder.g_branch           # float32, (B, N) / (B, N-1)
+    zero_clamp = torch.zeros((b, n), dtype=f32, device=device)
+
+    def step_times(n_steps):
+        steps = torch.arange(n_steps, dtype=torch.int32, device=device) + 1
+        return steps.to(f32) * _f32(DT_NS, device)
+
+    def initial_state(v_store):
+        v0 = torch.full((b, n), vpre, dtype=f32, device=device)
+        v0[:, n - 1] = v_store
+        return v0
+
+    def act_crossed(trace, c_ladder, v_store):
+        cbl = row_sum(c_ladder[:, :n - 1])
+        cs = c_ladder[:, n - 1]
+        dv_inf = (v_store - vpre) * cs / (cs + cbl)
+        return trace[:, :, 0] - vpre >= 0.9 * dv_inf[None, :]
+
+    # ---------------- ACT: WL up, charge share --------------------------
+    ramp_up = wl_ramp(tech, step_times(N_ACT_STEPS))
+    trace_act = ops.rc_multistep(c, g, zero_clamp, zero_clamp,
+                                 initial_state(store_v), ramp_up, DT_NS,
+                                 backend=backend)
+    if replica:
+        # replica column: same ladder with the storage end scaled by the
+        # replica cell count; its OWN 90% crossing fires the SA enable.
+        rep_c, rep_g = replica_ladder_arrays(c, g, tech.replica_cells)
+        rep_store = tech.replica_store_frac * vdd
+        trace_rep = ops.rc_multistep(rep_c, rep_g, zero_clamp, zero_clamp,
+                                     initial_state(rep_store), ramp_up,
+                                     DT_NS, backend=backend)
+        crossed = act_crossed(trace_rep, rep_c, rep_store)
+    else:
+        crossed = act_crossed(trace_act, c, store_v)
+    t_dev = _first_crossing_ns(crossed, DT_NS)
+
+    # developed signal at SA enable; a NaN (never crossed) t_dev indexes
+    # the end of the ACT window and still propagates into t_sense / trc
+    idx_dev = _step_index(t_dev, T_ACT_NS, N_ACT_STEPS)
+    dv_sense = trace_act[idx_dev, rows, 0] - vpre
+
+    # ---------------- RESTORE: SA drives the rail -----------------------
+    g_clamp_res = zero_clamp.clone()
+    g_clamp_res[:, 0] = 1.0 / tech.r_sa_drive_kohm
+    trace_res = ops.rc_multistep(
+        c, g, g_clamp_res, torch.full((b, n), vdd, dtype=f32, device=device),
+        trace_act[idx_dev, rows, :],
+        torch.ones((N_RESTORE_STEPS,), dtype=f32, device=device), DT_NS,
+        backend=backend)
+    restored = trace_res[:, :, n - 1] >= _f32(0.95 * vdd, device)
+    t_res_dur = _first_crossing_ns(restored, DT_NS)
+
+    # ---------------- PRE: WL down, equalize ----------------------------
+    idx_res = _step_index(t_res_dur, T_RESTORE_NS, N_RESTORE_STEPS)
+    g_clamp_pre = zero_clamp.clone()
+    g_clamp_pre[:, :n - 1] = 1.0 / tech.r_pre_kohm
+    trace_pre = ops.rc_multistep(
+        c, g, g_clamp_pre, torch.full((b, n), vpre, dtype=f32, device=device),
+        trace_res[idx_res, rows, :],
+        wl_ramp(tech, step_times(N_PRE_STEPS), rising=False), DT_NS,
+        backend=backend)
+    equalized = torch.amax(torch.abs(trace_pre[:, :, :n - 1] - vpre),
+                           dim=-1) <= _f32(5e-3, device)
+    t_pre = _first_crossing_ns(equalized, DT_NS)
+
+    t_sense, t_restore, trc = _regen_and_totals(
+        tech.sa_tau_ns, tech.t_overhead_ns, t_dev, dv_sense, t_res_dur, t_pre)
+    traces = {"act": trace_act, "restore": trace_res, "pre": trace_pre}
+    if replica:
+        traces["replica"] = trace_rep
+    return RowCycleResult(
+        t_sense_ns=t_sense, t_restore_ns=t_restore, t_precharge_ns=t_pre,
+        trc_ns=trc, dv_sense_v=dv_sense, t_fire_ns=t_dev, traces=traces)
 
 
 def nominal_trc_ns(tech: TechCal, scheme: str = "sel_strap",

@@ -1,2 +1,3 @@
-"""The row-cycle kernel (CUDA C++ for sm_90a), its plain PyTorch version
+"""The port's CUDA C++ kernels for sm_90a (the fused row cycle and the
+multi-step RC ladder), their plain PyTorch versions, the shared nvcc build
 and the backend dispatch."""

@@ -9,9 +9,30 @@ is no fallback: a CUDA tensor under "auto" launches the kernel or raises.
 from __future__ import annotations
 
 from . import ref
+from .rc_transient import rc_multistep_cuda
 from .row_cycle import row_cycle_fused_cuda
 
 BACKENDS = ("auto", "ref", "cuda")
+
+
+def _resolve(backend: str, x) -> str:
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; expected one of {BACKENDS}")
+    if backend == "auto":
+        return "cuda" if x.is_cuda else "ref"
+    return backend
+
+
+def rc_multistep(c, g_branch, g_clamp, v_clamp, v0, ramp, dt,
+                 backend: str = "auto"):
+    """Batched RC-ladder implicit-Euler transient -> (T, B, N) trace.
+
+    See `ref.rc_multistep_ref` for the operands; the access (last) branch
+    is scaled by `ramp[t]` at step t.
+    """
+    if _resolve(backend, c) == "cuda":
+        return rc_multistep_cuda(c, g_branch, g_clamp, v_clamp, v0, ramp, dt)
+    return ref.rc_multistep_ref(c, g_branch, g_clamp, v_clamp, v0, ramp, dt)
 
 
 def row_cycle_fused(c, g_branch, gc_res, gc_pre, v0, params, dt,
@@ -21,11 +42,7 @@ def row_cycle_fused(c, g_branch, gc_res, gc_pre, v0, params, dt,
     Trace-free: O(B) outputs regardless of the number of time steps.  See
     `ref.row_cycle_fused_ref` for the params layout and event semantics.
     """
-    if backend not in BACKENDS:
-        raise ValueError(f"unknown backend {backend!r}; expected one of {BACKENDS}")
-    if backend == "auto":
-        backend = "cuda" if c.is_cuda else "ref"
-    if backend == "cuda":
+    if _resolve(backend, c) == "cuda":
         return row_cycle_fused_cuda(c, g_branch, gc_res, gc_pre, v0, params,
                                     dt, n_act, n_res, n_pre)
     return ref.row_cycle_fused_ref(c, g_branch, gc_res, gc_pre, v0, params,

@@ -1,9 +1,10 @@
 """Plain PyTorch versions of the kernels.
 
 Port of the row-cycle half of `repro.kernels.ref`.  `row_cycle_fused_ref`
-is what the CUDA kernel (`csrc/row_cycle.cu`) computes: the CPU path runs
-it, and `chip_smoke.py` holds the kernel against it on the card.  It
-follows the reference oracle operation for operation, in float32.
+is what the CUDA kernel `csrc/row_cycle.cu` computes, `rc_multistep_ref`
+what `csrc/rc_multistep.cu` computes: the CPU path runs them, and
+`chip_smoke.py` holds each kernel against its plain version on the card.
+They follow the reference oracles operation for operation, in float32.
 """
 
 from __future__ import annotations
@@ -45,6 +46,47 @@ def tridiag_solve_ref(dl: torch.Tensor, d: torch.Tensor, du: torch.Tensor,
     for i in range(n - 2, -1, -1):
         x.append(dp[i] - cp[i] * x[-1])
     return torch.stack(x[::-1], dim=-1)
+
+
+def rc_multistep_ref(c: torch.Tensor, g_branch: torch.Tensor,
+                     g_clamp: torch.Tensor, v_clamp: torch.Tensor,
+                     v0: torch.Tensor, ramp: torch.Tensor,
+                     dt: float) -> torch.Tensor:
+    """Simulate T implicit-Euler steps of a batched RC ladder, plain version.
+
+    The ladder has N nodes; branch i connects node i and i+1 with
+    conductance g_branch[..., i].  The LAST branch (index N-2, the cell
+    access transistor) is scaled by `ramp[t]` at step t (WL ramp).  Each
+    node may additionally be clamped toward v_clamp through g_clamp.
+
+    c        : (B, N)   node capacitances            [fF]
+    g_branch : (B, N-1) branch conductances          [1/kOhm]
+    g_clamp  : (B, N)   clamp conductances           [1/kOhm]
+    v_clamp  : (B, N)   clamp target voltages        [V]
+    v0       : (B, N)   initial node voltages        [V]
+    ramp     : (T,)     access-branch scale per step (0..1)
+    dt       : step     [ns]    (fF/kOhm -> ps, so G uses 1e-3 factor)
+
+    Returns trace: (T, B, N) node voltages after each step.
+    """
+    # divide by a 0-d tensor: a true division, as in the reference
+    dt_t = torch.tensor(dt, dtype=c.dtype, device=c.device)
+    cdt = c / dt_t * 1e-3  # fF/ns = uS; G is in 1/kOhm = mS -> scale by 1e-3
+    zeros = torch.zeros_like(c[..., :1])
+    clamp_v = g_clamp * v_clamp
+    v = v0
+    trace = []
+    for t in range(ramp.shape[0]):
+        g = torch.cat([g_branch[..., :-1], g_branch[..., -1:] * ramp[t]],
+                      dim=-1)
+        g_lo = torch.cat([zeros, g], dim=-1)        # g[i-1] at row i
+        g_hi = torch.cat([g, zeros], dim=-1)        # g[i]   at row i
+        d = cdt + g_lo + g_hi + g_clamp
+        dl = torch.cat([zeros, -g], dim=-1)
+        du = torch.cat([-g, zeros], dim=-1)
+        v = tridiag_solve_ref(dl, d, du, cdt * v + clamp_v)
+        trace.append(v)
+    return torch.stack(trace) if trace else c.new_empty((0, *c.shape))
 
 
 def _thomas_small(dl, d, du, rhs):

@@ -4,103 +4,38 @@
 `csrc/row_cycle.cu` (which replaces the TPU kernel
 `repro.kernels.row_cycle.row_cycle_fused_pallas`) on PyTorch's current
 stream.  The kernel is compiled with `nvcc` into `build/` at the repo root
-on first use and loaded with ctypes; nothing is compiled or loaded when
-this module is imported.  The plain version it is held against is
-`kernels.ref.row_cycle_fused_ref`.
+on first use and loaded with ctypes (`kernels.build`); nothing is
+compiled or loaded when this module is imported.  The plain version it is
+held against is `kernels.ref.row_cycle_fused_ref`.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-from pathlib import Path
 
 import torch
 
+from . import build as _build
 from .ref import N_EVENTS, PAR_ROLE, ROLE_MAIN
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "row_cycle.cu"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
-# FMA contraction off: the kernel then rounds like the plain version.
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
-              "-Xptxas", "-v")
+SOURCE = _build.CSRC / "row_cycle.cu"
 KERNEL_NODES = (4, 6, 8)   # ladder sizes the kernel is instantiated for
-
-_lock = threading.Lock()
-_lib = None
-
-
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-    candidates = [Path(cuda_home) / "bin" / "nvcc"] if cuda_home else []
-    found = shutil.which("nvcc")
-    if found:
-        candidates.append(Path(found))
-    candidates.append(Path("/usr/local/cuda/bin/nvcc"))
-    for path in candidates:
-        if path.is_file():
-            return str(path)
-    raise RuntimeError("nvcc not found (set CUDA_HOME); the row-cycle "
-                       "kernel is compiled from csrc/row_cycle.cu at first use")
+_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int]
+             + [ctypes.c_void_p] * 2
+             + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
 
 
-def build() -> Path:
-    """Compile `csrc/row_cycle.cu` into `build/` (once per source and flag
-    set) and return the shared library's path.  The compiler's resource
-    report (`-Xptxas -v`) is kept beside it as `<lib>.ptxas.txt`."""
-    digest = hashlib.sha256(SOURCE.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    lib = BUILD_DIR / f"librow_cycle-{digest}.so"
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    Path(f"{lib}.ptxas.txt").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, lib)
-    return lib
-
-
-def _load():
-    global _lib
-    with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            fn = lib.row_cycle_fused_launch
-            fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int]
-                           + [ctypes.c_void_p] * 2
-                           + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                              ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                              ctypes.c_void_p])
-            fn.restype = ctypes.c_int
-            _lib = lib
-        return _lib
+def build():
+    """Compile `csrc/row_cycle.cu` into `build/` (see `kernels.build`) and
+    return the shared library's path."""
+    return _build.build(SOURCE)
 
 
 def _check_inputs(c, g_branch, gc_res, gc_pre, v0, params) -> None:
     named = {"c": c, "g_branch": g_branch, "gc_res": gc_res,
              "gc_pre": gc_pre, "v0": v0, "params": params}
-    for name, t in named.items():
-        if not t.is_cuda:
-            raise ValueError(f"row_cycle_fused_cuda: {name} is on {t.device}; "
-                             "the kernel takes CUDA tensors only")
-        if t.device != c.device:
-            raise ValueError(f"row_cycle_fused_cuda: {name} is on {t.device}, "
-                             f"c on {c.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"row_cycle_fused_cuda: {name} must be float32, "
-                            f"got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"row_cycle_fused_cuda: {name} must be contiguous")
+    _build.check_cuda_tensors("row_cycle_fused_cuda", named, c)
     if c.ndim != 2:
         raise ValueError(f"row_cycle_fused_cuda: c must be (B, N), got {tuple(c.shape)}")
     b, n = c.shape
@@ -135,7 +70,8 @@ def row_cycle_fused_cuda(c, g_branch, gc_res, gc_pre, v0, params,
     `row_cycle_fused_cuda.launches` per kernel launch.
     """
     _check_inputs(c, g_branch, gc_res, gc_pre, v0, params)
-    fn = _load().row_cycle_fused_launch
+    fn = _build.load(SOURCE, "row_cycle_fused_launch",
+                     _ARGTYPES).row_cycle_fused_launch
     b, n = c.shape
     events = torch.empty((b, N_EVENTS), dtype=torch.float32, device=c.device)
     v_end = torch.empty((b, n), dtype=torch.float32, device=c.device)

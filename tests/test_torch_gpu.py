@@ -1,4 +1,5 @@
-"""The row-cycle CUDA kernel against its plain PyTorch version, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card: the fused row cycle and the multi-step RC ladder (phased engine).
 
 Marked `gpu`: without a GPU every test here skips (the kernel has no CPU
 mode).  This file imports neither JAX nor the reference package, so it
@@ -8,7 +9,9 @@ runs on a machine that has only PyTorch and the CUDA toolkit:
 
 Bars are the reference's Pallas-vs-oracle bars (tests/test_kernels.py):
 event times within one dt, identical NaN (timed-out) pattern, dv_sense
-rtol 1e-3 / atol 1e-5, v_end rtol 1e-4 / atol 1e-5.
+rtol 1e-3 / atol 1e-5, v_end rtol 1e-4 / atol 1e-5; rc_multistep traces
+rtol 1e-5 / atol 1e-6.  Fused vs phased engine: the reference's own bars
+(tests/test_fused_row_cycle.py).
 """
 
 import numpy as np
@@ -16,9 +19,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.core import calibration as cal  # noqa: E402
 from repro_torch.core import dse, transient  # noqa: E402
 from repro_torch.core.space import DesignSpace  # noqa: E402
-from repro_torch.kernels import ops, row_cycle  # noqa: E402
+from repro_torch.kernels import ops, rc_transient, row_cycle  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -128,3 +132,71 @@ def test_sweep_on_card_matches_plain_sweep(cuda):
     assert steps.max().item() <= 1
     best = dse.best_design(k)
     assert (best.tech, best.scheme, best.layers) == ("aos", "sel_strap", 87)
+
+
+def random_ladder(rng, b, n, t, device):
+    """Random ladders with a nonzero clamp network and a rising ramp."""
+    c = rng.uniform(1, 5, (b, n))
+    g = rng.uniform(0.05, 0.2, (b, n - 1))
+    gc = rng.uniform(0.0, 0.3, (b, n))
+    vc = rng.uniform(0.0, 1.1, (b, n))
+    v0 = rng.uniform(0, 1.1, (b, n))
+    ramp = 1.0 - np.exp(-(np.arange(t) + 1) * DT / 0.7)
+    return [torch.as_tensor(np.ascontiguousarray(x, np.float32), device=device)
+            for x in (c, g, gc, vc, v0, ramp)]
+
+
+@pytest.mark.parametrize("b,n,t", [(1000, 4, 64), (1025, 6, 800),
+                                   (129, 8, 100), (1, 6, 5)])
+def test_rc_multistep_kernel_matches_plain(rng, cuda, b, n, t):
+    args = random_ladder(rng, b, n, t, cuda)
+    before = rc_transient.rc_multistep_cuda.launches
+    out_k = ops.rc_multistep(*args, DT, backend="cuda")
+    assert rc_transient.rc_multistep_cuda.launches == before + 1
+    out_p = ops.rc_multistep(*args, DT, backend="ref")
+    torch.cuda.synchronize()
+    assert out_k.shape == (t, b, n)
+    np.testing.assert_allclose(out_k.cpu().numpy(), out_p.cpu().numpy(),
+                               rtol=1e-5, atol=1e-6)
+
+
+def test_rc_multistep_wrapper_rejects_unsupported_inputs(rng, cuda):
+    args = random_ladder(rng, 64, 5, 8, cuda)
+    with pytest.raises(ValueError, match="N=5 not supported"):
+        rc_transient.rc_multistep_cuda(*args, DT)
+    args = random_ladder(rng, 64, 6, 8, cuda)
+    with pytest.raises(ValueError, match="ramp must be"):
+        rc_transient.rc_multistep_cuda(*args[:5], args[5][None], DT)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        rc_transient.rc_multistep_cuda(*args[:5], args[5].cpu(), DT)
+
+
+@pytest.mark.parametrize("replica", [False, True], ids=["fixed", "replica"])
+@pytest.mark.parametrize("tech,scheme,layers", [
+    ("si", "sel_strap", [87, 137]), ("aos", "sel_strap", [87, 137]),
+    ("d1b", "direct", [1])])
+def test_phased_engine_on_card_matches_fused(cuda, tech, scheme, layers,
+                                             replica):
+    t = cal.get_tech(tech)
+    before = rc_transient.rc_multistep_cuda.launches
+    p = transient.simulate_row_cycle(t, scheme, layers, traces=True,
+                                     replica=replica, device=cuda)
+    assert rc_transient.rc_multistep_cuda.launches == before + (
+        4 if replica else 3)
+    f = transient.simulate_row_cycle(t, scheme, layers, replica=replica,
+                                     device=cuda)
+    plain = transient.simulate_row_cycle_phased(
+        t, scheme, layers, backend="ref", replica=replica, device=cuda)
+    for name in ("t_fire_ns", "t_restore_ns", "t_precharge_ns", "trc_ns"):
+        a, b = getattr(p, name), getattr(plain, name)
+        assert bool(((a == b) | (a.isnan() & b.isnan())).all()), name
+
+    def diff(name):
+        return (getattr(f, name) - getattr(p, name)).abs().max().item()
+
+    assert diff("t_precharge_ns") <= DT + 1e-6
+    res = ((f.t_restore_ns - f.t_sense_ns)
+           - (p.t_restore_ns - p.t_sense_ns)).abs().max().item()
+    assert res <= DT + 1e-5
+    assert diff("t_sense_ns") <= DT + 0.05
+    assert diff("trc_ns") <= 3 * DT + 0.05

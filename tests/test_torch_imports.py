@@ -12,7 +12,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.core import calibration, dse, space, transient  # noqa: E402
+from repro_torch.core import (calibration, density, dse, report,  # noqa: E402
+                              space, transient)
 from repro_torch import interop  # noqa: E402
 
 REPO = Path(__file__).resolve().parents[1]
@@ -77,6 +78,18 @@ ENTRY_POINTS = {
             [(calibration.AOS, "sel_strap", [87])])),
     "transient.nominal_trc_ns": lambda: transient.nominal_trc_ns(
         calibration.AOS),
+    "transient.simulate_row_cycle(traces=True)": lambda: (
+        transient.simulate_row_cycle(calibration.AOS, "sel_strap", [87],
+                                     traces=True)),
+    "transient.simulate_row_cycle_phased": lambda: (
+        transient.simulate_row_cycle_phased(calibration.AOS, "sel_strap",
+                                            [87])),
+    "density.layers_for_density": lambda: density.layers_for_density(
+        calibration.AOS, 2.6),
+    "report.fig9a_stack_height": lambda: report.fig9a_stack_height(),
+    "report.table1_summary": lambda: report.table1_summary(),
+    "report.mc_tail_yield_table": lambda: report.mc_tail_yield_table(
+        samples=8),
     "interop.operands_from_numpy": lambda: interop.operands_from_numpy(
         *([[[1.0] * 6]] * 5), [[1.0] * 6], [1.0], [1.0]),
 }

@@ -214,3 +214,23 @@ def test_check_operands_rejects_main_row_at_even_index(rng, monkeypatch):
     shifted[5][:, 5] = np.roll(shifted[5][:, 5], 1)           # [main, replica]
     with pytest.raises(contracts.ContractError, match="even index"):
         contracts.check_operands(_operands(shifted))
+
+
+@pytest.mark.parametrize("source", ["row_cycle.cu", "rc_multistep.cu"])
+def test_build_command_targets_sm90a_without_fma_contraction(source):
+    """Both kernel sources build the same way: nvcc for sm_90a with FMA
+    contraction off (so each kernel rounds like its plain version), into
+    a library named by the source and a hash of source and flags."""
+    from repro_torch.kernels import build, rc_transient, row_cycle
+
+    path = build.CSRC / source
+    assert path.is_file()
+    cmd = build.nvcc_command(path, build.BUILD_DIR / "lib.so")
+    assert "arch=compute_90a,code=sm_90a" in cmd
+    assert "-fmad=false" in cmd
+    assert cmd[-1] == str(path)
+    lib = build.library_path(path)
+    assert lib.parent == build.BUILD_DIR
+    assert lib.name.startswith(f"lib{path.stem}-") and lib.suffix == ".so"
+    assert {row_cycle.SOURCE, rc_transient.SOURCE} == {
+        build.CSRC / "row_cycle.cu", build.CSRC / "rc_multistep.cu"}

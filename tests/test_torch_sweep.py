@@ -246,9 +246,6 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         dse.sweep(space.DesignSpace.paper_targets(), sharding=object(),
                   device="cpu")
-    with pytest.raises(NotImplementedError, match="phased"):
-        transient.simulate_row_cycle(cal.AOS, "sel_strap", [87], traces=True,
-                                     device="cpu")
     with pytest.raises(TypeError, match="int seed"):
         space.DesignSpace.paper_targets().with_mc(samples=2, key=(1, 2))
     with pytest.raises(ValueError, match="B_ALIGN"):
