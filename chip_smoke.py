@@ -6,8 +6,9 @@
 Phases (any failure exits non-zero and prints no result line):
 
 1. the card's name and power limit (nvidia-smi);
-2. build both CUDA kernels (row_cycle.cu, rc_multistep.cu) from
-   src/repro_torch/kernels/csrc/ with nvcc into build/, in parallel;
+2. build the three CUDA kernels (row_cycle.cu, rc_multistep.cu,
+   strap_attend.cu) from src/repro_torch/kernels/csrc/ with nvcc into
+   build/, in parallel;
 3. hold the row-cycle kernel (backend="cuda") against its plain PyTorch
    version (backend="ref") on the card: N = 4, 6, 8, replica pairs,
    padding rows, timed-out rows, legacy (B, 5) params, B = 2048 and the
@@ -32,7 +33,20 @@ Phases (any failure exits non-zero and prints no result line):
    timed and held against the same reductions on the CPU;
 9. every `report.*` table at its default arguments on the card, with the
    Table-I goldens, each timed;
-10. one JSON line listing the ported kernels, then the card line, then the
+10. the strap_attend kernel against its plain version: float32 at every
+   shape of the reference's kernel test, each with a masked strap, a
+   partial length, a duplicated id and an all-masked row; bf16 at
+   Qwen2-1.5B's decode shape;
+11. the LM server at smoke size (`qwen2-1.5b-smoke`, float32) on the card:
+   the strap-exact engine gives the dense engine's greedy tokens;
+12. the LM server at full width (`qwen2-1.5b`, bf16, seeded weights): 8
+   requests of 2048-token prompts, 32 new tokens, through
+   `ServeEngine.generate` with the dense, strap-exact and strap-gated
+   (top 4) backends; strap_attend's launches counted, every call of the
+   path held against the plain version, prefill and decode-step times,
+   tokens/s, the strap engines teacher-forced with the dense tokens, one
+   decode step under the profiler;
+13. one JSON line listing the ported kernels, then the card line, then the
    result line {"ok": true, "device": {...}}.
 
 It imports nothing of JAX and nothing of the JAX package.
@@ -41,6 +55,7 @@ It imports nothing of JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -60,7 +75,24 @@ TAIL_SAMPLES = 4096             # report.mc_tail_yield_table's default
 RC_RTOL, RC_ATOL = 1e-5, 1e-6   # tests/test_kernels.py's rc_multistep bar
 REGEN_SLACK_NS = 0.05           # tests/test_fused_row_cycle.py's analog slack
 F32_PEAK_OPS = 67e12            # H100 SXM float32 (non-tensor) peak, data sheet
+BF16_PEAK_OPS = 989e12          # H100 SXM bf16 dense tensor-core peak, data sheet
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 bandwidth, data sheet
+STRAP_F32_TOL = 3e-5            # tests/test_kernels.py's strap bars (rtol = atol)
+STRAP_BF16_TOL = 3e-2
+# bf16 bar tied to the output's scale: kernel and plain version both
+# accumulate in float32 and round once, so they may differ by a rounding
+# step; 2^-6 |plain| is at least two bf16 ulps of |plain|, 1e-3 a floor
+STRAP_BF16_ULP_RTOL, STRAP_BF16_ULP_ATOL = 2.0 ** -6, 1e-3
+SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION",
+                 "MATH")
+STRAP_SHAPES = [(2, 8, 16, 2, 64, 8, 2), (1, 4, 8, 1, 128, 4, 4),
+                (3, 6, 32, 3, 32, 6, 3), (2, 16, 8, 4, 64, 16, 4),
+                (1, 8, 128, 2, 128, 2, 2)]   # (B, P, page, Hkv, D, Hq, G)
+LM_ARCH = "qwen2-1.5b"
+LM_B, LM_PROMPT, LM_NEW = 8, 2048, 32
+LM_MAX = LM_PROMPT + LM_NEW + 16  # examples/serve_lm.py's PROMPT + NEW + 16
+LM_BACKENDS = (("dense", "dense", 0), ("strap_exact", "strap", 0),
+               ("strap_gated_top4", "strap", 4))
 
 
 class SmokeFailure(RuntimeError):
@@ -288,14 +320,16 @@ def rc_compare(ops_mod, args, dt) -> dict:
 
 
 @contextmanager
-def recording(module, name):
-    """Record the arguments of every call of `module.name`."""
+def recording(module, name, outputs: bool = False):
+    """Record the arguments of every call of `module.name` (with its
+    result, as a third item, when `outputs`)."""
     original = getattr(module, name)
     calls = []
 
     def wrapper(*args, **kwargs):
-        calls.append((args, kwargs))
-        return original(*args, **kwargs)
+        out = original(*args, **kwargs)
+        calls.append((args, kwargs, out) if outputs else (args, kwargs))
+        return out
 
     setattr(module, name, wrapper)
     try:
@@ -372,6 +406,432 @@ def same_events(a, b) -> bool:
 
 
 # --------------------------------------------------------------------------
+# strap_attend and the LM server
+# --------------------------------------------------------------------------
+
+def strap_case(rng, b, p, page, hkv, d, hq, g, dev, dtype):
+    """Random pages and a strap selection with, where the shape allows, a
+    masked strap and a partial length (row 0), a duplicated id (last row)
+    and an all-masked row (row 1)."""
+    import numpy as np
+    import torch
+
+    s = p // g
+    q, k, v = (torch.as_tensor(rng.normal(size=shape).astype(np.float32),
+                               device=dev).to(dtype)
+               for shape in ((b, hq, d), (b, p, page, hkv, d),
+                             (b, p, page, hkv, d)))
+    ids = np.stack([rng.permutation(s) for _ in range(b)])
+    lengths = np.full(b, p * page)
+    if s > 1:
+        ids[0, -1] = -1
+        lengths[0] = p * page - page * g // 2 - 1
+        ids[-1, 0] = ids[-1, 1]
+    if b > 1:
+        ids[1] = -1
+    as_i32 = lambda x: torch.as_tensor(np.asarray(x, np.int32), device=dev)
+    return (q, k, v, as_i32(ids), g), {"lengths": as_i32(lengths)}
+
+
+def strap_compare(ops_mod, args, kwargs, out_k, tol) -> dict:
+    """A strap_attend result of the kernel against the plain version on
+    the same inputs, at rtol = atol = `tol` and, in bf16, also within two
+    bf16 ulps of the plain output plus 1e-3; returns max |kernel - plain|
+    and the plain output's scale (max and RMS of its magnitude)."""
+    import torch
+
+    out_p = ops_mod.strap_attend(*args, **{**kwargs, "backend": "ref"})
+    check(out_k.dtype == out_p.dtype == args[0].dtype,
+          f"strap_attend output dtype {out_k.dtype}")
+    plain = out_p.float().abs()
+    err = (out_k.float() - out_p.float()).abs()
+    res = {"max_abs_err": err.max().item(), "plain_abs_max": plain.max().item(),
+           "plain_rms": plain.square().mean().sqrt().item()}
+    bars = [(tol, tol)]
+    if out_p.dtype == torch.bfloat16:
+        bars.append((STRAP_BF16_ULP_RTOL, STRAP_BF16_ULP_ATOL))
+    check(bool(torch.isfinite(out_k).all().item()),
+          "strap_attend kernel gave non-finite values")
+    for rtol, atol in bars:
+        check(bool((err <= atol + rtol * plain).all().item()),
+              f"strap_attend kernel outside rtol {rtol} / atol {atol} of its "
+              f"plain version ({res}, shape {tuple(args[1].shape)})")
+    return res
+
+
+def strap_bound_ms(q, k_pages, strap_ids, pages_per_strap, lengths):
+    """The least time the card could take for one strap_attend call: the
+    bytes it must move (q and the output, the ids and lengths, and the K
+    and V rows of the valid tokens of the selected straps, each once) over
+    the HBM rate, or its operations (a multiply-add against K and one
+    against V per query head, element and valid token; exp, max and sum
+    per query head and token) over the peak rate for the inputs' type."""
+    import torch
+
+    b, p, page, hkv, d = k_pages.shape
+    hq = q.shape[1]
+    blk = pages_per_strap * page
+    ids = strap_ids.long()
+    valid = (ids >= 0) & (ids < p // pages_per_strap)
+    start = ids.clamp(min=0) * blk
+    n_tok = torch.where(valid, (lengths.long()[:, None] - start).clamp(0, blk),
+                        0)
+    tokens = int(n_tok.sum().item())
+    elt = k_pages.element_size()
+    n_bytes = (2 * tokens * hkv * d * elt + 2 * q.numel() * q.element_size()
+               + 4 * (strap_ids.numel() + lengths.numel()))
+    n_ops = tokens * hq * (4 * d + 3)
+    peak = BF16_PEAK_OPS if q.dtype == torch.bfloat16 else F32_PEAK_OPS
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / peak * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations"), {
+        "bytes": n_bytes, "ops": n_ops, "tokens": tokens}
+
+
+def sdpa_forms(args, kwargs) -> dict:
+    """The selected straps' tokens gathered as SDPA operands, gathered
+    outside the library call's timing, in the forms SDPA's backends take:
+    q (B, Hq, 1, D) and K, V (B, Hkv, S*blk, D) under a boolean valid-token
+    mask with `enable_gqa`; K and V repeated per query head under an
+    additive float mask; and, where the valid tokens are one common prefix
+    of every row (exact mode with equal lengths), K and V cut to it with no
+    mask.  Returns {form: (operands, keyword arguments)}."""
+    import torch
+
+    q, k_pages, v_pages, strap_ids, g = args
+    lengths = kwargs["lengths"]
+    b, p, page, hkv, d = k_pages.shape
+    grp = q.shape[1] // hkv
+    blk = g * page
+    ids = strap_ids.long()
+    valid = (ids >= 0) & (ids < p // g)
+    safe = torch.where(valid, ids, 0)
+    rows = torch.arange(b, device=q.device)[:, None]
+    gather = lambda x: x.reshape(b, p // g, blk, hkv, d)[rows, safe].reshape(
+        b, -1, hkv, d).transpose(1, 2).contiguous()
+    tok = safe[..., None] * blk + torch.arange(blk, device=q.device)
+    ok = (valid[..., None] & (tok < lengths.long()[:, None, None])).reshape(
+        b, 1, 1, -1)
+    qs, ks, vs = q[:, :, None, :].contiguous(), gather(k_pages), gather(v_pages)
+    additive = torch.zeros(ok.shape, dtype=q.dtype, device=q.device)
+    forms = {
+        "bool_mask_gqa": ((qs, ks, vs), {"attn_mask": ok, "enable_gqa": True}),
+        "float_mask_repeated_kv": (
+            (qs, ks.repeat_interleave(grp, 1), vs.repeat_interleave(grp, 1)),
+            {"attn_mask": additive.masked_fill(~ok, float("-inf"))})}
+    n_valid = ok.reshape(b, -1).sum(-1)
+    cut = int(n_valid[0].item())
+    if bool((n_valid == cut).all().item()) and bool(ok[..., :cut].all().item()):
+        forms["valid_prefix_gqa"] = ((qs, ks[:, :, :cut], vs[:, :, :cut]),
+                                     {"enable_gqa": True})
+    return forms
+
+
+def sdpa_library(calls, outs) -> dict:
+    """`F.scaled_dot_product_attention` on the gathered selected tokens of
+    `calls`, in each operand form (`sdpa_forms`) under each backend forced
+    in turn (`sdpa_kernel`): ms per call, max |SDPA - kernel| and whether
+    it is within the reference's bf16 bar, or why the backend refused the
+    form.  Also the form the dispatcher gets by default, with the kernels
+    a profiled call of it runs, which name the backend it picked."""
+    import warnings
+
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    n = len(calls)
+    per_call = [sdpa_forms(a, kw) for a, kw in calls]
+    res = {}
+    for form in per_call[0]:
+        def run(form=form):
+            return [F.scaled_dot_product_attention(*x[form][0], **x[form][1])
+                    for x in per_call]
+
+        for backend in SDPA_BACKENDS:
+            key = f"{form}/{backend.lower()}"
+            try:
+                with warnings.catch_warnings(), sdpa_kernel(
+                        getattr(SDPBackend, backend)):
+                    warnings.simplefilter("ignore")
+                    got = run()                           # also the warm-up
+                    ms = cuda_ms(run, 5)[0] / n
+            except RuntimeError as exc:                   # form not taken
+                res[key] = {"runs": False,
+                            "why": (str(exc).splitlines() or [""])[0][:160]}
+                continue
+            errs = [(x[:, :, 0].float() - o.float()).abs()
+                    for x, o in zip(got, outs)]
+            within = all(bool((e <= STRAP_BF16_TOL + STRAP_BF16_TOL
+                               * o.float().abs()).all().item())
+                         for e, o in zip(errs, outs))
+            res[key] = {"runs": True, "ms": ms,
+                        "max_abs_err": max(e.max().item() for e in errs),
+                        "within_bf16_bar": within}
+    default = per_call[-1]["bool_mask_gqa"]
+    res["default_dispatch"] = {
+        "form": "bool_mask_gqa",
+        "ms": cuda_ms(lambda: [F.scaled_dot_product_attention(
+            *x["bool_mask_gqa"][0], **x["bool_mask_gqa"][1])
+            for x in per_call], 5)[0] / n,
+        "profile": profile(lambda: F.scaled_dot_product_attention(
+            *default[0], **default[1]))}
+    return res
+
+
+def strap_line(kernel, ops_mod, layer_calls, launches, max_err) -> dict:
+    """The kernels-line entry of strap_attend, timed at the full-width
+    path's last exact-mode decode step: its calls for all layers in turn
+    (28 distinct caches, 0.5 GB, so L2 holds none of them between
+    launches, as on the path).  `library_ms` is the fastest SDPA backend
+    and operand form that agrees with the kernel at the bf16 bar; the
+    kernel is also timed on the first 1, 2, 4 and 8 rows of the batch
+    (2 to 16 blocks)."""
+    calls = [(a, kw) for a, kw, _ in layer_calls]
+    n = len(calls)
+
+    def each(fn):
+        return lambda: [fn(a, kw) for a, kw in calls]
+
+    ms = cuda_ms(each(lambda a, kw: kernel(*a, lengths=kw["lengths"])),
+                 5)[0] / n
+    plain_ms = cuda_ms(each(lambda a, kw: ops_mod.strap_attend(
+        *a, **{**kw, "backend": "ref"})), 2)[0] / n
+    by_rows = {}
+    for r in (1, 2, 4, 8):
+        sub = [((a[0][:r], a[1][:r], a[2][:r], a[3][:r], a[4]),
+                kw["lengths"][:r]) for a, kw in calls]
+        by_rows[str(r)] = cuda_ms(lambda: [kernel(*a, lengths=ln)
+                                           for a, ln in sub], 5)[0] / n
+    library = sdpa_library(calls, [out for _, _, out in layer_calls])
+    agreeing = {k: v for k, v in library.items()
+                if v.get("runs") and v.get("within_bf16_bar")}
+    check(bool(agreeing), f"no SDPA backend computes strap_attend's "
+          f"function within the bf16 bar: {library}")
+    best = min(agreeing, key=lambda k: agreeing[k]["ms"])
+    a, kw = calls[-1]
+    b_ms, b_by, work = strap_bound_ms(a[0], a[1], a[3], a[4], kw["lengths"])
+    return {"name": "strap_attend", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/strap_attend.cu",
+            "replaces": "src/repro/kernels/strap_gather.py:101",
+            "launches": launches, "max_abs_err": max_err,
+            "max_abs_err_unit": "attention output (bf16 on the path)",
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": agreeing[best]["ms"],
+            "library_call": "F.scaled_dot_product_attention on the gathered "
+                            f"selected tokens, {best}",
+            "library_max_abs_err": agreeing[best]["max_abs_err"],
+            "library_by_backend": library, "ms_by_rows": by_rows,
+            "shape": {"q": list(a[0].shape), "pages": list(a[1].shape),
+                      "strap_ids": list(a[3].shape)},
+            "bound_work": work, "timed_calls": n}
+
+
+def strap_kernel_phase(ops_mod, rng, dev) -> tuple[dict, float]:
+    """strap_attend kernel vs plain version: float32 at every test shape,
+    bf16 at Qwen2-1.5B's decode shape."""
+    import torch
+
+    res, worst = {}, 0.0
+    cases = [(shape, torch.float32, STRAP_F32_TOL) for shape in STRAP_SHAPES]
+    cases.append(((8, 36, 64, 2, 128, 12, 4), torch.bfloat16, STRAP_BF16_TOL))
+    for shape, dtype, tol in cases:
+        args, kw = strap_case(rng, *shape, dev, dtype)
+        out_k = ops_mod.strap_attend(*args, **kw, backend="cuda")
+        cmp = strap_compare(ops_mod, args, kw, out_k, tol)
+        if shape[0] > 1:
+            check(not bool(out_k[1].any().item()),
+                  "an all-masked row is not zeros")
+        key = "x".join(map(str, shape)) + "_" + str(dtype).split(".")[-1]
+        res[key] = cmp
+        if dtype == torch.float32:
+            worst = max(worst, cmp["max_abs_err"])
+        log(f"[strap-vs-plain] {key}: {json.dumps(cmp)}")
+    return res, worst
+
+
+def smoke_engine_phase(dev) -> dict:
+    """qwen2-1.5b-smoke (float32) on the card: the strap-exact engine gives
+    the dense engine's greedy tokens (the reference's claim,
+    tests/test_strap_cache.py)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels import strap_gather
+    from repro_torch.memory.strap_cache import StrapCacheConfig
+    from repro_torch.models import registry as models
+    from repro_torch.serving.engine import ServeEngine
+
+    cfg = get_arch(LM_ARCH + "-smoke")
+    params = models.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                                device=dev)
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 32))
+    out, launches = {}, {}
+    for backend in ("dense", "strap"):
+        eng = ServeEngine(cfg, params, max_tokens=48, cache_backend=backend,
+                          strap_cfg=StrapCacheConfig(8, 2), device=dev)
+        strap_gather.strap_attend_cuda.launches = 0
+        eng.prefill(prompts)
+        out[backend] = torch.cat([eng.step()[0] for _ in range(6)], 1)
+        torch.cuda.synchronize()
+        launches[backend] = strap_gather.strap_attend_cuda.launches
+    check(launches == {"dense": 0, "strap": cfg.n_layers * 6},
+          f"smoke engine launches {launches}")
+    check(torch.equal(out["dense"], out["strap"]),
+          "smoke: strap-exact tokens differ from dense")
+    log(f"[serve-smoke] {cfg.name}: strap-exact == dense greedy tokens "
+        f"{out['dense'].tolist()}; launches {launches}")
+    return {"tokens": out["dense"].tolist(), "launches": launches}
+
+
+def serve_phase(args, ops_mod, strap_kernel, dev) -> tuple[dict, dict]:
+    """The LM server at full width: `ServeEngine.generate` with each
+    backend (the main path, launches counted), every strap_attend call of
+    it held against the plain version, a timed true-greedy decode
+    (`step()` with no token), the strap engines teacher-forced with the
+    dense engine's tokens, and one decode step under the profiler.
+    Returns the record and the exact-mode calls of the last step."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.memory.strap_cache import StrapCacheConfig
+    from repro_torch.models import registry as models
+    from repro_torch.models.common import lm_logits
+    from repro_torch.serving.engine import ServeEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    precision = {
+        "matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+        "cudnn.allow_tf32": torch.backends.cudnn.allow_tf32,
+        "matmul.allow_bf16_reduced_precision_reduction":
+            torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}
+    log(f"[serve] precision: {json.dumps(precision)}")
+    cfg = get_arch(LM_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = models.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(args.seed), device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = [params["embed"], params["final_w"],
+              *params["layers"].values()]
+    n_params = sum(t.numel() for t in leaves)
+    param_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    check(params["embed"].dtype == torch.bfloat16, "params are not bf16")
+    log(f"[serve] {cfg.name}: {n_params:,} params ({param_bytes / 1e9:.3f} "
+        f"GB bf16) initialised on the card in {init_s:.2f} s")
+    prompts = np.random.default_rng(args.seed).integers(
+        0, cfg.vocab_size, (LM_B, LM_PROMPT)).astype(np.int32)
+    record = {"arch": cfg.name, "precision": precision, "init_s": init_s,
+              "n_params": n_params, "param_bytes": param_bytes,
+              "batch": LM_B, "prompt": LM_PROMPT, "new_tokens": LM_NEW,
+              "max_tokens": LM_MAX, "backends": {}}
+    sync = torch.cuda.synchronize
+    dense_tokens = dense_logits = None
+    line_calls = None
+    worst = 0.0
+    for label, backend, top in LM_BACKENDS:
+        eng = ServeEngine(cfg, params, max_tokens=LM_MAX,
+                          cache_backend=backend,
+                          strap_cfg=StrapCacheConfig(top_straps=top),
+                          device=dev)
+        # the main path: generate, through the entry point, launches counted
+        strap_kernel.launches = 0
+        with recording(ops_mod, "strap_attend", outputs=True) as calls:
+            sync()
+            t0 = time.perf_counter()
+            out = eng.generate(prompts, LM_NEW)
+            sync()
+            gen_s = time.perf_counter() - t0
+        launches = strap_kernel.launches
+        want = cfg.n_layers * LM_NEW if backend == "strap" else 0
+        check(launches == want == len(calls),
+              f"{label}: {launches} strap_attend launches, {len(calls)} "
+              f"calls, expected {want}")
+        check(tuple(out.shape) == (LM_B, LM_NEW) and int(out.min()) >= 0
+              and int(out.max()) < cfg.vocab_size, f"{label}: tokens {out}")
+        stats = dataclasses.asdict(eng.stats)
+        stats["traffic_reduction"] = eng.stats.traffic_reduction
+        check(stats["tokens_decoded"] == LM_B * LM_NEW, f"{label}: {stats}")
+        cmps = [strap_compare(ops_mod, a, kw, o, STRAP_BF16_TOL)
+                for a, kw, o in calls]
+        call_err = max((c["max_abs_err"] for c in cmps), default=0.0)
+        plain_scale = {
+            "abs_max": max((c["plain_abs_max"] for c in cmps), default=None),
+            "rms_min": min((c["plain_rms"] for c in cmps), default=None),
+            "rms_max": max((c["plain_rms"] for c in cmps), default=None)}
+        worst = max(worst, call_err)
+        if label == "strap_exact":
+            line_calls = calls[-cfg.n_layers:]
+        del calls
+        # a true greedy decode (step() with no token), timed step by step
+        sync()
+        t0 = time.perf_counter()
+        eng.prefill(prompts)
+        sync()
+        prefill_s = time.perf_counter() - t0
+        steps, toks, logits = [], [], []
+        for _ in range(LM_NEW):
+            t0 = time.perf_counter()
+            tok, lg = eng.step()
+            sync()
+            steps.append((time.perf_counter() - t0) * 1e3)
+            toks.append(tok)
+            logits.append(lg)
+        toks = torch.cat(toks, 1)
+        check(all(bool(torch.isfinite(x).all().item()) for x in logits),
+              f"{label}: non-finite logits")
+        step_ms = statistics.median(steps)
+        res = {"generate_s": gen_s, "launches": launches, "stats": stats,
+               "max_abs_err_vs_plain": call_err if backend == "strap"
+               else None, "plain_output_scale": plain_scale if
+               backend == "strap" else None, "prefill_s": prefill_s,
+               "decode_step_ms_median": step_ms, "decode_step_ms": steps,
+               "decode_tokens_per_s": LM_B / (step_ms / 1e3),
+               "generate_tokens_per_s": LM_B * LM_NEW / gen_s,
+               "generate_tokens": out[:, 0].tolist()}
+        # one decode step under the profiler (two more steps of room)
+        res["profile"] = profile(lambda: eng.step())
+        if backend == "dense":
+            dense_tokens, dense_logits = toks, logits
+        else:
+            eng.prefill(prompts)
+            d_max, agree = [], []
+            for i in range(LM_NEW):
+                _, lg = eng.step(dense_tokens[:, i:i + 1])
+                d_max.append((lg - dense_logits[i]).abs().max().item())
+                agree.append((lg.argmax(-1) == dense_logits[i].argmax(-1))
+                             .float().mean().item())
+            res["teacher_forced_vs_dense"] = {
+                "max_abs_dlogits": max(d_max), "per_step": d_max,
+                "greedy_agreement": statistics.mean(agree),
+                "logit_scale": dense_logits[0].abs().max().item()}
+            res["free_greedy_agreement_vs_dense"] = (
+                toks == dense_tokens).float().mean().item()
+        record["backends"][label] = res
+        log(f"[serve] {label}: " + json.dumps(
+            {k: v for k, v in res.items() if k not in ("decode_step_ms",)}))
+        del eng
+    # what lm_logits' float32 cast of the tied table costs a step
+    h = torch.zeros(LM_B, 1, cfg.d_model, dtype=torch.bfloat16, device=dev)
+    record["lm_logits_ms"] = cuda_ms(lambda: lm_logits(cfg, params, h), 10)[0]
+    record["embed_cast_ms"] = cuda_ms(lambda: params["embed"].float(), 10)[0]
+    record["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    record["max_abs_err_vs_plain"] = worst
+    log(f"[serve] lm_logits {record['lm_logits_ms']:.3f} ms a step, of which "
+        f"the float32 cast of the table {record['embed_cast_ms']:.3f} ms; "
+        f"peak memory {record['peak_memory_gb']:.2f} GB")
+    del params
+    return record, line_calls
+
+
+# --------------------------------------------------------------------------
 # main
 # --------------------------------------------------------------------------
 
@@ -388,7 +848,8 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise SmokeFailure("torch.cuda.is_available() is False: this script "
                            "runs the port on an NVIDIA GPU")
-    if not (SRC / "repro_torch" / "kernels" / "csrc" / "row_cycle.cu").is_file():
+    if not all((SRC / "repro_torch" / "kernels" / "csrc" / f).is_file()
+               for f in ("row_cycle.cu", "rc_multistep.cu", "strap_attend.cu")):
         raise SmokeFailure(f"the port's sources are not next to {__file__} "
                            "(run it from a checkout of the repository)")
     sys.path.insert(0, str(SRC))
@@ -398,13 +859,14 @@ def main(argv=None) -> int:
     from repro_torch.core import calibration as cal
     from repro_torch.core import dse, report, transient
     from repro_torch.core.space import DEFAULT_LAYER_GRID, DesignSpace
-    from repro_torch.kernels import ops, rc_transient, row_cycle
+    from repro_torch.kernels import ops, rc_transient, row_cycle, strap_gather
 
     wall0 = time.perf_counter()
     record: dict = {"seed": args.seed}
     dev = torch.device("cuda")
     kernel = row_cycle.row_cycle_fused_cuda
     rc_kernel = rc_transient.rc_multistep_cuda
+    strap_kernel = strap_gather.strap_attend_cuda
     dt = transient.DT_NS
     caps = (transient.N_ACT_STEPS, transient.N_RESTORE_STEPS,
             transient.N_PRE_STEPS)
@@ -415,10 +877,11 @@ def main(argv=None) -> int:
     log(f"[card] {card} | torch {torch.__version__} cuda {torch.version.cuda}")
     record["card"] = card
 
-    # 2. build both kernels, one nvcc each, started together
+    # 2. build the three kernels, one nvcc each, started together
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        libs = list(pool.map(lambda m: m.build(), (row_cycle, rc_transient)))
+    kernel_modules = (row_cycle, rc_transient, strap_gather)
+    with ThreadPoolExecutor(max_workers=len(kernel_modules)) as pool:
+        libs = list(pool.map(lambda m: m.build(), kernel_modules))
     build_s = time.perf_counter() - t0
     log(f"[build] {', '.join(lib.name for lib in libs)} in {build_s:.2f} s")
     for lib in libs:
@@ -772,8 +1235,20 @@ def main(argv=None) -> int:
     record["report"] = {k: tables[k] for k in ("table1_summary",
                                                "mc_tail_yield_table")}
 
-    # 10. the kernels line: one 2048-row chunk of the sized run, the path's
-    #    default shape; rc_multistep at the phased path's ACT call
+    # 10. strap_attend kernel vs its plain version
+    strap_cmp, strap_f32_err = strap_kernel_phase(ops, rng, dev)
+    record["strap_vs_plain"] = strap_cmp
+
+    # 11. the LM server at smoke size, strap-exact vs dense
+    record["serve_smoke"] = smoke_engine_phase(dev)
+
+    # 12. the LM server at full width: the slice's main path
+    record["serve"], strap_calls = serve_phase(args, ops, strap_kernel, dev)
+    strap_err = max(strap_f32_err, record["serve"]["max_abs_err_vs_plain"])
+
+    # 13. the kernels line: one 2048-row chunk of the sized run, the path's
+    #    default shape; rc_multistep at the phased path's ACT call;
+    #    strap_attend at the full-width path's last exact-mode step
     chunk = [x[:transient.DEFAULT_B_CHUNK].contiguous()
              for x in mc_plan.operands[:6]]
     kernel_ms, (evt, _) = cuda_ms(lambda: kernel(*chunk, dt, *caps), 20)
@@ -804,7 +1279,11 @@ def main(argv=None) -> int:
         "full_sweep_plain_ms": plain_full_ms,
         "full_sweep_work": full_work,
     }, rc_line(rc_kernel, ops, phased_calls[0][0], phased_launches["fixed"],
-               rc_err)]}
+               rc_err),
+        strap_line(strap_kernel, ops, strap_calls,
+                   record["serve"]["backends"]["strap_exact"]["launches"],
+                   strap_err)]}
+    log(f"[kernels] strap_attend: " + json.dumps(line["kernels"][2]))
     record["kernels"] = line["kernels"]
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)

@@ -1,0 +1,12 @@
+"""Qwen2-1.5B: dense GQA (kv=2) with QKV bias, tied embeddings."""
+
+from .base import ArchConfig
+
+QWEN2_1_5B = ArchConfig(
+    name="qwen2-1.5b", family="dense", n_layers=28, d_model=1536,
+    n_heads=12, n_kv_heads=2, d_ff=8960, vocab_size=151936,
+    qkv_bias=True, rope_theta=1e6, tie_embeddings=True,
+    source="arXiv:2407.10671; hf",
+)
+
+CONFIG = QWEN2_1_5B

@@ -16,6 +16,8 @@ from dataclasses import dataclass, fields, replace
 import numpy as np
 import torch
 
+from ..device import resolve_device
+
 
 @dataclass(frozen=True)
 class DesignPoint:
@@ -474,11 +476,13 @@ class DesignBatch:
         return [self.point(i) for i in torch.nonzero(self.valid).reshape(-1).tolist()]
 
     @classmethod
-    def from_points(cls, points, device="cpu") -> "DesignBatch":
-        """Bridge a legacy `list[DesignPoint]` into a batch on `device`.
+    def from_points(cls, points, device="cuda") -> "DesignBatch":
+        """Bridge a legacy `list[DesignPoint]` into a batch on `device`
+        (default "cuda"; raises without a GPU unless `device="cpu"`).
         `DesignPoint` records no manufacturability (only the combined
         `feasible` verdict), so `manufacturable` is a placeholder (all
         True); the timing fields it does not carry are NaN."""
+        device = resolve_device(device)
         points = list(points)
         tech_names: list = []
         scheme_names: list = []

@@ -258,19 +258,21 @@ def pareto_mask(batch: DesignBatch, require_feasible: bool = True,
     return cand & ~dominated
 
 
-def as_batch(points_or_batch) -> DesignBatch:
-    """A `DesignBatch` passes through; a legacy `list[DesignPoint]` is
-    bridged via `DesignBatch.from_points` (on the CPU)."""
+def as_batch(points_or_batch, device="cuda") -> DesignBatch:
+    """A `DesignBatch` passes through (on its own device); a legacy
+    `list[DesignPoint]` is bridged via `DesignBatch.from_points` onto
+    `device`."""
     if isinstance(points_or_batch, DesignBatch):
         return points_or_batch
-    return DesignBatch.from_points(list(points_or_batch))
+    return DesignBatch.from_points(list(points_or_batch), device=device)
 
 
 def pareto_front(points_or_batch, require_feasible: bool = True,
-                 extra_maximize=(), extra_minimize=()):
+                 extra_maximize=(), extra_minimize=(), device="cuda"):
     """Non-dominated set.  `DesignBatch` in -> filtered `DesignBatch` out;
-    legacy `list[DesignPoint]` in -> list out (order preserved)."""
-    batch = as_batch(points_or_batch)
+    legacy `list[DesignPoint]` in -> list out (order preserved), computed
+    on `device`."""
+    batch = as_batch(points_or_batch, device)
     mask = pareto_mask(batch, require_feasible,
                        extra_maximize=extra_maximize,
                        extra_minimize=extra_minimize)
@@ -281,15 +283,17 @@ def pareto_front(points_or_batch, require_feasible: bool = True,
 
 def best_design(points_or_batch,
                 density_target: float = cal.DENSITY_TARGET_GB_MM2,
-                min_yield: float | None = None, yield_frac=None):
+                min_yield: float | None = None, yield_frac=None,
+                device="cuda"):
     """The paper's selection rule: hit the density target with a functional,
     manufacturable design; break ties by tRC then read energy then height.
-    Returns a `DesignPoint` (or None if nothing qualifies).
+    Returns a `DesignPoint` (or None if nothing qualifies).  A legacy
+    `list[DesignPoint]` is bridged onto `device`.
 
     `min_yield` adds a Monte-Carlo yield floor on an explicit (B,)
     `yield_frac` column or the batch's `corners["yield_frac"]`.
     """
-    batch = as_batch(points_or_batch)
+    batch = as_batch(points_or_batch, device)
     host = lambda x: x.detach().cpu().numpy() if isinstance(
         x, torch.Tensor) else np.asarray(x)
     cand = (host(batch.valid) & host(batch.feasible)

@@ -1,10 +1,11 @@
 """Carry the reference's inputs across as plain numpy arrays and dicts.
 
-This system has no weights; what the port takes over from the JAX
-reference are its calibration registries and its lowered operand batches.
-Every function here takes plain Python / numpy values (e.g. a
-`dataclasses.asdict` of a reference `TechCal`, or `np.asarray` of its
-operand arrays), never objects of the reference package.
+What the port takes over from the JAX reference are its calibration
+registries, its lowered operand batches and, for the LM server, its
+parameter trees.  Every function here takes plain Python / numpy values
+(e.g. a `dataclasses.asdict` of a reference `TechCal`, `np.asarray` of its
+operand arrays, or its parameter tree as nested dicts of numpy arrays),
+never objects of the reference package.
 """
 
 from __future__ import annotations
@@ -76,3 +77,30 @@ def batch_columns_from_numpy(columns: dict, tech_names, scheme_names,
         tech_names=tuple(tech_names), scheme_names=tuple(scheme_names),
         n_samples=n_samples, base_len=base_len,
         **{f: col(f) for f in ARRAY_FIELDS})
+
+
+def _tensor_from_numpy(a, dev) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":               # ml_dtypes bfloat16
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.int16).copy())
+        t = t.view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a, order="C"))
+    return t.to(device=dev)
+
+
+def params_from_numpy(tree: dict, device="cuda") -> dict:
+    """The port's parameter tree (nested dicts of tensors on `device`) from
+    the reference's, given as nested dicts of numpy arrays
+    (`jax.tree.map(np.asarray, params)`): bfloat16 arrays as ml_dtypes
+    bfloat16, or already cast to float32 by the caller.  Each leaf keeps
+    its array's dtype, so a tree in the config's `param_dtype` stays in
+    it."""
+    dev = resolve_device(device)
+
+    def convert(node):
+        if isinstance(node, dict):
+            return {k: convert(v) for k, v in node.items()}
+        return _tensor_from_numpy(node, dev)
+
+    return convert(tree)

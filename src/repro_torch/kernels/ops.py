@@ -11,6 +11,7 @@ from __future__ import annotations
 from . import ref
 from .rc_transient import rc_multistep_cuda
 from .row_cycle import row_cycle_fused_cuda
+from .strap_gather import strap_attend_cuda
 
 BACKENDS = ("auto", "ref", "cuda")
 
@@ -47,6 +48,22 @@ def row_cycle_fused(c, g_branch, gc_res, gc_pre, v0, params, dt,
                                     dt, n_act, n_res, n_pre)
     return ref.row_cycle_fused_ref(c, g_branch, gc_res, gc_pre, v0, params,
                                    dt, n_act, n_res, n_pre)
+
+
+def strap_attend(q, k_pages, v_pages, strap_ids, pages_per_strap,
+                 scale=None, backend: str = "auto", lengths=None):
+    """Selector+strap gated decode attention -> (B, Hq, D) in q's dtype.
+
+    `lengths` ((B,) int32, optional) is the valid token count per sequence;
+    tokens at flat positions >= lengths[b] are padding inside a partially
+    filled strap and are masked out of the softmax.  `None` attends every
+    token of every selected strap.  See `ref.strap_attend_ref`.
+    """
+    if _resolve(backend, q) == "cuda":
+        return strap_attend_cuda(q, k_pages, v_pages, strap_ids,
+                                 pages_per_strap, scale, lengths=lengths)
+    return ref.strap_attend_ref(q, k_pages, v_pages, strap_ids,
+                                pages_per_strap, scale, lengths=lengths)
 
 
 def tridiag_solve(dl, d, du, b):

@@ -1,10 +1,13 @@
 """Plain PyTorch versions of the kernels.
 
-Port of the row-cycle half of `repro.kernels.ref`.  `row_cycle_fused_ref`
-is what the CUDA kernel `csrc/row_cycle.cu` computes, `rc_multistep_ref`
-what `csrc/rc_multistep.cu` computes: the CPU path runs them, and
+Port of `repro.kernels.ref`.  `row_cycle_fused_ref` is what the CUDA
+kernel `csrc/row_cycle.cu` computes, `rc_multistep_ref` what
+`csrc/rc_multistep.cu` computes, `strap_attend_ref` what
+`csrc/strap_attend.cu` computes: the CPU path runs them, and
 `chip_smoke.py` holds each kernel against its plain version on the card.
-They follow the reference oracles operation for operation, in float32.
+The row-cycle versions follow the reference oracles operation for
+operation, in float32; `strap_attend_ref` follows the TPU kernel
+(`strap_attend_pallas`) where the reference's oracle and kernel differ.
 """
 
 from __future__ import annotations
@@ -215,3 +218,67 @@ def row_cycle_fused_ref(c: torch.Tensor, g_branch: torch.Tensor,
         v = v_next
         t += 1
     return evt, v
+
+
+# --------------------------------------------------------------------------
+# Selector+strap gated KV gather + decode attention
+# --------------------------------------------------------------------------
+
+def strap_attend_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                     v_pages: torch.Tensor, strap_ids: torch.Tensor,
+                     pages_per_strap: int, scale: float | None = None,
+                     lengths: torch.Tensor | None = None) -> torch.Tensor:
+    """Decode attention over the selected straps of a paged KV cache.
+
+    q         : (B, Hq, D)                 one query token per sequence
+    k_pages   : (B, P, page, Hkv, D)       paged keys (P a multiple of G)
+    v_pages   : (B, P, page, Hkv, D)       paged values
+    strap_ids : (B, S) int                 selected straps; strap s holds
+                pages [s*G, (s+1)*G), i.e. tokens [s*G*page, (s+1)*G*page).
+                An id < 0 (or >= P // G) is masked: it contributes nothing.
+    lengths   : (B,) int, optional         tokens written per sequence;
+                tokens at positions >= lengths[b] are masked out.
+    Returns   : (B, Hq, D) in q's dtype; query heads h*grp .. h*grp+grp-1
+                attend kv head h (grp = Hq // Hkv).
+
+    It gathers the selected straps and takes one softmax over their valid
+    tokens, as the TPU kernel's online softmax does over its strap steps.
+    Where the reference's jnp oracle differs from that kernel, this follows
+    the kernel: a row whose straps are all masked gives zeros (the oracle
+    gives NaN), and a strap id listed twice is attended twice (the oracle's
+    page mask counts it once).
+    """
+    b, p, page, hkv, d = k_pages.shape
+    hq = q.shape[1]
+    grp = hq // hkv
+    g = pages_per_strap
+    blk = g * page
+    n_straps = p // g
+    if scale is None:
+        scale = 1.0 / (d ** 0.5)
+
+    ids = strap_ids.long()
+    valid = (ids >= 0) & (ids < n_straps)                       # (B, S)
+    safe = torch.where(valid, ids, torch.zeros_like(ids))
+    rows = torch.arange(b, device=q.device)[:, None]
+    k = k_pages[:, : n_straps * g].reshape(b, n_straps, blk, hkv, d)[rows, safe]
+    v = v_pages[:, : n_straps * g].reshape(b, n_straps, blk, hkv, d)[rows, safe]
+    tok = safe[..., None] * blk + torch.arange(blk, device=q.device)
+    ok = valid[..., None].expand(-1, -1, blk)                   # (B, S, blk)
+    if lengths is not None:
+        ok = ok & (tok < lengths.long()[:, None, None])
+    ok = ok.reshape(b, -1)                                      # (B, S*blk)
+
+    s_sel = ids.shape[1]
+    k = k.reshape(b, s_sel * blk, hkv, d).float()
+    v = v.reshape(b, s_sel * blk, hkv, d).float()
+    qg = q.reshape(b, hkv, grp, d).float()
+    logits = torch.einsum("bhgd,bthd->bhgt", qg, k) * scale
+    logits = logits.masked_fill(~ok[:, None, None, :], float("-inf"))
+    m = torch.amax(logits, dim=-1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    w = torch.exp(logits - m)                                   # masked -> 0
+    l_sum = w.sum(dim=-1, keepdim=True)
+    o = torch.einsum("bhgt,bthd->bhgd", w, v)
+    o = o / torch.where(l_sum > 0, l_sum, torch.ones_like(l_sum))
+    return o.reshape(b, hq, d).to(q.dtype)

@@ -1,0 +1,134 @@
+"""GQA attention: chunked-causal for prefill, cache-based for decode.
+
+Port of `repro.models.attention` (self-attention of the decoder family).
+The (S x S) score matrix is never materialized whole: queries are
+processed in blocks of `cfg.attn_chunk`, as the reference's `lax.scan`
+does.  Decode attends one token against the dense KV cache.  The
+reference's cross-attention and its gated HLO decode
+(`decode_attention_gated`, `cfg.strap_decode`) are not ported yet.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .common import ParamSpec, Schema, apply_rope
+
+NEG_INF = -1e30
+
+
+def attn_schema(cfg, layers: int | None = None) -> Schema:
+    d, hd = cfg.d_model, cfg.head_dim_
+    hq, hkv = cfg.n_heads, cfg.n_kv_heads
+    L = (layers,) if layers is not None else ()
+    A = ("layers",) if layers is not None else ()
+    s: Schema = {
+        "wq": ParamSpec(L + (d, hq * hd), A + ("dmodel", "qkv"), "fan_in"),
+        "wk": ParamSpec(L + (d, hkv * hd), A + ("dmodel", "qkv"), "fan_in"),
+        "wv": ParamSpec(L + (d, hkv * hd), A + ("dmodel", "qkv"), "fan_in"),
+        "wo": ParamSpec(L + (hq * hd, d), A + ("qkv", "dmodel"), "fan_in"),
+    }
+    if cfg.qkv_bias:
+        s["bq"] = ParamSpec(L + (hq * hd,), A + ("qkv",), "zeros")
+        s["bk"] = ParamSpec(L + (hkv * hd,), A + ("qkv",), "zeros")
+        s["bv"] = ParamSpec(L + (hkv * hd,), A + ("qkv",), "zeros")
+    return s
+
+
+def _project_qkv(cfg, p, x):
+    b, s, _ = x.shape
+    hd, hq, hkv = cfg.head_dim_, cfg.n_heads, cfg.n_kv_heads
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(q.dtype)
+        k = k + p["bk"].to(k.dtype)
+        v = v + p["bv"].to(v.dtype)
+    return (q.reshape(b, s, hq, hd), k.reshape(b, s, hkv, hd),
+            v.reshape(b, s, hkv, hd))
+
+
+def _gqa_scores(q, k, scale):
+    """q: (B,Sq,Hq,hd)  k: (B,Sk,Hkv,hd) -> (B,Hkv,grp,Sq,Sk) fp32."""
+    b, sq, hq, hd = q.shape
+    hkv = k.shape[2]
+    grp = hq // hkv
+    qg = q.reshape(b, sq, hkv, grp, hd)
+    return torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float()) * scale
+
+
+def _gqa_out(w, v, out_dtype):
+    """w: (B,Hkv,grp,Sq,Sk)  v: (B,Sk,Hkv,hd) -> (B,Sq,Hq,hd)."""
+    b, hkv, grp, sq, sk = w.shape
+    hd = v.shape[-1]
+    o = torch.einsum("bhgqk,bkhd->bqhgd", w, v.float())
+    return o.reshape(b, sq, hkv * grp, hd).to(out_dtype)
+
+
+def _causal_block(q, k, v, scale, q_pos, k_pos, out_dtype):
+    logits = _gqa_scores(q, k, scale)
+    mask = q_pos[:, None] >= k_pos[None, :]
+    logits = torch.where(mask[None, None, None], logits, NEG_INF)
+    return _gqa_out(torch.softmax(logits, dim=-1), v, out_dtype)
+
+
+def causal_attention(cfg, p, x, positions=None):
+    """Chunked causal self-attention for prefill.
+
+    x: (B, S, D).  Returns (out (B,S,D), (k, v)) — the cache material.
+    Query blocks of `cfg.attn_chunk`; a length that is not a multiple of
+    the chunk is attended in one block, as in the reference.
+    """
+    b, s, _ = x.shape
+    hd = cfg.head_dim_
+    scale = hd ** -0.5
+    q, k, v = _project_qkv(cfg, p, x)
+    if positions is None:
+        positions = torch.arange(s, device=x.device)[None, :]
+    if cfg.rope_theta > 0:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+
+    chunk = min(cfg.attn_chunk, s)
+    if s % chunk:
+        chunk = s                     # non-divisible (odd test lengths): full
+    k_pos = torch.arange(k.shape[1], device=x.device)
+    q_pos = positions[0]
+    out = torch.cat([
+        _causal_block(q[:, i:i + chunk], k, v, scale, q_pos[i:i + chunk],
+                      k_pos, x.dtype)
+        for i in range(0, s, chunk)], dim=1)
+    o = out.reshape(b, s, -1)
+    return o @ p["wo"], (k, v)
+
+
+def decode_attention(cfg, p, x, k_cache, v_cache, pos):
+    """One-token attention against the cache.
+
+    x: (B, 1, D); k_cache/v_cache: (B, S, Hkv, hd); pos: (B,) current index.
+    Returns (out (B,1,D), k_cache, v_cache).  The new token is written into
+    the caches IN PLACE at `pos` (the reference rewrites the whole cache
+    through a one-hot blend, `k * (1 - onehot) + onehot * k_new`, and
+    returns new arrays; for finite values both give the same numbers).
+    """
+    b = x.shape[0]
+    hd = cfg.head_dim_
+    scale = hd ** -0.5
+    q, k_new, v_new = _project_qkv(cfg, p, x)
+    s_cache = k_cache.shape[1]
+    if cfg.rope_theta > 0:
+        q = apply_rope(q, pos[:, None], cfg.rope_theta)
+        k_new = apply_rope(k_new, pos[:, None], cfg.rope_theta)
+    rows = torch.arange(b, device=x.device)
+    idx = pos.long()
+    k_cache[rows, idx] = k_new[:, 0].to(k_cache.dtype)
+    v_cache[rows, idx] = v_new[:, 0].to(v_cache.dtype)
+    valid = torch.arange(s_cache, device=x.device)[None, :] <= pos[:, None]
+
+    logits = _gqa_scores(q, k_cache, scale)[..., 0, :]      # (B,Hkv,grp,S)
+    logits = torch.where(valid[:, None, None, :], logits, NEG_INF)
+    w = torch.softmax(logits, dim=-1)
+    o = torch.einsum("bhgk,bkhd->bhgd", w, v_cache.float())
+    o = o.reshape(b, 1, -1).to(x.dtype)
+    return o @ p["wo"], k_cache, v_cache

@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
-card: the fused row cycle and the multi-step RC ladder (phased engine).
+card: the fused row cycle, the multi-step RC ladder (phased engine) and
+the strap-gated decode attention (LM server).
 
 Marked `gpu`: without a GPU every test here skips (the kernel has no CPU
 mode).  This file imports neither JAX nor the reference package, so it
@@ -11,7 +12,10 @@ Bars are the reference's Pallas-vs-oracle bars (tests/test_kernels.py):
 event times within one dt, identical NaN (timed-out) pattern, dv_sense
 rtol 1e-3 / atol 1e-5, v_end rtol 1e-4 / atol 1e-5; rc_multistep traces
 rtol 1e-5 / atol 1e-6.  Fused vs phased engine: the reference's own bars
-(tests/test_fused_row_cycle.py).
+(tests/test_fused_row_cycle.py).  strap_attend: the reference's
+Pallas-vs-oracle bars, rtol / atol 3e-5 in float32 and 3e-2 in bf16;
+in bf16 also rtol 2^-6 (two bf16 ulps, both sides round a float32 result
+once) / atol 1e-3, a bar tied to the output's scale.
 """
 
 import numpy as np
@@ -22,7 +26,12 @@ torch = pytest.importorskip("torch")
 from repro_torch.core import calibration as cal  # noqa: E402
 from repro_torch.core import dse, transient  # noqa: E402
 from repro_torch.core.space import DesignSpace  # noqa: E402
-from repro_torch.kernels import ops, rc_transient, row_cycle  # noqa: E402
+from repro_torch.configs.registry import get_arch  # noqa: E402
+from repro_torch.kernels import (ops, rc_transient, row_cycle,  # noqa: E402
+                                 strap_gather)
+from repro_torch.memory.strap_cache import StrapCacheConfig  # noqa: E402
+from repro_torch.models import registry as models  # noqa: E402
+from repro_torch.serving.engine import ServeEngine  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -200,3 +209,100 @@ def test_phased_engine_on_card_matches_fused(cuda, tech, scheme, layers,
     assert res <= DT + 1e-5
     assert diff("t_sense_ns") <= DT + 0.05
     assert diff("trc_ns") <= 3 * DT + 0.05
+
+
+STRAP_SHAPES = [(2, 8, 16, 2, 64, 8, 2), (1, 4, 8, 1, 128, 4, 4),
+                (3, 6, 32, 3, 32, 6, 3), (2, 16, 8, 4, 64, 16, 4),
+                (1, 8, 128, 2, 128, 2, 2)]
+
+
+def strap_case(rng, b, p, page, hkv, d, hq, g, device, dtype=torch.float32):
+    """Random pages with, where the shape allows, a masked strap, a partial
+    length, a duplicated id and an all-masked row."""
+    s = p // g
+    q, k, v = (torch.as_tensor(rng.normal(size=shape).astype(np.float32),
+                               device=device).to(dtype)
+               for shape in ((b, hq, d), (b, p, page, hkv, d),
+                             (b, p, page, hkv, d)))
+    ids = np.stack([rng.permutation(s) for _ in range(b)])
+    lengths = np.full(b, p * page)
+    if s > 1:
+        ids[0, -1] = -1
+        lengths[0] = p * page - page * g // 2 - 1
+        ids[-1, 0] = ids[-1, 1]
+    if b > 1:
+        ids[1] = -1
+    t = lambda x: torch.as_tensor(np.asarray(x, np.int32), device=device)
+    return q, k, v, t(ids), g, t(lengths)
+
+
+@pytest.mark.parametrize("shape", STRAP_SHAPES,
+                         ids=["x".join(map(str, s)) for s in STRAP_SHAPES])
+def test_strap_attend_kernel_matches_plain(rng, cuda, shape):
+    q, k, v, ids, g, lengths = strap_case(rng, *shape, cuda)
+    before = strap_gather.strap_attend_cuda.launches
+    out_k = ops.strap_attend(q, k, v, ids, g, lengths=lengths)
+    assert strap_gather.strap_attend_cuda.launches == before + 1
+    out_p = ops.strap_attend(q, k, v, ids, g, lengths=lengths, backend="ref")
+    np.testing.assert_allclose(out_k.cpu().numpy(), out_p.cpu().numpy(),
+                               rtol=3e-5, atol=3e-5)
+    if shape[0] > 1:
+        assert not out_k[1].any()           # all-masked row: zeros
+
+
+def test_strap_attend_kernel_bf16_decode_shape(rng, cuda):
+    """Qwen2-1.5B's decode call: q (8, 12, 128), 36 pages of 64, S = 9."""
+    q, k, v, ids, g, lengths = strap_case(rng, 8, 36, 64, 2, 128, 12, 4,
+                                          cuda, torch.bfloat16)
+    out_k = ops.strap_attend(q, k, v, ids, g, lengths=lengths)
+    assert out_k.dtype == torch.bfloat16
+    out_p = ops.strap_attend(q, k, v, ids, g, lengths=lengths, backend="ref")
+    np.testing.assert_allclose(out_k.float().cpu().numpy(),
+                               out_p.float().cpu().numpy(), rtol=3e-2,
+                               atol=3e-2)
+    np.testing.assert_allclose(out_k.float().cpu().numpy(),
+                               out_p.float().cpu().numpy(), rtol=2.0 ** -6,
+                               atol=1e-3)
+
+
+def test_strap_attend_wrapper_rejects_unsupported_inputs(rng, cuda):
+    q, k, v, ids, g, lengths = strap_case(rng, 2, 8, 16, 2, 64, 8, 2, cuda)
+    kernel = strap_gather.strap_attend_cuda
+    with pytest.raises(TypeError, match="int32"):
+        kernel(q, k, v, ids.long(), g, lengths=lengths)
+    with pytest.raises(TypeError, match="must match"):
+        kernel(q, k.bfloat16(), v, ids, g, lengths=lengths)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        kernel(q.double(), k.double(), v.double(), ids, g)
+    with pytest.raises(ValueError, match="multiple of Hkv"):
+        kernel(q[:, :7].contiguous(), k, v, ids, g)
+    with pytest.raises(ValueError, match="pages_per_strap"):
+        kernel(q, k, v, ids, 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernel(q, k.transpose(1, 2), v, ids, g)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        kernel(q, k, v, ids.cpu(), g)
+    wide = torch.zeros(2, 8, 512, device=cuda)
+    pages = torch.zeros(2, 8, 16, 2, 512, device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        kernel(wide, pages, pages, ids, g)
+
+
+def test_strap_engine_on_card_equals_dense(cuda):
+    """qwen2-1.5b-smoke (float32) on the card: the strap-exact engine gives
+    the dense engine's greedy tokens (tests/test_strap_cache.py's claim),
+    through the kernel."""
+    cfg = get_arch("qwen2-1.5b-smoke")
+    params = models.init_params(
+        cfg, torch.Generator(device=cuda).manual_seed(0), device=cuda)
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 32))
+    out = {}
+    for backend in ("dense", "strap"):
+        eng = ServeEngine(cfg, params, max_tokens=48, cache_backend=backend,
+                          strap_cfg=StrapCacheConfig(8, 2), device=cuda)
+        before = strap_gather.strap_attend_cuda.launches
+        eng.prefill(prompts)
+        out[backend] = torch.cat([eng.step()[0] for _ in range(6)], 1)
+        launches = strap_gather.strap_attend_cuda.launches - before
+        assert launches == (cfg.n_layers * 6 if backend == "strap" else 0)
+    assert torch.equal(out["dense"], out["strap"])

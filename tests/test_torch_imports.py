@@ -8,6 +8,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -15,6 +16,12 @@ torch = pytest.importorskip("torch")
 from repro_torch.core import (calibration, density, dse, report,  # noqa: E402
                               space, transient)
 from repro_torch import interop  # noqa: E402
+from repro_torch.configs.registry import get_arch  # noqa: E402
+from repro_torch.core.batch import DesignBatch  # noqa: E402
+from repro_torch.memory.strap_cache import (StrapCacheConfig,  # noqa: E402
+                                            StrapKVCache)
+from repro_torch.models import registry as models  # noqa: E402
+from repro_torch.serving.engine import ServeEngine  # noqa: E402
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "src" / "repro_torch"
@@ -67,6 +74,12 @@ def test_source_never_imports_jax_or_reference(path):
     assert not bad, f"{path}: {bad}"
 
 
+def _points():
+    """A legacy `list[DesignPoint]` (swept on the CPU)."""
+    batch = dse.sweep(space.DesignSpace.paper_targets(), device="cpu")
+    return [batch.point(i) for i in range(len(batch))]
+
+
 ENTRY_POINTS = {
     "dse.sweep": lambda: dse.sweep(space.DesignSpace.paper_targets()),
     "dse.plan_sweep": lambda: dse.plan_sweep(space.DesignSpace.paper_targets()),
@@ -92,6 +105,19 @@ ENTRY_POINTS = {
         samples=8),
     "interop.operands_from_numpy": lambda: interop.operands_from_numpy(
         *([[[1.0] * 6]] * 5), [[1.0] * 6], [1.0], [1.0]),
+    "DesignBatch.from_points": lambda: DesignBatch.from_points(_points()),
+    "dse.pareto_front(list)": lambda: dse.pareto_front(_points()),
+    "dse.best_design(list)": lambda: dse.best_design(_points()),
+    "models.registry.init_params": lambda: models.init_params(
+        get_arch("qwen2-1.5b-smoke"), torch.Generator()),
+    "models.registry.init_cache": lambda: models.init_cache(
+        get_arch("qwen2-1.5b-smoke"), 1, 8),
+    "interop.params_from_numpy": lambda: interop.params_from_numpy(
+        {"embed": np.zeros((4, 2), np.float32)}),
+    "StrapKVCache.create": lambda: StrapKVCache.create(
+        StrapCacheConfig(), 1, 64, 1, 8),
+    "ServeEngine": lambda: ServeEngine(get_arch("qwen2-1.5b-smoke"),
+                                       {"embed": torch.zeros(4, 2)}),
 }
 
 

@@ -216,12 +216,13 @@ def test_check_operands_rejects_main_row_at_even_index(rng, monkeypatch):
         contracts.check_operands(_operands(shifted))
 
 
-@pytest.mark.parametrize("source", ["row_cycle.cu", "rc_multistep.cu"])
+@pytest.mark.parametrize("source", ["row_cycle.cu", "rc_multistep.cu",
+                                    "strap_attend.cu"])
 def test_build_command_targets_sm90a_without_fma_contraction(source):
-    """Both kernel sources build the same way: nvcc for sm_90a with FMA
+    """Every kernel source builds the same way: nvcc for sm_90a with FMA
     contraction off (so each kernel rounds like its plain version), into
     a library named by the source and a hash of source and flags."""
-    from repro_torch.kernels import build, rc_transient, row_cycle
+    from repro_torch.kernels import build, rc_transient, row_cycle, strap_gather
 
     path = build.CSRC / source
     assert path.is_file()
@@ -232,5 +233,6 @@ def test_build_command_targets_sm90a_without_fma_contraction(source):
     lib = build.library_path(path)
     assert lib.parent == build.BUILD_DIR
     assert lib.name.startswith(f"lib{path.stem}-") and lib.suffix == ".so"
-    assert {row_cycle.SOURCE, rc_transient.SOURCE} == {
-        build.CSRC / "row_cycle.cu", build.CSRC / "rc_multistep.cu"}
+    assert {row_cycle.SOURCE, rc_transient.SOURCE, strap_gather.SOURCE} == {
+        build.CSRC / "row_cycle.cu", build.CSRC / "rc_multistep.cu",
+        build.CSRC / "strap_attend.cu"}

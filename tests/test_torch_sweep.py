@@ -273,7 +273,7 @@ def test_batch_row_operations(nominal):
         pts = nominal.to_points()
     assert pts[0] == nominal.point(0) and len(pts) == n
     # the legacy list surface round-trips through as_batch
-    front = dse.pareto_front(pts)
+    front = dse.pareto_front(pts, device="cpu")
     assert [p for p in front] == [nominal.point(int(i)) for i in
                                   torch.nonzero(dse.pareto_mask(nominal))
                                   .reshape(-1)]
