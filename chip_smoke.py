@@ -10,16 +10,19 @@ Phases (any failure exits non-zero and prints no result line):
    strap_attend.cu) from src/repro_torch/kernels/csrc/ with nvcc into
    build/, in parallel;
 3. hold the row-cycle kernel (backend="cuda") against its plain PyTorch
-   version (backend="ref") on the card: N = 4, 6, 8, replica pairs,
-   padding rows, timed-out rows, legacy (B, 5) params, B = 2048 and the
-   full 299,008-row Monte-Carlo operand batch;
+   version (backend="ref") on the card, bit for bit (events, NaN pattern,
+   v_end): N = 4, 6, 8, replica pairs, padding rows, timed-out rows,
+   legacy (B, 5) params, B = 2048 and the full 299,008-row Monte-Carlo
+   operand batch;
 4. the main path: `dse.sweep(DesignSpace.paper_grid())` on the card, with
    the kernel's launch count read around it, the paper's goldens, the same
    sweep through the plain version, and the replica-timed sweep;
 5. the sized run: `paper_grid().with_mc(samples=4096, key=0)` (299,008
    design rows, the `--mc-tail` default of examples/dram_codesign.py),
-   timed per phase (plan, kernel, score, pareto) at b_chunk=2048 and at
-   b_chunk=299008, median of 3 after a warm-up;
+   timed per phase (plan, kernel, score, pareto), median of 3 after a
+   warm-up, through the path (one launch at the default b_chunk=2048)
+   and through explicit per-2048-row kernel calls (the earlier dispatch,
+   146 launches); both equal bit for bit, and equal to the plain version;
 6. the rc_multistep kernel against its plain version on random ladders
    (N = 4, 6, 8, ragged B, clamp network and ramp);
 7. the phased engine (`simulate_row_cycle(..., traces=True)`, the Fig. 8
@@ -34,9 +37,11 @@ Phases (any failure exits non-zero and prints no result line):
 9. every `report.*` table at its default arguments on the card, with the
    Table-I goldens, each timed;
 10. the strap_attend kernel against its plain version: float32 at every
-   shape of the reference's kernel test, each with a masked strap, a
+   shape of the reference's kernel test and at two that reach the
+   kernel's other branches (D = 30, D = 256), each with a masked strap, a
    partial length, a duplicated id and an all-masked row; bf16 at
-   Qwen2-1.5B's decode shape;
+   Qwen2-1.5B's decode shape and at those two; both dtypes on pages that
+   start off a 16-byte boundary;
 11. the LM server at smoke size (`qwen2-1.5b-smoke`, float32) on the card:
    the strap-exact engine gives the dense engine's greedy tokens;
 12. the LM server at full width (`qwen2-1.5b`, bf16, seeded weights): 8
@@ -46,8 +51,12 @@ Phases (any failure exits non-zero and prints no result line):
    path held against the plain version, prefill and decode-step times,
    tokens/s, the strap engines teacher-forced with the dense tokens, one
    decode step under the profiler;
-13. one JSON line listing the ported kernels, then the card line, then the
-   result line {"ok": true, "device": {...}}.
+13. one JSON line listing the ported kernels (row_cycle at the sweep's
+   one launch over 299,008 rows and at one 2048-row chunk, with the
+   cycles of a step; rc_multistep at the phased path's ACT call;
+   strap_attend at the full-width path's last exact-mode and gated
+   steps, on 1 to 8 rows, and SDPA on the same tokens), then the card
+   line, then the result line {"ok": true, "device": {...}}.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -85,9 +94,15 @@ STRAP_BF16_TOL = 3e-2
 STRAP_BF16_ULP_RTOL, STRAP_BF16_ULP_ATOL = 2.0 ** -6, 1e-3
 SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION",
                  "MATH")
+# (B, P, page, Hkv, D, Hq, G): the reference's kernel test shapes, then
+# D = 30 (K/V rows copied element by element, D padded to the mma depth)
+# and D = 256 with grp = 8 (the widest instantiation)
 STRAP_SHAPES = [(2, 8, 16, 2, 64, 8, 2), (1, 4, 8, 1, 128, 4, 4),
                 (3, 6, 32, 3, 32, 6, 3), (2, 16, 8, 4, 64, 16, 4),
-                (1, 8, 128, 2, 128, 2, 2)]   # (B, P, page, Hkv, D, Hq, G)
+                (1, 8, 128, 2, 128, 2, 2), (2, 8, 16, 2, 30, 8, 2),
+                (3, 8, 16, 1, 256, 8, 2)]
+STRAP_BRANCH_SHAPES = STRAP_SHAPES[-2:]
+STRAP_UNALIGNED_SHAPE = (3, 8, 16, 2, 200, 12, 2)
 LM_ARCH = "qwen2-1.5b"
 LM_B, LM_PROMPT, LM_NEW = 8, 2048, 32
 LM_MAX = LM_PROMPT + LM_NEW + 16  # examples/serve_lm.py's PROMPT + NEW + 16
@@ -170,13 +185,16 @@ def compare(evt_k, vend_k, evt_p, vend_p, dt: float) -> dict:
     check(v_ok, "v_end outside rtol 1e-4 / atol 1e-5")
     dv_err = (evt_k[:, 1] - evt_p[:, 1]).abs().max().item()
     v_err = (vend_k - vend_p).abs().max().item()
+    check(events_identical(evt_k, evt_p) and bool(torch.equal(vend_k, vend_p)),
+          "row-cycle kernel and plain version are not bit-identical")
     return {"t_err_ns": dt_err, "t_err_steps": steps, "dv_err_v": dv_err,
-            "v_end_err_v": v_err, "nan_rows": int(torch.isnan(t_p).any(1).sum())}
+            "v_end_err_v": v_err, "bit_identical": True,
+            "nan_rows": int(torch.isnan(t_p).any(1).sum())}
 
 
-def kernel_vs_plain(ops_mod, args, dt, caps) -> tuple[dict, float]:
+def kernel_vs_plain(ops_mod, args, dt, caps) -> tuple[dict, float, tuple]:
     """Kernel and plain version on the same CUDA tensors; returns the
-    comparison and the plain version's time in ms."""
+    comparison, the plain version's time in ms and its outputs."""
     import torch
 
     evt_k, vend_k = ops_mod.row_cycle_fused(*args, dt, *caps, backend="cuda")
@@ -186,27 +204,13 @@ def kernel_vs_plain(ops_mod, args, dt, caps) -> tuple[dict, float]:
     evt_p, vend_p = ops_mod.row_cycle_fused(*args, dt, *caps, backend="ref")
     end.record()
     torch.cuda.synchronize()
-    return compare(evt_k, vend_k, evt_p, vend_p, dt), start.elapsed_time(end)
+    return (compare(evt_k, vend_k, evt_p, vend_p, dt), start.elapsed_time(end),
+            (evt_p, vend_p))
 
 
 # --------------------------------------------------------------------------
 # timing helpers
 # --------------------------------------------------------------------------
-
-def cuda_ms(fn, repeats: int = 1) -> tuple[float, object]:
-    """Device time of `fn` over `repeats` calls (CUDA events), per call."""
-    import torch
-
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
-        enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(repeats):
-        out = fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / repeats, out
-
 
 def profile(fn) -> dict:
     """One call of `fn` under torch.profiler: host wall time, the device
@@ -232,27 +236,13 @@ def profile(fn) -> dict:
         ms, n = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (ms + e.self_device_time_total / 1e3, n + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
+    strap = [v for k, v in by_name.items() if "strap_" in k]
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "idle_share": 1.0 - busy_ms / wall_ms if wall_ms else None,
             "device_kernels": len(device),
+            "strap_attend_ms": sum(ms for ms, _ in strap),
+            "strap_attend_kernels": sum(n for _, n in strap),
             "top": [[name[:60], ms, n] for name, (ms, n) in top]}
-
-
-def steps_per_row(evt, params, dt, caps):
-    """Implicit-Euler steps each row needs on these inputs: the steps up to
-    each phase's crossing (its window on a timeout); replica rows stop after
-    ACT, inactive rows take none."""
-    import torch
-
-    def phase_steps(t, cap):
-        return torch.where(torch.isnan(t), float(cap), torch.round(t / dt))
-
-    act = phase_steps(evt[:, 0], caps[0])
-    rest = phase_steps(evt[:, 2], caps[1]) + phase_steps(evt[:, 3], caps[2])
-    role = params[:, 5] if params.shape[1] > 5 else torch.zeros_like(act)
-    replica = (role - 1.0).abs() < 0.5
-    active = params[:, 4] > 0.5
-    return torch.where(active, act + torch.where(replica, 0.0, rest), 0.0)
 
 
 def ops_per_step(n: int) -> int:
@@ -267,19 +257,21 @@ def bound_ms(evt, params, n, dt, caps) -> tuple[float, str, dict]:
     of its bytes (each input read once, each output written once) over the
     HBM rate and its float32 operations (the steps these inputs need) over
     the float32 peak."""
+    from repro_torch.kernels.bench import row_steps
+
     b = evt.shape[0]
     n_bytes = 4 * b * (4 * n + (n - 1) + params.shape[1]) + 4 * b * (4 + n)
-    row_steps = steps_per_row(evt, params, dt, caps)
-    steps = float(row_steps.sum().item())
+    per_row = row_steps(evt, params, dt, caps)
+    steps = float(per_row.sum().item())
     n_ops = steps * ops_per_step(n)
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / F32_PEAK_OPS * 1e3
     bound_by = "operations" if t_ops >= t_bytes else "bytes"
     return max(t_ops, t_bytes), bound_by, {
         "bytes": n_bytes, "ops": n_ops, "row_steps": steps,
-        "max_row_steps": float(row_steps.max().item()),
+        "max_row_steps": float(per_row.max().item()),
         "max_warp_steps_mean": float(
-            row_steps[: b - b % 32].reshape(-1, 32).max(1).values.mean().item())}
+            per_row[: b - b % 32].reshape(-1, 32).max(1).values.mean().item())}
 
 
 def events_identical(a, b) -> bool:
@@ -384,6 +376,8 @@ def events_within_bars(f, p, dt) -> dict:
 def rc_line(rc_kernel, ops_mod, act_args, launches, max_err) -> dict:
     """The kernels-line entry of rc_multistep, timed at the phased path's
     ACT call (its widest: T = 800 steps of B rows)."""
+    from repro_torch.kernels.bench import cuda_ms
+
     c, ramp = act_args[0], act_args[5]
     ms, _ = cuda_ms(lambda: rc_kernel(*act_args), 20)
     plain_ms, _ = cuda_ms(lambda: ops_mod.rc_multistep(*act_args,
@@ -409,10 +403,11 @@ def same_events(a, b) -> bool:
 # strap_attend and the LM server
 # --------------------------------------------------------------------------
 
-def strap_case(rng, b, p, page, hkv, d, hq, g, dev, dtype):
+def strap_case(rng, b, p, page, hkv, d, hq, g, dev, dtype, shift=False):
     """Random pages and a strap selection with, where the shape allows, a
     masked strap and a partial length (row 0), a duplicated id (last row)
-    and an all-masked row (row 1)."""
+    and an all-masked row (row 1); with `shift`, K and V start one element
+    past a 16-byte boundary (contiguous, but not 16-byte aligned)."""
     import numpy as np
     import torch
 
@@ -421,6 +416,10 @@ def strap_case(rng, b, p, page, hkv, d, hq, g, dev, dtype):
                                device=dev).to(dtype)
                for shape in ((b, hq, d), (b, p, page, hkv, d),
                              (b, p, page, hkv, d)))
+    if shift:
+        bufs = [torch.empty(x.numel() + 1, dtype=dtype, device=dev)
+                for x in (k, v)]
+        k, v = (buf[1:].view(x.shape).copy_(x) for buf, x in zip(bufs, (k, v)))
     ids = np.stack([rng.permutation(s) for _ in range(b)])
     lengths = np.full(b, p * page)
     if s > 1:
@@ -531,7 +530,8 @@ def sdpa_forms(args, kwargs) -> dict:
 def sdpa_library(calls, outs) -> dict:
     """`F.scaled_dot_product_attention` on the gathered selected tokens of
     `calls`, in each operand form (`sdpa_forms`) under each backend forced
-    in turn (`sdpa_kernel`): ms per call, max |SDPA - kernel| and whether
+    in turn (`sdpa_kernel`): ms per call (the device time of its kernels,
+    and CUDA events around the calls), max |SDPA - kernel| and whether
     it is within the reference's bf16 bar, or why the backend refused the
     form.  Also the form the dispatcher gets by default, with the kernels
     a profiled call of it runs, which name the backend it picked."""
@@ -540,6 +540,8 @@ def sdpa_library(calls, outs) -> dict:
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.kernels.bench import cuda_ms, device_ms
 
     n = len(calls)
     per_call = [sdpa_forms(a, kw) for a, kw in calls]
@@ -566,7 +568,11 @@ def sdpa_library(calls, outs) -> dict:
             within = all(bool((e <= STRAP_BF16_TOL + STRAP_BF16_TOL
                                * o.float().abs()).all().item())
                          for e, o in zip(errs, outs))
-            res[key] = {"runs": True, "ms": ms,
+            with warnings.catch_warnings(), sdpa_kernel(
+                    getattr(SDPBackend, backend)):
+                warnings.simplefilter("ignore")
+                dev_ms = device_ms(run, n)
+            res[key] = {"runs": True, "ms": dev_ms, "ms_events": ms,
                         "max_abs_err": max(e.max().item() for e in errs),
                         "within_bf16_bar": within}
     default = per_call[-1]["bool_mask_gqa"]
@@ -580,38 +586,56 @@ def sdpa_library(calls, outs) -> dict:
     return res
 
 
-def strap_line(kernel, ops_mod, layer_calls, launches, max_err) -> dict:
+def strap_line(kernel, ops_mod, backend_calls, launches, max_err,
+               registers) -> dict:
     """The kernels-line entry of strap_attend, timed at the full-width
     path's last exact-mode decode step: its calls for all layers in turn
     (28 distinct caches, 0.5 GB, so L2 holds none of them between
     launches, as on the path).  `library_ms` is the fastest SDPA backend
     and operand form that agrees with the kernel at the bf16 bar; the
     kernel is also timed on the first 1, 2, 4 and 8 rows of the batch
-    (2 to 16 blocks)."""
+    (36 to 288 split blocks) and at the gated engine's last step.  Times
+    are the device time of the kernels (torch.profiler), beside CUDA
+    events around the calls, which on a slow host measure the host."""
+    from repro_torch.kernels import strap_gather
+    from repro_torch.kernels.bench import (cuda_ms, device_ms,
+                                           device_ms_by_kernel)
+
+    layer_calls = backend_calls["strap_exact"]
     calls = [(a, kw) for a, kw, _ in layer_calls]
     n = len(calls)
 
     def each(fn):
         return lambda: [fn(a, kw) for a, kw in calls]
 
-    ms = cuda_ms(each(lambda a, kw: kernel(*a, lengths=kw["lengths"])),
-                 5)[0] / n
-    plain_ms = cuda_ms(each(lambda a, kw: ops_mod.strap_attend(
-        *a, **{**kw, "backend": "ref"})), 2)[0] / n
+    run_kernel = each(lambda a, kw: kernel(*a, lengths=kw["lengths"]))
+    run_plain = each(lambda a, kw: ops_mod.strap_attend(
+        *a, **{**kw, "backend": "ref"}))
+    ms_events = cuda_ms(run_kernel, 5)[0] / n
+    ms_by_kernel = device_ms_by_kernel(run_kernel, n)
+    ms = sum(ms_by_kernel.values())
+    plain_events = cuda_ms(run_plain, 2)[0] / n
+    plain_ms = device_ms(run_plain, n)
     by_rows = {}
     for r in (1, 2, 4, 8):
         sub = [((a[0][:r], a[1][:r], a[2][:r], a[3][:r], a[4]),
                 kw["lengths"][:r]) for a, kw in calls]
-        by_rows[str(r)] = cuda_ms(lambda: [kernel(*a, lengths=ln)
-                                           for a, ln in sub], 5)[0] / n
+        by_rows[str(r)] = device_ms(lambda sub=sub: [
+            kernel(*a, lengths=ln) for a, ln in sub], n)
     library = sdpa_library(calls, [out for _, _, out in layer_calls])
     agreeing = {k: v for k, v in library.items()
                 if v.get("runs") and v.get("within_bf16_bar")}
     check(bool(agreeing), f"no SDPA backend computes strap_attend's "
           f"function within the bf16 bar: {library}")
     best = min(agreeing, key=lambda k: agreeing[k]["ms"])
+    gated = [(a, kw) for a, kw, _ in backend_calls["strap_gated_top4"]]
+    gated_ms = device_ms(lambda: [kernel(*a, lengths=kw["lengths"])
+                                  for a, kw in gated], len(gated))
+    ga, gkw = gated[-1]
+    gated_bound = strap_bound_ms(ga[0], ga[1], ga[3], ga[4], gkw["lengths"])
     a, kw = calls[-1]
     b_ms, b_by, work = strap_bound_ms(a[0], a[1], a[3], a[4], kw["lengths"])
+    plan = strap_gather.split_plan(a[1].shape, a[4], a[3].shape[1])
     return {"name": "strap_attend", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/strap_attend.cu",
             "replaces": "src/repro/kernels/strap_gather.py:101",
@@ -619,10 +643,23 @@ def strap_line(kernel, ops_mod, layer_calls, launches, max_err) -> dict:
             "max_abs_err_unit": "attention output (bf16 on the path)",
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": agreeing[best]["ms"],
+            "timing": "ms, plain_ms, library_ms, ms_by_rows, gated_top4_ms: "
+                      "device time of the call's kernels (torch.profiler); "
+                      "*_events: CUDA events around the calls, which also "
+                      "count the card's idle time while the host enqueues",
+            "ms_events": ms_events, "plain_ms_events": plain_events,
+            "library_ms_events": agreeing[best]["ms_events"],
+            "ms_by_kernel": {k[:80]: v for k, v in ms_by_kernel.items()},
             "library_call": "F.scaled_dot_product_attention on the gathered "
                             f"selected tokens, {best}",
             "library_max_abs_err": agreeing[best]["max_abs_err"],
             "library_by_backend": library, "ms_by_rows": by_rows,
+            "device_kernels_per_call": len(ms_by_kernel),
+            "split_plan": plan._asdict(),
+            "gated_top4_ms": gated_ms, "gated_top4_bound_ms": gated_bound[0],
+            "gated_top4_work": gated_bound[2],
+            "registers": {k: v for k, v in registers.items()
+                          if "strap_" in k},
             "shape": {"q": list(a[0].shape), "pages": list(a[1].shape),
                       "strap_ids": list(a[3].shape)},
             "bound_work": work, "timed_calls": n}
@@ -630,21 +667,33 @@ def strap_line(kernel, ops_mod, layer_calls, launches, max_err) -> dict:
 
 def strap_kernel_phase(ops_mod, rng, dev) -> tuple[dict, float]:
     """strap_attend kernel vs plain version: float32 at every test shape,
-    bf16 at Qwen2-1.5B's decode shape."""
+    bf16 at Qwen2-1.5B's decode shape and at the shapes that reach the
+    kernel's other branches, and both dtypes with pages off a 16-byte
+    boundary (element copies)."""
     import torch
 
+    from repro_torch.kernels import strap_gather
+
     res, worst = {}, 0.0
-    cases = [(shape, torch.float32, STRAP_F32_TOL) for shape in STRAP_SHAPES]
-    cases.append(((8, 36, 64, 2, 128, 12, 4), torch.bfloat16, STRAP_BF16_TOL))
-    for shape, dtype, tol in cases:
-        args, kw = strap_case(rng, *shape, dev, dtype)
+    f32, bf16 = (torch.float32, STRAP_F32_TOL), (torch.bfloat16,
+                                                 STRAP_BF16_TOL)
+    cases = [(shape, *f32, False) for shape in STRAP_SHAPES]
+    cases.append(((8, 36, 64, 2, 128, 12, 4), *bf16, False))
+    cases += [(shape, *bf16, False) for shape in STRAP_BRANCH_SHAPES]
+    cases += [(STRAP_UNALIGNED_SHAPE, *dt, True) for dt in (f32, bf16)]
+    for shape, dtype, tol, shift in cases:
+        args, kw = strap_case(rng, *shape, dev, dtype, shift)
+        vec = strap_gather.vector_loads(args[1], args[2])
+        check(not (shift or shape[4] == 30) or not vec,
+              f"strap case {shape}: expected element copies")
         out_k = ops_mod.strap_attend(*args, **kw, backend="cuda")
         cmp = strap_compare(ops_mod, args, kw, out_k, tol)
         if shape[0] > 1:
             check(not bool(out_k[1].any().item()),
                   "an all-masked row is not zeros")
-        key = "x".join(map(str, shape)) + "_" + str(dtype).split(".")[-1]
-        res[key] = cmp
+        key = ("x".join(map(str, shape)) + "_" + str(dtype).split(".")[-1]
+               + ("_unaligned" if shift else ""))
+        res[key] = {**cmp, "vector_loads": vec}
         if dtype == torch.float32:
             worst = max(worst, cmp["max_abs_err"])
         log(f"[strap-vs-plain] {key}: {json.dumps(cmp)}")
@@ -692,13 +741,14 @@ def serve_phase(args, ops_mod, strap_kernel, dev) -> tuple[dict, dict]:
     it held against the plain version, a timed true-greedy decode
     (`step()` with no token), the strap engines teacher-forced with the
     dense engine's tokens, and one decode step under the profiler.
-    Returns the record and the exact-mode calls of the last step."""
+    Returns the record and each strap backend's calls of the last step."""
     import numpy as np
     import torch
 
     from repro_torch.configs.registry import get_arch
     from repro_torch.memory.strap_cache import StrapCacheConfig
     from repro_torch.models import registry as models
+    from repro_torch.kernels.bench import cuda_ms
     from repro_torch.models.common import lm_logits
     from repro_torch.serving.engine import ServeEngine
 
@@ -734,7 +784,7 @@ def serve_phase(args, ops_mod, strap_kernel, dev) -> tuple[dict, dict]:
               "max_tokens": LM_MAX, "backends": {}}
     sync = torch.cuda.synchronize
     dense_tokens = dense_logits = None
-    line_calls = None
+    line_calls = {}
     worst = 0.0
     for label, backend, top in LM_BACKENDS:
         eng = ServeEngine(cfg, params, max_tokens=LM_MAX,
@@ -767,8 +817,8 @@ def serve_phase(args, ops_mod, strap_kernel, dev) -> tuple[dict, dict]:
             "rms_min": min((c["plain_rms"] for c in cmps), default=None),
             "rms_max": max((c["plain_rms"] for c in cmps), default=None)}
         worst = max(worst, call_err)
-        if label == "strap_exact":
-            line_calls = calls[-cfg.n_layers:]
+        if backend == "strap":
+            line_calls[label] = calls[-cfg.n_layers:]
         del calls
         # a true greedy decode (step() with no token), timed step by step
         sync()
@@ -859,7 +909,9 @@ def main(argv=None) -> int:
     from repro_torch.core import calibration as cal
     from repro_torch.core import dse, report, transient
     from repro_torch.core.space import DEFAULT_LAYER_GRID, DesignSpace
-    from repro_torch.kernels import ops, rc_transient, row_cycle, strap_gather
+    from repro_torch.kernels import (build, ops, rc_transient, row_cycle,
+                                     strap_gather)
+    from repro_torch.kernels.bench import cuda_ms
 
     wall0 = time.perf_counter()
     record: dict = {"seed": args.seed}
@@ -884,12 +936,13 @@ def main(argv=None) -> int:
         libs = list(pool.map(lambda m: m.build(), kernel_modules))
     build_s = time.perf_counter() - t0
     log(f"[build] {', '.join(lib.name for lib in libs)} in {build_s:.2f} s")
+    registers = {}
     for lib in libs:
-        ptxas = Path(f"{lib}.ptxas.txt")
-        for ln in ptxas.read_text().splitlines() if ptxas.exists() else []:
-            if any(k in ln for k in ("entry function", "registers")):
-                log(f"[build] ptxas: {ln.strip()}")
+        for entry, used in build.ptxas_registers(lib).items():
+            registers[entry] = used
+            log(f"[build] ptxas: {entry}: {used}")
     record["build_s"] = build_s
+    record["registers"] = registers
 
     # 3. kernel vs plain version on the card
     rng = np.random.default_rng(args.seed)
@@ -899,7 +952,7 @@ def main(argv=None) -> int:
     for b, n, replica, legacy in cases:
         host = random_operands(rng, b, n, replica=replica, legacy=legacy)
         tens = [torch.as_tensor(x, device=dev) for x in host]
-        res, _ = kernel_vs_plain(ops, tens, dt, caps)
+        res, _, _ = kernel_vs_plain(ops, tens, dt, caps)
         key = f"random_B{b}_N{n}" + ("_replica" if replica else "") + (
             "_legacy5" if legacy else "")
         comparisons[key] = res
@@ -912,7 +965,7 @@ def main(argv=None) -> int:
     rows = len(mc_space)                     # 73 * 4096 = 299,008
     mc_ops = [x.contiguous() for x in mc_plan.operands[:6]]
     check(mc_ops[0].shape == (rows, 6), f"MC batch is {tuple(mc_ops[0].shape)}")
-    res, plain_full_ms = kernel_vs_plain(ops, mc_ops, dt, caps)
+    res, plain_full_ms, mc_plain = kernel_vs_plain(ops, mc_ops, dt, caps)
     comparisons[f"mc{MC_SAMPLES}_B{rows}_N6"] = res
     max_err_ns = max(max_err_ns, res["t_err_ns"])
     max_steps = max(max_steps, res["t_err_steps"])
@@ -921,7 +974,8 @@ def main(argv=None) -> int:
     rep_plan = dse.plan_sweep(DesignSpace.paper_grid().with_replica(),
                               device=dev)
     rep_ops = transient._pad_operands(rep_plan.operands[:6], 192 - 146)
-    res, _ = kernel_vs_plain(ops, [x.contiguous() for x in rep_ops], dt, caps)
+    res, _, _ = kernel_vs_plain(ops, [x.contiguous() for x in rep_ops], dt,
+                                caps)
     comparisons["paper_grid_replica_B192_N6"] = res
     max_err_ns = max(max_err_ns, res["t_err_ns"])
     log(f"[kernel-vs-plain] paper_grid_replica_B192_N6: {json.dumps(res)}")
@@ -992,12 +1046,23 @@ def main(argv=None) -> int:
                       "best": [best.tech, best.scheme, best.layers,
                                best.density_gb_mm2, best.trc_ns]}
 
-    # 5. the sized run: 299,008 design rows, in default chunks and in one
+    # 5. the sized run: 299,008 design rows through the path (one launch)
+    #    and through explicit per-chunk kernel calls (the earlier dispatch)
     sized: dict = {}
-    events = {}
-    align = transient.B_ALIGN
-    chunks = (transient.DEFAULT_B_CHUNK, -(-rows // align) * align)
-    for b_chunk in chunks:
+    b_chunk = transient.DEFAULT_B_CHUNK
+    padded_rows, slices = transient.fused_launch_plan(rows, b_chunk,
+                                                      one_launch=False)
+
+    def per_chunk(operands):
+        padded = transient._pad_operands(operands[:6], padded_rows - rows)
+        outs = [kernel(*[x[lo:hi].contiguous() for x in padded], dt, *caps)
+                for lo, hi in slices]
+        return (torch.cat([e for e, _ in outs])[:rows],
+                torch.cat([v for _, v in outs])[:rows])
+
+    modes = {"path": lambda plan: transient.row_cycle_events(plan.operands),
+             f"per_chunk_{b_chunk}": lambda plan: per_chunk(plan.operands)[0]}
+    for mode, run in modes.items():
         runs = []
         for rep_i in range(REPEATS + 1):            # the first is the warm-up
             torch.cuda.synchronize()
@@ -1006,18 +1071,16 @@ def main(argv=None) -> int:
             torch.cuda.synchronize()
             plan_ms = (time.perf_counter() - t0) * 1e3
             kernel.launches = 0
-            kernel_ms, evt = cuda_ms(lambda: transient.row_cycle_events(
-                plan.operands, b_chunk=b_chunk))
+            kernel_ms, evt = cuda_ms(lambda: run(plan))
             launches = kernel.launches
             score_ms, mc_batch = cuda_ms(lambda: dse.finalize_sweep(
                 plan, transient.result_from_events(plan.operands, evt)))
             pareto_ms, mask = cuda_ms(lambda: dse.pareto_mask(mc_batch))
             if rep_i:
                 runs.append((plan_ms, kernel_ms, score_ms, pareto_ms))
-        events[b_chunk] = evt
         med = [statistics.median(r[k] for r in runs) for k in range(4)]
         sweep_ms = med[0] + med[1] + med[2]
-        sized[b_chunk] = {
+        sized[mode] = {
             "rows": len(mc_batch), "launches": launches,
             "plan_ms": med[0], "kernel_ms": med[1], "score_ms": med[2],
             "pareto_ms": med[3], "ms_per_launch": med[1] / launches,
@@ -1026,14 +1089,24 @@ def main(argv=None) -> int:
                 (sweep_ms + med[3]) / 1e3),
             "feasible": int(mc_batch.feasible.sum()),
             "pareto": int(mask.sum()), "runs_ms": runs}
-        log(f"[sized] b_chunk={b_chunk}: " + json.dumps(
-            {k: v for k, v in sized[b_chunk].items() if k != "runs_ms"}))
-    check(events_identical(*events.values()),
-          f"b_chunk={chunks[0]} and b_chunk={chunks[1]} events are not "
-          "bit-identical")
-    check([sized[c]["launches"] for c in chunks]
-          == [-(-rows // c) for c in chunks],
-          f"launch counts {[s['launches'] for s in sized.values()]}")
+        log(f"[sized] {mode}: " + json.dumps(
+            {k: v for k, v in sized[mode].items() if k != "runs_ms"}))
+    check([sized[m]["launches"] for m in modes] == [1, len(slices)],
+          f"launch counts {[s['launches'] for s in sized.values()]}, "
+          f"expected 1 (the path) and {len(slices)} (per chunk)")
+    kernel.launches = 0
+    evt_one, v_one = transient._row_cycle_fused_chunked(
+        list(mc_plan.operands[:6]), "auto", b_chunk)
+    check(kernel.launches == 1, "the sized path launched the kernel "
+          f"{kernel.launches} times")
+    evt_pc, v_pc = per_chunk(mc_plan.operands)
+    check(events_identical(evt_one, evt_pc) and bool(torch.equal(v_one, v_pc)),
+          "one launch and per-chunk launches are not bit-identical")
+    check(events_identical(evt_one, mc_plain[0])
+          and bool(torch.equal(v_one, mc_plain[1])),
+          "the one-launch path and the plain version are not bit-identical")
+    log(f"[sized] one launch == {len(slices)} per-chunk launches == plain "
+        "version, bit for bit (events, NaN pattern, v_end)")
     record["sized"] = sized
 
     # 6. rc_multistep kernel vs its plain version on random ladders
@@ -1246,17 +1319,21 @@ def main(argv=None) -> int:
     record["serve"], strap_calls = serve_phase(args, ops, strap_kernel, dev)
     strap_err = max(strap_f32_err, record["serve"]["max_abs_err_vs_plain"])
 
-    # 13. the kernels line: one 2048-row chunk of the sized run, the path's
-    #    default shape; rc_multistep at the phased path's ACT call;
-    #    strap_attend at the full-width path's last exact-mode step
-    chunk = [x[:transient.DEFAULT_B_CHUNK].contiguous()
-             for x in mc_plan.operands[:6]]
-    kernel_ms, (evt, _) = cuda_ms(lambda: kernel(*chunk, dt, *caps), 20)
-    plain_ms, _ = cuda_ms(lambda: ops.row_cycle_fused(*chunk, dt, *caps,
-                                                      backend="ref"), 2)
-    b_ms, b_by, b_work = bound_ms(evt, chunk[5], 6, dt, caps)
-    full_bound_ms, _, full_work = bound_ms(events[chunks[1]], mc_ops[5], 6,
-                                           dt, caps)
+    # 13. the kernels line: row_cycle at the sized path's one launch over
+    #    299,008 rows and at one 2048-row chunk; rc_multistep at the phased
+    #    path's ACT call; strap_attend at the full-width path's last
+    #    exact-mode (and gated) step
+    full = [x.contiguous() for x in transient._pad_operands(
+        mc_plan.operands[:6], padded_rows - rows)]
+    kernel_ms, (evt_full, _) = cuda_ms(lambda: kernel(*full, dt, *caps), 10)
+    chunk = [x[:b_chunk].contiguous() for x in full]
+    chunk_ms, (evt, _) = cuda_ms(lambda: kernel(*chunk, dt, *caps), 20)
+    sm_clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,"
+         "nounits"], capture_output=True, text=True, timeout=60,
+        check=True).stdout.split()[0])
+    b_ms, b_by, b_work = bound_ms(evt_full, full[5], 6, dt, caps)
+    chunk_bound_ms, _, chunk_work = bound_ms(evt, chunk[5], 6, dt, caps)
     line = {"kernels": [{
         "name": "row_cycle_fused",
         "route": "cuda",
@@ -1264,26 +1341,32 @@ def main(argv=None) -> int:
         "replaces": "src/repro/kernels/row_cycle.py:181",
         "launches": main_launches,
         "max_abs_err": max_err_ns,
-        "max_abs_err_unit": "ns (event times; v_end and dv_sense within "
-                            "their bars)",
+        "max_abs_err_unit": "ns (event times; events, NaN pattern and v_end "
+                            "bit-identical to the plain version)",
         "max_err_steps": max_steps,
         "ms": kernel_ms,
-        "plain_ms": plain_ms,
+        "plain_ms": plain_full_ms,
         "bound_ms": b_ms,
         "bound_by": b_by,
         "library_ms": None,
-        "shape": list(chunk[0].shape),
+        "shape": list(full[0].shape),
         "bound_work": b_work,
-        "full_sweep_kernel_ms": {str(k): v["kernel_ms"] for k, v in sized.items()},
-        "full_sweep_bound_ms": full_bound_ms,
-        "full_sweep_plain_ms": plain_full_ms,
-        "full_sweep_work": full_work,
+        "mc_sweep_launches": sized["path"]["launches"],
+        "mc_sweep_kernel_ms": {k: v["kernel_ms"] for k, v in sized.items()},
+        "chunk_2048_ms": chunk_ms,
+        "chunk_2048_bound_ms": chunk_bound_ms,
+        "chunk_2048_work": chunk_work,
+        "chunk_2048_cycles_per_step": chunk_ms * 1e3 * sm_clock_mhz
+        / chunk_work["max_row_steps"],
+        "sm_clock_mhz": sm_clock_mhz,
+        "registers": {k: v for k, v in registers.items() if "row_cycle" in k},
     }, rc_line(rc_kernel, ops, phased_calls[0][0], phased_launches["fixed"],
                rc_err),
         strap_line(strap_kernel, ops, strap_calls,
                    record["serve"]["backends"]["strap_exact"]["launches"],
-                   strap_err)]}
-    log(f"[kernels] strap_attend: " + json.dumps(line["kernels"][2]))
+                   strap_err, registers)]}
+    log("[kernels] row_cycle_fused: " + json.dumps(line["kernels"][0]))
+    log("[kernels] strap_attend: " + json.dumps(line["kernels"][2]))
     record["kernels"] = line["kernels"]
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)

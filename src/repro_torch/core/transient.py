@@ -16,9 +16,10 @@ tRC = t_overhead + t(ACT+RESTORE) + t(PRE).
 
 Two execution engines, same physics:
 
-  fused (default)      — one `kernels.ops.row_cycle_fused` call per chunk
-          runs all three phases with in-kernel crossing detection and
-          returns O(B) events (the CUDA kernel `csrc/row_cycle.cu`).
+  fused (default)      — one `kernels.ops.row_cycle_fused` call (one per
+          chunk through the plain version) runs all three phases with
+          in-kernel crossing detection and returns O(B) events (the CUDA
+          kernel `csrc/row_cycle.cu`).
   phased (traces=True) — three `kernels.ops.rc_multistep` calls (four with
           `replica=True`) that materialize the per-phase (T, B, N)
           waveforms for Fig. 8 (the CUDA kernel `csrc/rc_multistep.cu`);
@@ -52,7 +53,8 @@ N_RESTORE_STEPS = int(T_RESTORE_NS / DT_NS)
 N_PRE_STEPS = int(T_PRE_NS / DT_NS)
 
 # default fused-engine chunk (the reference's, kept for parity; it was
-# sized for TPU VMEM)
+# sized for TPU VMEM).  On the card it is only the padding unit: the
+# kernel takes the whole padded batch in one launch (`fused_launch_plan`).
 DEFAULT_B_CHUNK = 2048
 
 # Fused-engine batches are padded (with inactive design points) up to a
@@ -255,29 +257,44 @@ def validate_b_chunk(b_chunk: int) -> int:
     return b_chunk
 
 
-def _row_cycle_fused_chunked(operands, backend: str, b_chunk: int):
-    """Feed (c, g, gc_res, gc_pre, v0, params) through the fused engine in
-    chunks of `b_chunk` rows, each padded with inactive rows to a B_ALIGN
-    multiple no larger than `b_chunk`."""
+def fused_launch_plan(b: int, b_chunk: int, one_launch: bool):
+    """Rows -> (padded rows, [(lo, hi) of each fused-engine call]).
+
+    The batch is padded with inactive rows to a B_ALIGN multiple no larger
+    than `b_chunk` when it fits in one chunk, else to a `b_chunk` multiple.
+    The plain version takes it in `b_chunk` slices (the reference's
+    dispatch); the CUDA kernel (`one_launch`) takes the whole padded batch
+    in one launch: rows are independent and every slice boundary is a
+    B_ALIGN multiple, so the results are the same bit for bit.
+    """
     b_chunk = validate_b_chunk(b_chunk)
-    b = operands[0].shape[0]
     if b <= b_chunk:
         target = min(-(-b // B_ALIGN) * B_ALIGN, b_chunk)
-        padded = [x.contiguous() for x in _pad_operands(operands, target - b)]
-        evt, v_end = ops.row_cycle_fused(*padded, DT_NS, N_ACT_STEPS,
-                                         N_RESTORE_STEPS, N_PRE_STEPS,
-                                         backend=backend)
-        return evt[:b], v_end[:b]
-    pad = (-b) % b_chunk
-    ops_padded = _pad_operands(operands, pad)
+        return target, [(0, target)]
+    padded = b + (-b) % b_chunk
+    if one_launch:
+        return padded, [(0, padded)]
+    return padded, [(lo, lo + b_chunk) for lo in range(0, padded, b_chunk)]
+
+
+def _row_cycle_fused_chunked(operands, backend: str, b_chunk: int):
+    """Feed (c, g, gc_res, gc_pre, v0, params) through the fused engine as
+    `fused_launch_plan` lays it out: one kernel launch on the card, chunks
+    of `b_chunk` rows through the plain version."""
+    b = operands[0].shape[0]
+    one_launch = ops.resolve_backend(backend, operands[0]) == "cuda"
+    padded_rows, slices = fused_launch_plan(b, b_chunk, one_launch)
+    ops_padded = _pad_operands(operands, padded_rows - b)
     evts, vends = [], []
-    for lo in range(0, b + pad, b_chunk):
-        chunk = [x[lo:lo + b_chunk].contiguous() for x in ops_padded]
-        evt, v_end = ops.row_cycle_fused(*chunk, DT_NS, N_ACT_STEPS,
+    for lo, hi in slices:
+        part = [x[lo:hi].contiguous() for x in ops_padded]
+        evt, v_end = ops.row_cycle_fused(*part, DT_NS, N_ACT_STEPS,
                                          N_RESTORE_STEPS, N_PRE_STEPS,
                                          backend=backend)
         evts.append(evt)
         vends.append(v_end)
+    if len(slices) == 1:
+        return evts[0][:b], vends[0][:b]
     return torch.cat(evts)[:b], torch.cat(vends)[:b]
 
 

@@ -78,6 +78,20 @@ def build(source: Path) -> Path:
     return lib
 
 
+def ptxas_registers(lib: Path) -> dict:
+    """The registers (and spill and shared-memory figures) the compiler's
+    resource report beside `lib` gives each kernel entry, by mangled
+    name; empty where there is no report."""
+    report = Path(f"{lib}.ptxas.txt")
+    regs, entry = {}, None
+    for line in report.read_text().splitlines() if report.exists() else []:
+        if "entry function" in line:
+            entry = line.split("'")[1]
+        elif "registers" in line and entry:
+            regs[entry] = line.split("Used")[1].strip()
+    return regs
+
+
 def load(source: Path, symbol: str, argtypes) -> ctypes.CDLL:
     """Build `source` if needed, load it once per process and declare
     `symbol`'s C signature (returns an int CUDA error code)."""

@@ -25,9 +25,25 @@
 // rejects a role-2 row at an even index (where the shuffle and the
 // reference's wrap-around shift would differ).
 //
+// A step is lean: the parts of the tridiagonal system that do not follow
+// the WL ramp (every diagonal entry but the two around the access branch,
+// and the Thomas sweep's cp[i] and denominators above them, and the clamp
+// terms) are computed once when a row enters a phase, so a step does N + 2
+// divisions (one for the ramp) where it did 2N.
+//
 // Numerics follow the reference operation for operation: true division,
 // accurate expf, and the build turns FMA contraction off (-fmad=false), so
-// the kernel rounds like the plain version.  Build: see kernels/row_cycle.py.
+// the kernel rounds like the plain version, bit for bit.
+//
+// Launch: one launch per call over the whole padded batch
+// (core/transient.py `fused_launch_plan`); the 2048-row chunks of the
+// reference (a TPU VMEM bound) are kept only as the padding unit.
+//
+// What bounds it now: the serial chain of a step (IEEE divisions, each a
+// sequence of dependent instructions, and expf), times the steps of the
+// slowest row of each warp.  Replacing each division by a multiply with a reciprocal
+// computed once per phase would shorten the chain but changes rounding
+// (PERF.md, open questions).  Build: see kernels/build.py.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -94,47 +110,83 @@ row_cycle_kernel(const float* __restrict__ c, const float* __restrict__ g_branch
   const float kNaN = __int_as_float(0x7fc00000);
   const int t_total = n_act + n_res + n_pre;
 
+  // Phase-invariant part of the step.  Only the access branch g[N-2]
+  // follows the ramp, so d[i] for i <= N-3, the Thomas forward sweep's
+  // cp[i] and denominators for i <= N-3, and the clamp terms are fixed
+  // while a row stays in a phase: they are computed when it enters one,
+  // with the operations of the full step in the same order (so the
+  // results are bit-identical to recomputing them every step).
+  int set_phase = -1;
+  float cpf[N - 2], den[N - 2], gcv[N], gc_tail[2];   // den[0] = d[0]
+  float d_lo = 0.0f;
+
   for (int t = 0; t < t_total; ++t) {
     if (__all_sync(kFullMask, phase >= 3)) break;
     const bool in_act = phase == 0, in_res = phase == 1, in_pre = phase == 2;
     const bool done = phase >= 3;
 
+    if (phase != set_phase) {
+#pragma unroll
+      for (int i = 0; i < N; ++i)
+        gcv[i] = in_res ? gcr[i] * vdd : (in_pre ? gcp[i] * vpre : 0.0f);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int j = N - 2 + i;
+        gc_tail[i] = in_res ? gcr[j] : (in_pre ? gcp[j] : 0.0f);
+      }
+      float dfix[N - 2];
+#pragma unroll
+      for (int i = 0; i < N - 2; ++i) {
+        const float g_lo = i > 0 ? gbr[i - 1] : 0.0f;
+        const float gc = in_res ? gcr[i] : (in_pre ? gcp[i] : 0.0f);
+        dfix[i] = cdt[i] + g_lo + gbr[i] + gc;
+      }
+      cpf[0] = -gbr[0] / dfix[0];
+      den[0] = dfix[0];
+#pragma unroll
+      for (int i = 1; i < N - 2; ++i) {
+        const float dl = -gbr[i - 1];
+        den[i] = dfix[i] - dl * cpf[i - 1];
+        cpf[i] = -gbr[i] / den[i];
+      }
+      d_lo = cdt[N - 2] + gbr[N - 3];
+      set_phase = phase;
+    }
+
     // WL ramp, analytic: rising 1 - e^{-t/tau} in ACT, falling in PRE
     const float t_ns = (static_cast<float>(tin) + 1.0f) * dt;
     const float e = expf(-t_ns / tau);
     const float s = in_act ? 1.0f - e : (in_res ? 1.0f : (in_pre ? e : 0.0f));
+    const float ga = gbr[N - 2] * s;   // the access branch g[N-2]
 
-    // tridiagonal assembly A = C/dt + G(s) + clamp, rhs = C/dt v + clamp v
-    float g[N - 1];
+    // the two rows of A = C/dt + G(s) + clamp that hold g[N-2]; every
+    // rhs = C/dt v + clamp v
+    const float d_n2 = d_lo + ga + gc_tail[0];
+    const float d_n1 = cdt[N - 1] + ga + 0.0f + gc_tail[1];
+    float rhs[N];
 #pragma unroll
-    for (int i = 0; i < N - 2; ++i) g[i] = gbr[i];
-    g[N - 2] = gbr[N - 2] * s;
-    float d[N], rhs[N];
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      const float g_lo = i > 0 ? g[i - 1] : 0.0f;
-      const float g_hi = i < N - 1 ? g[i] : 0.0f;
-      const float gc = in_res ? gcr[i] : (in_pre ? gcp[i] : 0.0f);
-      const float gcv = in_res ? gcr[i] * vdd : (in_pre ? gcp[i] * vpre : 0.0f);
-      d[i] = cdt[i] + g_lo + g_hi + gc;
-      rhs[i] = cdt[i] * v[i] + gcv;
-    }
+    for (int i = 0; i < N; ++i) rhs[i] = cdt[i] * v[i] + gcv[i];
 
-    // Thomas solve (order of ref._thomas_small): dl[i] = -g[i-1], du[i] = -g[i]
-    float cp[N], dp[N], x[N];
-    cp[0] = -g[0] / d[0];
-    dp[0] = rhs[0] / d[0];
+    // Thomas solve (order of ref._thomas_small): dl[i] = -g[i-1],
+    // du[i] = -g[i]; rows i <= N-3 use the phase's cp and denominators
+    float dp[N], x[N];
+    dp[0] = rhs[0] / den[0];
 #pragma unroll
-    for (int i = 1; i < N; ++i) {
-      const float dl = -g[i - 1];
-      const float du = i < N - 1 ? -g[i] : 0.0f;
-      const float denom = d[i] - dl * cp[i - 1];
-      cp[i] = du / denom;
-      dp[i] = (rhs[i] - dl * dp[i - 1]) / denom;
+    for (int i = 1; i < N - 2; ++i) {
+      const float dl = -gbr[i - 1];
+      dp[i] = (rhs[i] - dl * dp[i - 1]) / den[i];
     }
+    const float dl_n2 = -gbr[N - 3];
+    const float denom_n2 = d_n2 - dl_n2 * cpf[N - 3];
+    const float cp_n2 = -ga / denom_n2;
+    dp[N - 2] = (rhs[N - 2] - dl_n2 * dp[N - 3]) / denom_n2;
+    const float dl_n1 = -ga;
+    const float denom_n1 = d_n1 - dl_n1 * cp_n2;
+    dp[N - 1] = (rhs[N - 1] - dl_n1 * dp[N - 2]) / denom_n1;
     x[N - 1] = dp[N - 1];
+    x[N - 2] = dp[N - 2] - cp_n2 * x[N - 1];
 #pragma unroll
-    for (int i = N - 2; i >= 0; --i) x[i] = dp[i] - cp[i] * x[i + 1];
+    for (int i = N - 3; i >= 0; --i) x[i] = dp[i] - cpf[i] * x[i + 1];
 #pragma unroll
     for (int i = 0; i < N; ++i) x[i] = done ? v[i] : x[i];
 

@@ -16,7 +16,8 @@ from .strap_gather import strap_attend_cuda
 BACKENDS = ("auto", "ref", "cuda")
 
 
-def _resolve(backend: str, x) -> str:
+def resolve_backend(backend: str, x) -> str:
+    """The backend a call on tensor `x` runs: "cuda" or "ref"."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; expected one of {BACKENDS}")
     if backend == "auto":
@@ -31,7 +32,7 @@ def rc_multistep(c, g_branch, g_clamp, v_clamp, v0, ramp, dt,
     See `ref.rc_multistep_ref` for the operands; the access (last) branch
     is scaled by `ramp[t]` at step t.
     """
-    if _resolve(backend, c) == "cuda":
+    if resolve_backend(backend, c) == "cuda":
         return rc_multistep_cuda(c, g_branch, g_clamp, v_clamp, v0, ramp, dt)
     return ref.rc_multistep_ref(c, g_branch, g_clamp, v_clamp, v0, ramp, dt)
 
@@ -43,7 +44,7 @@ def row_cycle_fused(c, g_branch, gc_res, gc_pre, v0, params, dt,
     Trace-free: O(B) outputs regardless of the number of time steps.  See
     `ref.row_cycle_fused_ref` for the params layout and event semantics.
     """
-    if _resolve(backend, c) == "cuda":
+    if resolve_backend(backend, c) == "cuda":
         return row_cycle_fused_cuda(c, g_branch, gc_res, gc_pre, v0, params,
                                     dt, n_act, n_res, n_pre)
     return ref.row_cycle_fused_ref(c, g_branch, gc_res, gc_pre, v0, params,
@@ -59,7 +60,7 @@ def strap_attend(q, k_pages, v_pages, strap_ids, pages_per_strap,
     filled strap and are masked out of the softmax.  `None` attends every
     token of every selected strap.  See `ref.strap_attend_ref`.
     """
-    if _resolve(backend, q) == "cuda":
+    if resolve_backend(backend, q) == "cuda":
         return strap_attend_cuda(q, k_pages, v_pages, strap_ids,
                                  pages_per_strap, scale, lengths=lengths)
     return ref.strap_attend_ref(q, k_pages, v_pages, strap_ids,

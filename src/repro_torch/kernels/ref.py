@@ -3,8 +3,9 @@
 Port of `repro.kernels.ref`.  `row_cycle_fused_ref` is what the CUDA
 kernel `csrc/row_cycle.cu` computes, `rc_multistep_ref` what
 `csrc/rc_multistep.cu` computes, `strap_attend_ref` what
-`csrc/strap_attend.cu` computes: the CPU path runs them, and
-`chip_smoke.py` holds each kernel against its plain version on the card.
+`csrc/strap_attend.cu` computes (`strap_attend_split_ref` computes it as
+the kernel splits it): the CPU path runs them, and `chip_smoke.py` holds
+each kernel against its plain version on the card.
 The row-cycle versions follow the reference oracles operation for
 operation, in float32; `strap_attend_ref` follows the TPU kernel
 (`strap_attend_pallas`) where the reference's oracle and kernel differ.
@@ -281,4 +282,69 @@ def strap_attend_ref(q: torch.Tensor, k_pages: torch.Tensor,
     l_sum = w.sum(dim=-1, keepdim=True)
     o = torch.einsum("bhgt,bthd->bhgd", w, v)
     o = o / torch.where(l_sum > 0, l_sum, torch.ones_like(l_sum))
+    return o.reshape(b, hq, d).to(q.dtype)
+
+
+def strap_split_ranges(strap_ids: torch.Tensor, lengths: torch.Tensor | None,
+                       blk: int, n_straps: int, chunk: int, n_tok: int):
+    """Token ranges of the split kernel's blocks -> (start, count), each
+    (B, S * n_chunks) int64: split s * n_chunks + c takes `count` tokens
+    from flat token `start` on, chunk c of slot s's strap below lengths[b];
+    a masked slot (id < 0 or >= n_straps) gets count 0.  The same
+    arithmetic as `csrc/strap_attend.cu`'s `split_of`."""
+    n_chunks = -(-blk // chunk)
+    ids = strap_ids.long()
+    b = ids.shape[0]
+    dev = ids.device
+    length = (torch.full((b,), n_tok, dtype=torch.long, device=dev)
+              if lengths is None else lengths.long().to(dev))
+    valid = (ids >= 0) & (ids < n_straps)                       # (B, S)
+    c = torch.arange(n_chunks, device=dev)
+    start = ids[..., None] * blk + c * chunk                    # (B, S, C)
+    stop = torch.minimum(ids[..., None] * blk
+                         + torch.clamp((c + 1) * chunk, max=blk),
+                         length[:, None, None])
+    count = torch.where(valid[..., None], (stop - start).clamp(min=0), 0)
+    start = torch.where(valid[..., None], start, 0)
+    return start.reshape(b, -1), count.reshape(b, -1)
+
+
+def strap_attend_split_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                           v_pages: torch.Tensor, strap_ids: torch.Tensor,
+                           pages_per_strap: int, chunk: int,
+                           scale: float | None = None,
+                           lengths: torch.Tensor | None = None
+                           ) -> torch.Tensor:
+    """`strap_attend_ref`'s function computed as the CUDA kernels split it:
+    a float32 partial (m, l, acc) per split of `strap_split_ranges` (the
+    plan's `chunk`, from `strap_gather.split_plan`), merged with the
+    log-sum-exp rule and divided by l (zeros where l = 0)."""
+    b, p, page, hkv, d = k_pages.shape
+    hq = q.shape[1]
+    grp = hq // hkv
+    blk = pages_per_strap * page
+    if scale is None:
+        scale = 1.0 / (d ** 0.5)
+    start, count = strap_split_ranges(strap_ids, lengths, blk,
+                                      p // pages_per_strap, chunk, p * page)
+    offs = torch.arange(chunk, device=q.device)
+    ok = offs < count[..., None]                                # (B, N, C)
+    tok = torch.where(ok, start[..., None] + offs, 0)
+    rows = torch.arange(b, device=q.device)[:, None, None]
+    k = k_pages.reshape(b, p * page, hkv, d)[rows, tok].float()  # B,N,C,H,D
+    v = v_pages.reshape(b, p * page, hkv, d)[rows, tok].float()
+    qg = q.reshape(b, hkv, grp, d).float()
+    logits = torch.einsum("bhgd,bnchd->bhngc", qg, k) * scale
+    logits = logits.masked_fill(~ok[:, None, :, None, :], float("-inf"))
+    m = torch.amax(logits, dim=-1)                              # (B,H,N,G)
+    m_use = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    w = torch.exp(logits - m_use[..., None])
+    l_part = w.sum(-1)
+    acc = torch.einsum("bhngc,bnchd->bhngd", w, v)
+    mm = torch.amax(m, dim=2, keepdim=True)                     # (B,H,1,G)
+    wt = torch.where(torch.isfinite(mm), torch.exp(m - mm),
+                     torch.zeros_like(m))                       # empty -> 0
+    l_sum = (wt * l_part).sum(2)
+    o = (wt[..., None] * acc).sum(2)
+    o = o / torch.where(l_sum > 0, l_sum, torch.ones_like(l_sum))[..., None]
     return o.reshape(b, hq, d).to(q.dtype)

@@ -1,28 +1,63 @@
 """The strap-gated decode attention CUDA kernel: binding and wrapper.
 
-`strap_attend_cuda` launches the hand-written sm_90a kernel in
-`csrc/strap_attend.cu` (which replaces the TPU kernel
+`strap_attend_cuda` launches the hand-written sm_90a kernels in
+`csrc/strap_attend.cu` (which replace the TPU kernel
 `repro.kernels.strap_gather.strap_attend_pallas`) on PyTorch's current
-stream.  The kernel is compiled with `nvcc` into `build/` at the repo root
-on first use and loaded with ctypes (`kernels.build`); nothing is
-compiled or loaded when this module is imported.  The plain version it is
-held against is `kernels.ref.strap_attend_ref`.
+stream: a split kernel, one block per (sequence, kv head, selected-strap
+slot, chunk of tokens) as `split_plan` lays them out, and a combine kernel
+that merges the blocks' float32 partials.  The kernels are compiled with
+`nvcc` into `build/` at the repo root on first use and loaded with ctypes
+(`kernels.build`); nothing is compiled or loaded when this module is
+imported.  The plain version they are held against is
+`kernels.ref.strap_attend_ref`; `kernels.ref.strap_attend_split_ref`
+follows the split plan in plain PyTorch.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from . import build as _build
 
 SOURCE = _build.CSRC / "strap_attend.cu"
-MAX_HEAD_DIM = 256      # D the kernel takes (one thread per output column)
-MAX_GROUP = 8           # query heads per kv head (register accumulators)
+MAX_HEAD_DIM = 256      # D the kernel takes (register accumulators)
+MAX_GROUP = 8           # query heads per kv head (the mma's N = 8)
+CHUNK_TOKENS = 128      # most tokens of one strap one block takes
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
-             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
+             + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+
+
+class SplitPlan(NamedTuple):
+    """How one call is cut into blocks of the split kernel."""
+    chunk: int       # tokens of a strap one block takes (at most)
+    n_chunks: int    # blocks per selected-strap slot
+    n_splits: int    # partials per (sequence, kv head): slots x chunks
+    blocks: int      # split-kernel blocks: B x Hkv x n_splits
+
+
+def split_plan(k_shape, pages_per_strap: int, n_sel: int) -> SplitPlan:
+    """The split plan for pages of shape (B, P, page, Hkv, D) and `n_sel`
+    selected straps a row: each slot's G*page tokens in chunks of at most
+    `CHUNK_TOKENS`, one block per (sequence, kv head, slot, chunk)."""
+    b, _, page, hkv, _ = k_shape
+    blk = pages_per_strap * page
+    chunk = min(CHUNK_TOKENS, blk)
+    n_chunks = -(-blk // chunk)
+    n_splits = n_sel * n_chunks
+    return SplitPlan(chunk, n_chunks, n_splits, b * hkv * n_splits)
+
+
+def vector_loads(k_pages, v_pages) -> bool:
+    """Whether the kernel may copy K and V rows 16 bytes at a time: a row
+    (D elements) is a whole number of 16-byte chunks and both base
+    pointers are 16-byte aligned.  Otherwise it copies them element by
+    element."""
+    return ((k_pages.shape[-1] * k_pages.element_size()) % 16 == 0
+            and k_pages.data_ptr() % 16 == 0 and v_pages.data_ptr() % 16 == 0)
 
 
 def build():
@@ -85,13 +120,13 @@ def _check_inputs(q, k_pages, v_pages, strap_ids, pages_per_strap,
 
 def strap_attend_cuda(q, k_pages, v_pages, strap_ids, pages_per_strap: int,
                       scale: float | None = None, lengths=None) -> torch.Tensor:
-    """Launch the strap-attention kernel -> (B, Hq, D) in q's dtype.
+    """Launch the strap-attention kernels -> (B, Hq, D) in q's dtype.
 
     Same contract as `ref.strap_attend_ref`, on contiguous CUDA tensors:
     q, k_pages, v_pages float32 or bfloat16 (one dtype), strap_ids and
     lengths int32, D <= `MAX_HEAD_DIM`, Hq a multiple of Hkv with at most
-    `MAX_GROUP` query heads per kv head.  Adds one to
-    `strap_attend_cuda.launches` per kernel launch.
+    `MAX_GROUP` query heads per kv head.  One call runs two device kernels
+    (split, then combine) and adds one to `strap_attend_cuda.launches`.
     """
     _check_inputs(q, k_pages, v_pages, strap_ids, pages_per_strap, lengths)
     b, p, page, hkv, d = k_pages.shape
@@ -101,6 +136,14 @@ def strap_attend_cuda(q, k_pages, v_pages, strap_ids, pages_per_strap: int,
     out = torch.empty_like(q)
     if b == 0:
         return out
+    n_sel = strap_ids.shape[1]
+    plan = split_plan(k_pages.shape, pages_per_strap, n_sel)
+    grp = hq // hkv
+    part_ml = torch.empty((b, hkv, plan.n_splits, grp, 2),
+                          dtype=torch.float32, device=q.device)
+    part_acc = torch.empty((b, hkv, plan.n_splits, grp, d),
+                           dtype=torch.float32, device=q.device)
+    vec = int(vector_loads(k_pages, v_pages))
     fn = _build.load(SOURCE, "strap_attend_launch",
                      _ARGTYPES).strap_attend_launch
     with torch.cuda.device(q.device):
@@ -108,8 +151,9 @@ def strap_attend_cuda(q, k_pages, v_pages, strap_ids, pages_per_strap: int,
         err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                  strap_ids.data_ptr(),
                  None if lengths is None else lengths.data_ptr(),
-                 out.data_ptr(), b, p, page, hkv, d, hq, strap_ids.shape[1],
-                 int(pages_per_strap), float(scale), _DTYPES[q.dtype], stream)
+                 out.data_ptr(), part_ml.data_ptr(), part_acc.data_ptr(),
+                 b, p, page, hkv, d, hq, n_sel, int(pages_per_strap),
+                 plan.chunk, float(scale), _DTYPES[q.dtype], vec, stream)
     if err:
         raise RuntimeError(f"strap_attend kernel launch failed: CUDA error "
                            f"{err}")

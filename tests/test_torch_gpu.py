@@ -27,8 +27,8 @@ from repro_torch.core import calibration as cal  # noqa: E402
 from repro_torch.core import dse, transient  # noqa: E402
 from repro_torch.core.space import DesignSpace  # noqa: E402
 from repro_torch.configs.registry import get_arch  # noqa: E402
-from repro_torch.kernels import (ops, rc_transient, row_cycle,  # noqa: E402
-                                 strap_gather)
+from repro_torch.kernels import (ops, rc_transient, ref,  # noqa: E402
+                                 row_cycle, strap_gather)
 from repro_torch.memory.strap_cache import StrapCacheConfig  # noqa: E402
 from repro_torch.models import registry as models  # noqa: E402
 from repro_torch.serving.engine import ServeEngine  # noqa: E402
@@ -143,6 +143,34 @@ def test_sweep_on_card_matches_plain_sweep(cuda):
     assert (best.tech, best.scheme, best.layers) == ("aos", "sel_strap", 87)
 
 
+def test_row_cycle_one_launch_equals_chunks_and_plain(rng, cuda):
+    """A batch past the default chunk: the dispatch issues one launch over
+    the padded batch; its events and final voltages equal explicit
+    per-2048-row kernel calls and the plain version bit for bit."""
+    b = 5000
+    args = random_operands(rng, b, 6, cuda)
+    before = row_cycle.row_cycle_fused_cuda.launches
+    evt, v_end = transient._row_cycle_fused_chunked(
+        args, "auto", transient.DEFAULT_B_CHUNK)
+    assert row_cycle.row_cycle_fused_cuda.launches == before + 1
+    padded_rows, chunks = transient.fused_launch_plan(
+        b, transient.DEFAULT_B_CHUNK, one_launch=False)
+    padded = transient._pad_operands(args, padded_rows - b)
+    per_chunk = [ops.row_cycle_fused(*[x[lo:hi].contiguous() for x in padded],
+                                     DT, *CAPS, backend="cuda")
+                 for lo, hi in chunks]
+    evt_c = torch.cat([e for e, _ in per_chunk])[:b]
+    v_c = torch.cat([v for _, v in per_chunk])[:b]
+    evt_p, v_p = ops.row_cycle_fused(*args, DT, *CAPS, backend="ref")
+
+    def same(x, y):
+        return bool(((x == y) | (x.isnan() & y.isnan())).all())
+
+    assert same(evt, evt_c) and torch.equal(v_end, v_c)
+    assert same(evt, evt_p) and torch.equal(v_end, v_p)
+    assert torch.isnan(evt[b // 2 + 3, 0])
+
+
 def random_ladder(rng, b, n, t, device):
     """Random ladders with a nonzero clamp network and a rising ramp."""
     c = rng.uniform(1, 5, (b, n))
@@ -211,19 +239,36 @@ def test_phased_engine_on_card_matches_fused(cuda, tech, scheme, layers,
     assert diff("trc_ns") <= 3 * DT + 0.05
 
 
+# the reference's kernel test shapes, then two that reach the kernel's
+# other branches: D = 30 (rows copied element by element, D padded to the
+# mma depth) and D = 256 with grp = 8 (the widest instantiation)
 STRAP_SHAPES = [(2, 8, 16, 2, 64, 8, 2), (1, 4, 8, 1, 128, 4, 4),
                 (3, 6, 32, 3, 32, 6, 3), (2, 16, 8, 4, 64, 16, 4),
-                (1, 8, 128, 2, 128, 2, 2)]
+                (1, 8, 128, 2, 128, 2, 2), (2, 8, 16, 2, 30, 8, 2),
+                (3, 8, 16, 1, 256, 8, 2)]
 
 
-def strap_case(rng, b, p, page, hkv, d, hq, g, device, dtype=torch.float32):
+def unaligned(x):
+    """`x` copied to one element past a 16-byte-aligned base: contiguous,
+    but its base pointer is not 16-byte aligned."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+def strap_case(rng, b, p, page, hkv, d, hq, g, device, dtype=torch.float32,
+               shift=False):
     """Random pages with, where the shape allows, a masked strap, a partial
-    length, a duplicated id and an all-masked row."""
+    length, a duplicated id and an all-masked row; with `shift`, the pages
+    start off a 16-byte boundary."""
     s = p // g
     q, k, v = (torch.as_tensor(rng.normal(size=shape).astype(np.float32),
                                device=device).to(dtype)
                for shape in ((b, hq, d), (b, p, page, hkv, d),
                              (b, p, page, hkv, d)))
+    if shift:
+        k, v = unaligned(k), unaligned(v)
     ids = np.stack([rng.permutation(s) for _ in range(b)])
     lengths = np.full(b, p * page)
     if s > 1:
@@ -260,6 +305,73 @@ def test_strap_attend_kernel_bf16_decode_shape(rng, cuda):
     np.testing.assert_allclose(out_k.float().cpu().numpy(),
                                out_p.float().cpu().numpy(), rtol=3e-2,
                                atol=3e-2)
+    np.testing.assert_allclose(out_k.float().cpu().numpy(),
+                               out_p.float().cpu().numpy(), rtol=2.0 ** -6,
+                               atol=1e-3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", STRAP_SHAPES,
+                         ids=["x".join(map(str, s)) for s in STRAP_SHAPES])
+def test_strap_attend_kernel_matches_split_plain(rng, cuda, shape, dtype):
+    """The kernel against the plain version of its own split plan
+    (`ref.strap_attend_split_ref` at `split_plan`'s chunk); a duplicated id
+    counts twice: the same as the strap's tokens listed twice."""
+    q, k, v, ids, g, lengths = strap_case(rng, *shape, cuda, dtype)
+    plan = strap_gather.split_plan(k.shape, g, ids.shape[1])
+    out_k = ops.strap_attend(q, k, v, ids, g, lengths=lengths)
+    out_s = ref.strap_attend_split_ref(q, k, v, ids, g, plan.chunk,
+                                       lengths=lengths)
+    tol = 3e-5 if dtype == torch.float32 else 3e-2
+    np.testing.assert_allclose(out_k.float().cpu().numpy(),
+                               out_s.float().cpu().numpy(), rtol=tol,
+                               atol=tol)
+    if shape[0] > 1:
+        assert not out_k[1].any()           # all-masked row: zeros
+    if shape[0] > 2:
+        # the last row lists strap ids[-1, 1] twice: the same as listing
+        # it once and once more a copy of it, in pages doubled
+        p = k.shape[1]
+        twin = ids[-1:].clone()
+        twin[0, 0] = ids[-1, 1] + p // g
+        out_t = ops.strap_attend(
+            q[-1:], torch.cat([k[-1:], k[-1:]], 1).contiguous(),
+            torch.cat([v[-1:], v[-1:]], 1).contiguous(), twin, g,
+            lengths=2 * lengths[-1:])
+        np.testing.assert_allclose(out_k[-1:].float().cpu().numpy(),
+                                   out_t.float().cpu().numpy(), rtol=tol,
+                                   atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+def test_strap_attend_kernel_unaligned_pages(rng, cuda, dtype):
+    """Pages whose base pointer is off a 16-byte boundary: the kernel
+    copies K and V rows element by element (D = 200: the widest
+    instantiation, D padded to the mma depth)."""
+    q, k, v, ids, g, lengths = strap_case(rng, 3, 8, 16, 2, 200, 12, 2, cuda,
+                                          dtype, shift=True)
+    assert not strap_gather.vector_loads(k, v)
+    out_k = ops.strap_attend(q, k, v, ids, g, lengths=lengths)
+    out_p = ops.strap_attend(q, k, v, ids, g, lengths=lengths, backend="ref")
+    tol = 3e-5 if dtype == torch.float32 else 3e-2
+    np.testing.assert_allclose(out_k.float().cpu().numpy(),
+                               out_p.float().cpu().numpy(), rtol=tol,
+                               atol=tol)
+    assert not out_k[1].any()               # all-masked row: zeros
+
+
+def test_strap_attend_kernel_bf16_gated_selection(rng, cuda):
+    """Qwen2-1.5B's decode call with 4 of the 9 straps selected (the gated
+    engine's top 4), the newest strap partly filled."""
+    q, k, v, ids, g, lengths = strap_case(rng, 8, 36, 64, 2, 128, 12, 4,
+                                          cuda, torch.bfloat16)
+    ids = ids[:, :4].contiguous()
+    before = strap_gather.strap_attend_cuda.launches
+    out_k = ops.strap_attend(q, k, v, ids, g, lengths=lengths)
+    assert strap_gather.strap_attend_cuda.launches == before + 1
+    out_p = ops.strap_attend(q, k, v, ids, g, lengths=lengths, backend="ref")
     np.testing.assert_allclose(out_k.float().cpu().numpy(),
                                out_p.float().cpu().numpy(), rtol=2.0 ** -6,
                                atol=1e-3)
