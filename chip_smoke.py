@@ -23,14 +23,20 @@ Phases (any failure exits non-zero and prints no result line):
    warm-up, through the path (one launch at the default b_chunk=2048)
    and through explicit per-2048-row kernel calls (the earlier dispatch,
    146 launches); both equal bit for bit, and equal to the plain version;
-6. the rc_multistep kernel against its plain version on random ladders
-   (N = 4, 6, 8, ragged B, clamp network and ramp);
+6. the rc_multistep kernel against its plain version, bit for bit, on
+   random ladders (N = 4, 6, 8, ragged B, clamp network and ramp) and on
+   ladders at the edges of its exact quotient form
+   (`bench.rc_adversarial_ladders`), and its branch-free reciprocal against
+   IEEE division on every float32 of its range;
 7. the phased engine (`simulate_row_cycle(..., traces=True)`, the Fig. 8
    waveforms) at B = 1024 (SI sel_strap, layers 32..288), fixed and
    replica-timed, with rc_multistep's launch count read around it, the
-   kernel held against its plain version at the path's own shapes, the
-   path through the kernel vs through the plain version, fused vs phased,
-   the Fig. 8 goldens, the full paper grid, and the B = 1024 call timed;
+   kernel held against its plain version bit for bit at the path's own
+   shapes, the path through the kernel vs through the plain version
+   (events and traces bit for bit), fused vs phased, the Fig. 8 goldens,
+   the full paper grid, the host-device syncs of one call (none: it runs
+   under `torch.cuda.set_sync_debug_mode("error")`), and the B = 1024 call
+   timed;
 8. the MC reductions (yield_fraction, quantile, ess, mc_summary) on the
    299,008-row batch of phase 5 and yield_ppm on a 4096-sample tail sweep,
    timed and held against the same reductions on the CPU;
@@ -53,7 +59,9 @@ Phases (any failure exits non-zero and prints no result line):
    decode step under the profiler;
 13. one JSON line listing the ported kernels (row_cycle at the sweep's
    one launch over 299,008 rows and at one 2048-row chunk, with the
-   cycles of a step; rc_multistep at the phased path's ACT call;
+   cycles of a step; rc_multistep at the phased path's ACT call, with
+   cycles a step, its block as the library reports it and, in its
+   `bound_work`, the chain model beside the byte bound;
    strap_attend at the full-width path's last exact-mode and gated
    steps, on 1 to 8 rows, and SDPA on the same tokens), then the card
    line, then the result line {"ok": true, "device": {...}}.
@@ -84,6 +92,7 @@ TAIL_SAMPLES = 4096             # report.mc_tail_yield_table's default
 RC_RTOL, RC_ATOL = 1e-5, 1e-6   # tests/test_kernels.py's rc_multistep bar
 REGEN_SLACK_NS = 0.05           # tests/test_fused_row_cycle.py's analog slack
 F32_PEAK_OPS = 67e12            # H100 SXM float32 (non-tensor) peak, data sheet
+CHAIN_OP_CYCLES = 4             # assumed float32 mul/add/fma latency, sm_90
 BF16_PEAK_OPS = 989e12          # H100 SXM bf16 dense tensor-core peak, data sheet
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 bandwidth, data sheet
 STRAP_F32_TOL = 3e-5            # tests/test_kernels.py's strap bars (rtol = atol)
@@ -212,39 +221,6 @@ def kernel_vs_plain(ops_mod, args, dt, caps) -> tuple[dict, float, tuple]:
 # timing helpers
 # --------------------------------------------------------------------------
 
-def profile(fn) -> dict:
-    """One call of `fn` under torch.profiler: host wall time, the device
-    time of its kernels (self CUDA time summed over the trace), the idle
-    share of the card over the call, and the kernels taking most time."""
-    import torch
-    from torch.profiler import ProfilerActivity
-    from torch.profiler import profile as torch_profile
-
-    fn()                                      # warm-up outside the trace
-    torch.cuda.synchronize()
-    with torch_profile(activities=[ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    device = [e for e in prof.events()
-              if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in device) / 1e3
-    by_name: dict = {}
-    for e in device:
-        ms, n = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (ms + e.self_device_time_total / 1e3, n + 1)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
-    strap = [v for k, v in by_name.items() if "strap_" in k]
-    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
-            "idle_share": 1.0 - busy_ms / wall_ms if wall_ms else None,
-            "device_kernels": len(device),
-            "strap_attend_ms": sum(ms for ms, _ in strap),
-            "strap_attend_kernels": sum(n for _, n in strap),
-            "top": [[name[:60], ms, n] for name, (ms, n) in top]}
-
-
 def ops_per_step(n: int) -> int:
     """float32 operations of one implicit-Euler step of an N-node row, as
     csrc/row_cycle.cu does them (each division and expf counted as one):
@@ -295,8 +271,18 @@ def random_ladder(rng, b, n, t):
         rng.uniform(0.0, 1.1, (b, n)), ramp)]
 
 
+def bitwise_equal(a, b) -> bool:
+    """Every float32 of `a` has the bits of `b`'s (so -0.0 != 0.0 and
+    NaN == NaN of the same payload)."""
+    import torch
+
+    return a.shape == b.shape and bool(torch.equal(a.view(torch.int32),
+                                                   b.view(torch.int32)))
+
+
 def rc_compare(ops_mod, args, dt) -> dict:
-    """rc_multistep kernel vs plain version on the same CUDA tensors."""
+    """rc_multistep kernel vs plain version on the same CUDA tensors: bit
+    for bit, and within the reference's bars."""
     import torch
 
     out_k = ops_mod.rc_multistep(*args, dt, backend="cuda")
@@ -307,8 +293,12 @@ def rc_compare(ops_mod, args, dt) -> dict:
     check(ok and bool(torch.isfinite(out_k).all().item()),
           f"rc_multistep kernel outside rtol {RC_RTOL} / atol {RC_ATOL} "
           f"of its plain version (max |d| {err.max().item()})")
+    same = bitwise_equal(out_k, out_p)
+    check(same, "rc_multistep kernel not bit-identical to its plain version "
+          f"({int((out_k.view(torch.int32) != out_p.view(torch.int32)).sum())}"
+          f" of {out_k.numel()} values differ)")
     return {"shape": list(out_k.shape), "max_abs_err": err.max().item(),
-            "bit_identical": bool(torch.equal(out_k, out_p))}
+            "bit_identical": same}
 
 
 @contextmanager
@@ -334,7 +324,7 @@ def rc_bound_ms(b, n, t) -> tuple[float, str, dict]:
     """The least time the card could take for one rc_multistep call: its
     bytes (five (B, N)-ish operands and the ramp read once, the (T, B, N)
     trace written once) over the HBM rate, or its float32 operations
-    (13N - 5 a row-step as csrc/rc_multistep.cu does them, each division
+    (13N - 5 a row-step as the plain version does them, each division
     counted as one, plus 3N a row of set-up) over the float32 peak."""
     n_bytes = 4 * (b * (4 * n + n - 1) + t) + 4 * t * b * n
     n_ops = t * b * (13 * n - 5) + 3 * b * n
@@ -373,24 +363,48 @@ def events_within_bars(f, p, dt) -> dict:
     return out
 
 
-def rc_line(rc_kernel, ops_mod, act_args, launches, max_err) -> dict:
+def rc_line(rc_kernel, ops_mod, act_args, launches, max_err,
+            registers) -> dict:
     """The kernels-line entry of rc_multistep, timed at the phased path's
-    ACT call (its widest: T = 800 steps of B rows)."""
-    from repro_torch.kernels.bench import cuda_ms
+    ACT call (its widest: T = 800 steps of B rows), with the cycles a step
+    at the SM clock nvidia-smi reads and the block the built library
+    reports.  Beside the byte bound, `bound_work` carries the chain model:
+    T steps of the step's dependent float operations, counted by hand from
+    the source (`rc_transient.chain_ops`), at an assumed latency of
+    CHAIN_OP_CYCLES each, at that clock.  It is a model, not a
+    measurement."""
+    from repro_torch.kernels import rc_transient
+    from repro_torch.kernels.bench import cuda_ms, rc_kernel_timing, smi
 
     c, ramp = act_args[0], act_args[5]
-    ms, _ = cuda_ms(lambda: rc_kernel(*act_args), 20)
+    steps, n = int(ramp.shape[0]), int(c.shape[1])
+    clock_mhz = float(smi("clocks.sm"))
+    timing = rc_kernel_timing(rc_kernel, act_args, clock_mhz, REPEATS)
     plain_ms, _ = cuda_ms(lambda: ops_mod.rc_multistep(*act_args,
                                                        backend="ref"))
-    b_ms, b_by, work = rc_bound_ms(c.shape[0], c.shape[1], ramp.shape[0])
+    b_ms, b_by, work = rc_bound_ms(c.shape[0], n, steps)
+    ops = rc_transient.chain_ops(n)
+    work["chain_model"] = {
+        "basis": "model, not measured: dependent float ops a step counted "
+                 "from csrc/rc_multistep.cu at an assumed latency",
+        "float_ops_per_step": ops,
+        "assumed_cycles_per_op": CHAIN_OP_CYCLES,
+        "cycles_per_step": ops * CHAIN_OP_CYCLES,
+        "floor_ms": steps * ops * CHAIN_OP_CYCLES / (clock_mhz * 1e3)}
     return {"name": "rc_multistep", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/rc_multistep.cu",
             "replaces": "src/repro/kernels/rc_transient.py:75",
             "launches": launches, "max_abs_err": max_err,
-            "max_abs_err_unit": "V (trace node voltages)",
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": None,
-            "shape": [int(ramp.shape[0]), *c.shape], "bound_work": work}
+            "max_abs_err_unit": "V (trace node voltages; every trace "
+                                "bit-identical to the plain version)",
+            "ms": timing["ms"], "ms_runs": timing["runs_ms"],
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None, "shape": [steps, *c.shape],
+            "bound_work": work, "sm_clock_mhz": clock_mhz,
+            "cycles_per_step": timing["cycles_per_step"],
+            "block": rc_transient.block_geometry(),
+            "registers": {k: v for k, v in registers.items()
+                          if "rc_multistep" in k}}
 
 
 def same_events(a, b) -> bool:
@@ -541,7 +555,7 @@ def sdpa_library(calls, outs) -> dict:
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
-    from repro_torch.kernels.bench import cuda_ms, device_ms
+    from repro_torch.kernels.bench import cuda_ms, device_ms, profile
 
     n = len(calls)
     per_call = [sdpa_forms(a, kw) for a, kw in calls]
@@ -748,7 +762,7 @@ def serve_phase(args, ops_mod, strap_kernel, dev) -> tuple[dict, dict]:
     from repro_torch.configs.registry import get_arch
     from repro_torch.memory.strap_cache import StrapCacheConfig
     from repro_torch.models import registry as models
-    from repro_torch.kernels.bench import cuda_ms
+    from repro_torch.kernels.bench import cuda_ms, profile
     from repro_torch.models.common import lm_logits
     from repro_torch.serving.engine import ServeEngine
 
@@ -911,7 +925,8 @@ def main(argv=None) -> int:
     from repro_torch.core.space import DEFAULT_LAYER_GRID, DesignSpace
     from repro_torch.kernels import (build, ops, rc_transient, row_cycle,
                                      strap_gather)
-    from repro_torch.kernels.bench import cuda_ms
+    from repro_torch.kernels.bench import (count_syncs, cuda_ms, profile,
+                                           rc_adversarial_ladders)
 
     wall0 = time.perf_counter()
     record: dict = {"seed": args.seed}
@@ -1109,15 +1124,28 @@ def main(argv=None) -> int:
         "version, bit for bit (events, NaN pattern, v_end)")
     record["sized"] = sized
 
-    # 6. rc_multistep kernel vs its plain version on random ladders
+    # 6. rc_multistep kernel vs its plain version, bit for bit, on random
+    #    ladders and on ladders at the edges of its exact quotient form;
+    #    the branch-free reciprocal against IEEE division on every float32
+    #    of its range
     rc_cmp, rc_err = {}, 0.0
-    for b, n, t in ((1000, 4, 64), (1025, 6, 800), (129, 8, 100)):
-        host_args = random_ladder(rng, b, n, t)
+    cases = {f"random_B{b}_N{n}_T{t}": random_ladder(rng, b, n, t)
+             for b, n, t in ((1000, 4, 64), (1025, 6, 800), (129, 8, 100))}
+    cases.update(rc_adversarial_ladders(rng))
+    for key, host_args in cases.items():
         res = rc_compare(ops, [torch.as_tensor(x, device=dev)
                                for x in host_args], dt)
-        rc_cmp[f"random_B{b}_N{n}_T{t}"] = res
+        rc_cmp[key] = res
         rc_err = max(rc_err, res["max_abs_err"])
-        log(f"[rc-vs-plain] random_B{b}_N{n}_T{t}: {json.dumps(res)}")
+        log(f"[rc-vs-plain] {key}: {json.dumps(res)}")
+    t0 = time.perf_counter()
+    recip_bad = rc_transient.reciprocal_mismatches(dev)
+    record["rc_reciprocal_mismatches"] = recip_bad
+    log(f"[rc-vs-plain] branch-free reciprocal vs 1.0f / b over |b| in "
+        f"2^{rc_transient.RECIPROCAL_EXPONENTS}: {recip_bad} mismatches "
+        f"({time.perf_counter() - t0:.3f} s)")
+    check(recip_bad == 0, f"the kernel's reciprocal differs from IEEE "
+          f"division for {recip_bad} float32 values")
 
     # 7. the phased engine (Fig. 8 waveforms) through the entry point
     si = cal.get_tech("si")
@@ -1153,6 +1181,10 @@ def main(argv=None) -> int:
             device=dev)
         check(same_events(res, plain), f"phased {mode}: events through the "
               "kernel and through the plain version differ")
+        check(all(bitwise_equal(tr, plain.traces[key])
+                  for key, tr in res.traces.items()),
+              f"phased {mode}: traces through the kernel and through the "
+              "plain version differ")
         fused = transient.simulate_row_cycle(si, "sel_strap", layers,
                                              replica=replica, device=dev)
         bars = events_within_bars(fused, res, dt)
@@ -1182,12 +1214,37 @@ def main(argv=None) -> int:
                 device=dev)
             check(same_events(res, plain), f"grid {tech_name}/{scheme}: "
                   "kernel and plain phased events differ")
+            check(all(bitwise_equal(tr, plain.traces[key])
+                      for key, tr in res.traces.items()),
+                  f"grid {tech_name}/{scheme}: kernel and plain phased "
+                  "traces differ")
             bars = events_within_bars(transient.simulate_row_cycle(
                 tech, scheme, lay, replica=replica, device=dev), res, dt)
             for k, v in bars.items():
                 grid_worst[k] = max(grid_worst.get(k, 0.0), v)
     log(f"[phased] full grid ({len(combos)} combos x fixed/replica): kernel "
-        f"== plain; worst fused vs phased {json.dumps(grid_worst)}")
+        f"== plain (events and traces bit for bit); worst fused vs phased "
+        f"{json.dumps(grid_worst)}")
+    syncs = {}
+    for replica in (False, True):
+        mode = "replica" if replica else "fixed"
+
+        def call(replica=replica):
+            return transient.simulate_row_cycle(si, "sel_strap", layers,
+                                                traces=True, replica=replica,
+                                                device=dev)
+
+        n_sync, sites = count_syncs(call)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            call()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        syncs[mode] = {"syncs_per_call": n_sync, "sites": sites}
+        log(f"[phased] {mode} B={PHASED_B}: {n_sync} synchronizing call(s) "
+            f"{json.dumps(sites)}; ran under set_sync_debug_mode('error')")
+        check(n_sync == 0, f"phased {mode}: {n_sync} host-device syncs")
     fig8 = {}
     for tech_name, scheme, lay, want in (("si", "sel_strap", 137, 10.9),
                                          ("aos", "sel_strap", 87, 10.5),
@@ -1209,7 +1266,9 @@ def main(argv=None) -> int:
         timing[f"{label}_ms"] = statistics.median(runs)
         timing[f"{label}_runs_ms"] = runs
     for name_, (a, _) in zip(("act", "restore", "pre"), phased_calls):
-        timing[f"{name_}_kernel_ms"] = cuda_ms(lambda a=a: rc_kernel(*a), 20)[0]
+        timing[f"{name_}_kernel_ms"] = statistics.median(
+            cuda_ms(lambda a=a: rc_kernel(*a), 20, 2)[0]
+            for _ in range(REPEATS))
     timing["kernels_ms"] = sum(timing[f"{k}_kernel_ms"]
                                for k in ("act", "restore", "pre"))
     log(f"[phased] B={PHASED_B} timing: " + json.dumps(
@@ -1224,7 +1283,7 @@ def main(argv=None) -> int:
             f"{json.dumps(timing[f'{label}_profile'])}")
     record["phased"] = {"modes": phased, "grid_worst": grid_worst,
                         "fig8_trc_ns": fig8, "timing": timing,
-                        "rc_vs_plain": rc_cmp}
+                        "syncs": syncs, "rc_vs_plain": rc_cmp}
 
     # 8. the MC reductions: the 299,008-row batch of phase 5, and yield_ppm
     #    on a tail sweep as report.mc_tail_yield_table runs it
@@ -1361,11 +1420,12 @@ def main(argv=None) -> int:
         "sm_clock_mhz": sm_clock_mhz,
         "registers": {k: v for k, v in registers.items() if "row_cycle" in k},
     }, rc_line(rc_kernel, ops, phased_calls[0][0], phased_launches["fixed"],
-               rc_err),
+               rc_err, registers),
         strap_line(strap_kernel, ops, strap_calls,
                    record["serve"]["backends"]["strap_exact"]["launches"],
                    strap_err, registers)]}
     log("[kernels] row_cycle_fused: " + json.dumps(line["kernels"][0]))
+    log("[kernels] rc_multistep: " + json.dumps(line["kernels"][1]))
     log("[kernels] strap_attend: " + json.dumps(line["kernels"][2]))
     record["kernels"] = line["kernels"]
     if args.out is not None:

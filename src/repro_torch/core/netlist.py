@@ -67,7 +67,7 @@ def build_bl_ladder(tech: TechCal, scheme: str, layers,
                     device) -> Ladder:
     """Assemble the batched sensing-path ladder for a technology/scheme
     on `device`; `layers` is a scalar or a 1-D array of design points."""
-    layers = torch.atleast_1d(as_f32(layers, device))
+    layers = torch.atleast_1d(as_f32(layers, device, non_blocking=True))
     par = bl_parasitics(tech, scheme, layers)
     c, g = assemble_ladder_arrays(par, tech.r_local_bl_kohm)
     return Ladder(c=c, g_branch=g, tech_name=tech.name, scheme=scheme)

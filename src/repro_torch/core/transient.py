@@ -34,7 +34,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..device import as_f32, rdiv, resolve_device, row_sum
+from ..device import as_f32, rdiv, resolve_device, row_sum, scalar_f32
 from ..kernels import ops
 from ..kernels.ref import ROLE_MAIN, ROLE_REPLICA
 from . import calibration as cal
@@ -77,13 +77,6 @@ class RowCycleResult:
     # waveforms (phased engine only; {} from the fused engine)
 
 
-def _f32(x: float, device) -> torch.Tensor:
-    """A 0-d float32 tensor on `device`: dividing or comparing by it is
-    one float32 operation, as in the reference (a Python-scalar divisor
-    becomes a reciprocal multiply on CUDA)."""
-    return torch.tensor(x, dtype=torch.float32, device=device)
-
-
 def _first_crossing_ns(trace_ok: torch.Tensor, dt: float) -> torch.Tensor:
     """Time of first True along axis 0 of (T, B); NaN if never crossed.
 
@@ -93,7 +86,7 @@ def _first_crossing_ns(trace_ok: torch.Tensor, dt: float) -> torch.Tensor:
     any_ok = trace_ok.any(dim=0)
     # argmax gives the first maximal index; CUDA has no argmax over bool
     idx = torch.argmax(trace_ok.to(torch.int32), dim=0)
-    t = (idx + 1).to(torch.float32) * _f32(dt, trace_ok.device)
+    t = (idx + 1).to(torch.float32) * scalar_f32(dt, trace_ok.device)
     return torch.where(any_ok, t, torch.nan)
 
 
@@ -101,7 +94,7 @@ def wl_ramp(tech: TechCal, t_ns: torch.Tensor,
             rising: bool = True) -> torch.Tensor:
     """WL voltage profile (normalized 0..1) of an RC-limited wordline."""
     tau = tau_ns(tech.r_wl_kohm, tech.c_wl_ff)
-    x = 1.0 - torch.exp(-t_ns / _f32(max(tau, 1e-3), t_ns.device))
+    x = 1.0 - torch.exp(-t_ns / scalar_f32(max(tau, 1e-3), t_ns.device))
     return x if rising else 1.0 - x
 
 
@@ -109,7 +102,7 @@ def _step_index(t_ns: torch.Tensor, window_ns: float, n_steps: int):
     """Trace index of an event time (its step), the window's last step for
     a NaN (never crossed) event."""
     t_idx = torch.where(torch.isnan(t_ns), window_ns, t_ns)
-    idx = (t_idx / _f32(DT_NS, t_ns.device)).to(torch.int32) - 1
+    idx = (t_idx / scalar_f32(DT_NS, t_ns.device)).to(torch.int32) - 1
     return torch.clamp(idx, 0, n_steps - 1).long()
 
 
@@ -450,7 +443,7 @@ def simulate_row_cycle_phased(tech: TechCal, scheme: str, layers,
 
     def step_times(n_steps):
         steps = torch.arange(n_steps, dtype=torch.int32, device=device) + 1
-        return steps.to(f32) * _f32(DT_NS, device)
+        return steps.to(f32) * scalar_f32(DT_NS, device)
 
     def initial_state(v_store):
         v0 = torch.full((b, n), vpre, dtype=f32, device=device)
@@ -494,7 +487,7 @@ def simulate_row_cycle_phased(tech: TechCal, scheme: str, layers,
         trace_act[idx_dev, rows, :],
         torch.ones((N_RESTORE_STEPS,), dtype=f32, device=device), DT_NS,
         backend=backend)
-    restored = trace_res[:, :, n - 1] >= _f32(0.95 * vdd, device)
+    restored = trace_res[:, :, n - 1] >= scalar_f32(0.95 * vdd, device)
     t_res_dur = _first_crossing_ns(restored, DT_NS)
 
     # ---------------- PRE: WL down, equalize ----------------------------
@@ -507,7 +500,7 @@ def simulate_row_cycle_phased(tech: TechCal, scheme: str, layers,
         wl_ramp(tech, step_times(N_PRE_STEPS), rising=False), DT_NS,
         backend=backend)
     equalized = torch.amax(torch.abs(trace_pre[:, :, :n - 1] - vpre),
-                           dim=-1) <= _f32(5e-3, device)
+                           dim=-1) <= scalar_f32(5e-3, device)
     t_pre = _first_crossing_ns(equalized, DT_NS)
 
     t_sense, t_restore, trc = _regen_and_totals(

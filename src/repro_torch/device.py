@@ -9,6 +9,12 @@ caller asks for the CPU explicitly with `device="cpu"`.
 moment it meets a jnp op, so the port converts at exactly those points
 and keeps numpy-with-numpy arithmetic (e.g. a difference of two float64
 calibration gathers) on the host in float64, as the reference does.
+
+A scalar is built on the device (`scalar_f32`: a fill, with no copy from
+the host).  A plain copy from pageable host memory synchronizes the
+stream, draining the card's queue before the host can enqueue the next
+kernel; an array that a sync-free path takes goes through pinned memory
+without blocking instead (`as_f32(..., non_blocking=True)`).
 """
 
 from __future__ import annotations
@@ -28,18 +34,46 @@ def resolve_device(device="cuda") -> torch.device:
     return dev
 
 
-def as_f32(x, device) -> torch.Tensor:
-    """Scalar / numpy array / tensor -> float32 tensor on `device`."""
+def scalar_f32(x, device) -> torch.Tensor:
+    """A 0-d float32 tensor holding x rounded to float32, built on `device`
+    with no copy from the host.  Dividing or comparing by it is one float32
+    operation, as in the reference: a Python-scalar (or CPU 0-d) divisor
+    of a CUDA tensor becomes a reciprocal multiply."""
+    if isinstance(x, (float, np.floating)):
+        with np.errstate(over="ignore"):     # past float32's range: +-inf
+            x = float(np.float32(x))
+    return torch.full((), x, dtype=torch.float32, device=device)
+
+
+def as_f32(x, device, non_blocking: bool = False) -> torch.Tensor:
+    """Scalar / numpy array / tensor -> float32 tensor on `device`.
+
+    A scalar is filled on the device.  An array is copied; with
+    `non_blocking` to a GPU through pinned memory, ordered on the current
+    stream without the host waiting, which suits a small array on a path
+    that must not wait for the card; without it, by a plain copy, which is
+    the faster of the two for the sweep plan's large columns.
+    """
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=torch.float32)
-    return torch.as_tensor(np.asarray(x), dtype=torch.float32, device=device)
+    arr = np.asarray(x)
+    if arr.ndim == 0:
+        return scalar_f32(arr.item(), device)
+    if non_blocking and torch.device(device).type == "cuda":
+        host = torch.as_tensor(arr, dtype=torch.float32).pin_memory()
+        return host.to(device, non_blocking=True)
+    return torch.as_tensor(arr, dtype=torch.float32, device=device)
 
 
 def as_bool(x, device) -> torch.Tensor:
-    """Scalar / numpy array / tensor -> bool tensor on `device`."""
+    """Scalar / numpy array / tensor -> bool tensor on `device` (a scalar
+    filled on the device)."""
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=torch.bool)
-    return torch.as_tensor(np.asarray(x, bool), device=device)
+    arr = np.asarray(x, bool)
+    if arr.ndim == 0:
+        return torch.full((), bool(arr), dtype=torch.bool, device=device)
+    return torch.as_tensor(arr, device=device)
 
 
 def rdiv(num: float, t: torch.Tensor) -> torch.Tensor:
@@ -49,7 +83,7 @@ def rdiv(num: float, t: torch.Tensor) -> torch.Tensor:
     the reference divides once, so the port divides by the tensor with
     the numerator as a 0-d tensor on the same device.
     """
-    return torch.tensor(num, dtype=t.dtype, device=t.device) / t
+    return torch.full((), num, dtype=t.dtype, device=t.device) / t
 
 
 def row_sum(x: torch.Tensor) -> torch.Tensor:

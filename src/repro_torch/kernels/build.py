@@ -12,6 +12,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -46,10 +47,24 @@ def nvcc() -> str:
                        "are compiled from kernels/csrc/ at first use")
 
 
+def _local_includes(source: Path) -> list:
+    """The files `source` includes from its own directory (`#include "x"`),
+    and theirs in turn."""
+    found = []
+    for name in re.findall(r'^#include "([^"]+)"', source.read_text(), re.M):
+        path = source.parent / name
+        if path.is_file() and path not in found:
+            found += [path] + [p for p in _local_includes(path)
+                               if p not in found]
+    return found
+
+
 def library_path(source: Path) -> Path:
     """Where `source`'s library is built: `build/lib<stem>-<hash>.so`, the
-    hash over the source and the flags."""
-    digest = hashlib.sha256(source.read_bytes()
+    hash over the source, the files it includes from its directory and the
+    flags."""
+    text = b"".join(p.read_bytes() for p in [source, *_local_includes(source)])
+    digest = hashlib.sha256(text
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{source.stem}-{digest}.so"
 

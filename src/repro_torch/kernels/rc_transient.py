@@ -22,6 +22,11 @@ KERNEL_NODES = (4, 6, 8)   # ladder sizes the kernel is instantiated for
 _ARGTYPES = ([ctypes.c_void_p] * 7
              + [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
                 ctypes.c_void_p])
+_CHECK_ARGTYPES = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p]
+# |b| range over which the kernel's branch-free reciprocal must equal
+# 1.0f / b (the guard's denominator range, [2^-24, 2^24], inside it)
+RECIPROCAL_EXPONENTS = (-24, 25)
 
 
 def build():
@@ -82,3 +87,43 @@ def rc_multistep_cuda(c, g_branch, g_clamp, v_clamp, v0, ramp,
 
 
 rc_multistep_cuda.launches = 0
+
+
+def chain_ops(n: int) -> int:
+    """Dependent float operations of one step of an N-node row in
+    `csrc/rc_multistep.cu`, counted by hand from its code: the first
+    right-hand side (a multiply and an add), N quotients (a multiply and
+    two fused multiply-adds), each after the first behind a multiply and a
+    subtract, and N - 1 back-substitutions (a multiply and a subtract);
+    the last of them feeds the next step."""
+    return 2 + 3 * n + 2 * (n - 1) + 2 * (n - 1)
+
+
+def block_geometry() -> dict:
+    """The kernel's launch geometry as the built library reports it:
+    {"rows": rows a block, "threads": threads a block}."""
+    lib = _build.load(SOURCE, "rc_multistep_launch", _ARGTYPES)
+    query = lib.rc_multistep_geometry
+    query.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
+    query.restype = ctypes.c_int
+    rows, threads = ctypes.c_int(), ctypes.c_int()
+    query(ctypes.byref(rows), ctypes.byref(threads))
+    return {"rows": rows.value, "threads": threads.value}
+
+
+def reciprocal_mismatches(device="cuda") -> int:
+    """How many float32 b with |b| in [2^e, 2^e') (RECIPROCAL_EXPONENTS,
+    both signs: 8.2e8 values) get a reciprocal from the kernel's
+    branch-free form that differs from the IEEE quotient 1.0f / b in any
+    bit, counted on the card by a kernel of `csrc/rc_multistep.cu`."""
+    device = torch.device(device)
+    count = torch.zeros(1, dtype=torch.int64, device=device)
+    lib = _build.load(SOURCE, "rc_multistep_launch", _ARGTYPES)
+    check = lib.rc_reciprocal_mismatches
+    check.argtypes, check.restype = _CHECK_ARGTYPES, ctypes.c_int
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = check(*RECIPROCAL_EXPONENTS, count.data_ptr(), stream)
+    if err:
+        raise RuntimeError(f"reciprocal check launch failed: CUDA error {err}")
+    return int(count.item())

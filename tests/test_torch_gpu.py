@@ -11,7 +11,8 @@ runs on a machine that has only PyTorch and the CUDA toolkit:
 Bars are the reference's Pallas-vs-oracle bars (tests/test_kernels.py):
 event times within one dt, identical NaN (timed-out) pattern, dv_sense
 rtol 1e-3 / atol 1e-5, v_end rtol 1e-4 / atol 1e-5; rc_multistep traces
-rtol 1e-5 / atol 1e-6.  Fused vs phased engine: the reference's own bars
+rtol 1e-5 / atol 1e-6 and, beside them, bit for bit (int32 views) with the
+plain version.  Fused vs phased engine: the reference's own bars
 (tests/test_fused_row_cycle.py).  strap_attend: the reference's
 Pallas-vs-oracle bars, rtol / atol 3e-5 in float32 and 3e-2 in bf16;
 in bf16 also rtol 2^-6 (two bf16 ulps, both sides round a float32 result
@@ -27,8 +28,11 @@ from repro_torch.core import calibration as cal  # noqa: E402
 from repro_torch.core import dse, transient  # noqa: E402
 from repro_torch.core.space import DesignSpace  # noqa: E402
 from repro_torch.configs.registry import get_arch  # noqa: E402
+from repro_torch.device import as_f32, scalar_f32  # noqa: E402
 from repro_torch.kernels import (ops, rc_transient, ref,  # noqa: E402
                                  row_cycle, strap_gather)
+from repro_torch.kernels.bench import (count_syncs,  # noqa: E402
+                                       rc_adversarial_ladders)
 from repro_torch.memory.strap_cache import StrapCacheConfig  # noqa: E402
 from repro_torch.models import registry as models  # noqa: E402
 from repro_torch.serving.engine import ServeEngine  # noqa: E402
@@ -195,6 +199,42 @@ def test_rc_multistep_kernel_matches_plain(rng, cuda, b, n, t):
     assert out_k.shape == (t, b, n)
     np.testing.assert_allclose(out_k.cpu().numpy(), out_p.cpu().numpy(),
                                rtol=1e-5, atol=1e-6)
+    assert torch.equal(out_k.view(torch.int32), out_p.view(torch.int32))
+
+
+@pytest.mark.parametrize("name", sorted(rc_adversarial_ladders(
+    np.random.default_rng(0))))
+def test_rc_multistep_kernel_bitwise_on_adversarial_ladders(cuda, name):
+    """Ladders at the edges of the kernel's exact quotient form (spread
+    coefficients, zero and -0.0 states, values at the guard's 2^-100, a
+    ramp that falls to exactly zero) give the plain version's trace bit
+    for bit."""
+    host = rc_adversarial_ladders(np.random.default_rng(0))[name]
+    args = [torch.as_tensor(x, device=cuda) for x in host]
+    out_k = ops.rc_multistep(*args, DT, backend="cuda")
+    out_p = ops.rc_multistep(*args, DT, backend="ref")
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(out_k.cpu().numpy(), out_p.cpu().numpy(),
+                               rtol=1e-5, atol=1e-6)
+    assert torch.equal(out_k.view(torch.int32), out_p.view(torch.int32))
+
+
+def test_rc_multistep_reciprocal_is_ieee_division(cuda):
+    """The kernel's branch-free reciprocal equals 1.0f / b on every float32
+    of its range, both signs."""
+    assert rc_transient.reciprocal_mismatches(cuda) == 0
+
+
+def test_rc_multistep_block_geometry_from_the_library(rng, cuda):
+    """The built library reports its block: whole warps, at least one row a
+    block, and a batch one row past a block's rows still matches the plain
+    version bit for bit."""
+    geo = rc_transient.block_geometry()
+    assert geo["threads"] % 32 == 0 and 0 < geo["rows"] <= geo["threads"]
+    args = random_ladder(rng, geo["rows"] + 1, 6, 40, cuda)
+    out_k = ops.rc_multistep(*args, DT, backend="cuda")
+    out_p = ops.rc_multistep(*args, DT, backend="ref")
+    assert torch.equal(out_k.view(torch.int32), out_p.view(torch.int32))
 
 
 def test_rc_multistep_wrapper_rejects_unsupported_inputs(rng, cuda):
@@ -237,6 +277,53 @@ def test_phased_engine_on_card_matches_fused(cuda, tech, scheme, layers,
     assert res <= DT + 1e-5
     assert diff("t_sense_ns") <= DT + 0.05
     assert diff("trc_ns") <= 3 * DT + 0.05
+    for key, trace in p.traces.items():
+        assert torch.equal(trace.view(torch.int32),
+                           plain.traces[key].view(torch.int32)), key
+
+
+@pytest.mark.parametrize("replica", [False, True], ids=["fixed", "replica"])
+def test_phased_call_makes_no_host_sync(cuda, replica):
+    """The phased call at B = 1024 (numpy layers, as a user passes them)
+    enqueues its work without waiting for the card: it runs under
+    `torch.cuda.set_sync_debug_mode("error")`."""
+    si = cal.get_tech("si")
+    layers = np.linspace(32, 288, 1024).astype(np.float32)
+
+    def call():
+        return transient.simulate_row_cycle(si, "sel_strap", layers,
+                                            traces=True, replica=replica,
+                                            device=cuda)
+
+    want = call()
+    before = rc_transient.rc_multistep_cuda.launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = call()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert rc_transient.rc_multistep_cuda.launches == before + (
+        4 if replica else 3)
+    assert count_syncs(call)[0] == 0
+    for name in ("t_fire_ns", "trc_ns", "dv_sense_v"):
+        a, b = getattr(got, name), getattr(want, name)
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32)), name
+
+
+def test_device_scalars_divide_truly_on_the_card(cuda):
+    """A 0-d float32 built on the card is a true divisor there (a Python
+    float divisor is a reciprocal multiply); arrays arrive unchanged."""
+    rng = np.random.default_rng(3)
+    x = (rng.uniform(-10, 10, 1 << 16)
+         * 10.0 ** rng.integers(-5, 5, 1 << 16)).astype(np.float32)
+    for d in (0.02, 7e-3, 1.0 / 3.0):
+        got = (torch.as_tensor(x, device=cuda) / scalar_f32(d, cuda)).cpu()
+        want = torch.from_numpy(x / np.float32(d))
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(as_f32(x, cuda).cpu(), torch.from_numpy(x))
+    assert torch.equal(as_f32(x, cuda, non_blocking=True).cpu(),
+                       torch.from_numpy(x))
 
 
 # the reference's kernel test shapes, then two that reach the kernel's

@@ -217,7 +217,8 @@ def test_check_operands_rejects_main_row_at_even_index(rng, monkeypatch):
 
 
 @pytest.mark.parametrize("source", ["row_cycle.cu", "rc_multistep.cu",
-                                    "strap_attend.cu"])
+                                    "strap_attend.cu",
+                                    "rc_multistep_variants.cu"])
 def test_build_command_targets_sm90a_without_fma_contraction(source):
     """Every kernel source builds the same way: nvcc for sm_90a with FMA
     contraction off (so each kernel rounds like its plain version), into
@@ -236,3 +237,19 @@ def test_build_command_targets_sm90a_without_fma_contraction(source):
     assert {row_cycle.SOURCE, rc_transient.SOURCE, strap_gather.SOURCE} == {
         build.CSRC / "row_cycle.cu", build.CSRC / "rc_multistep.cu",
         build.CSRC / "strap_attend.cu"}
+
+
+def test_library_name_hashes_the_sources_it_includes(tmp_path):
+    """A source that includes another from its directory (the rc_multistep
+    variants include the kernel) gets a new library when either changes."""
+    from repro_torch.kernels import build
+
+    main, inner = tmp_path / "main.cu", tmp_path / "inner.cu"
+    inner.write_text("// v1\n")
+    main.write_text('#include "inner.cu"\n#include <cuda_runtime.h>\n')
+    assert build._local_includes(main) == [inner]
+    before = build.library_path(main)
+    inner.write_text("// v2\n")
+    assert build.library_path(main) != before
+    assert build._local_includes(build.CSRC / "rc_multistep_variants.cu") == [
+        build.CSRC / "rc_multistep.cu"]
