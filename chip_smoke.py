@@ -57,14 +57,27 @@ Phases (any failure exits non-zero and prints no result line):
    path held against the plain version, prefill and decode-step times,
    tokens/s, the strap engines teacher-forced with the dense tokens, one
    decode step under the profiler;
-13. one JSON line listing the ported kernels (row_cycle at the sweep's
+13. `examples/dram_codesign_torch.py --smoke` on the card: the paper's
+   selected design through the row-cycle kernel;
+14. the co-design service (`serving.dse_service.DSEService`), the
+   slice's main path: two concurrent clients (a sweep and a yield query)
+   in one window, one dispatch and exactly one row-cycle launch, the
+   responses bit-identical to direct sweeps (NaN-aware); a repeat
+   answered from the memo with no launch; the background dispatcher; a
+   6 x 4 client stress run whose counters reconcile; `sweep_stream` of
+   the paper grid equal to the monolithic sweep; the 299,008-row yield
+   query served in one window (one launch), bit-identical to the direct
+   sweep and its `mc_summary`, timed against it; `stats()`;
+15. the service CLI's smoke (`repro_torch.launch.serve --smoke`);
+16. one JSON line listing the ported kernels (row_cycle at the sweep's
    one launch over 299,008 rows and at one 2048-row chunk, with the
    cycles of a step; rc_multistep at the phased path's ACT call, with
    cycles a step, its block as the library reports it and, in its
    `bound_work`, the chain model beside the byte bound;
    strap_attend at the full-width path's last exact-mode and gated
-   steps, on 1 to 8 rows, and SDPA on the same tokens), then the card
-   line, then the result line {"ok": true, "device": {...}}.
+   steps, on 1 to 8 rows, and SDPA on the same tokens; row_cycle's
+   `launches_by_path` counts each path's launches, read around it), then
+   the card line, then the result line {"ok": true, "device": {...}}.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -899,6 +912,305 @@ def serve_phase(args, ops_mod, strap_kernel, dev) -> tuple[dict, dict]:
 # main
 # --------------------------------------------------------------------------
 
+# --------------------------------------------------------------------------
+# the co-design service, its CLI and the example twin
+# --------------------------------------------------------------------------
+
+def load_example():
+    """`examples/dram_codesign_torch.py` as a module (examples/ is not a
+    package)."""
+    import importlib.util
+
+    path = ROOT / "examples" / "dram_codesign_torch.py"
+    check(path.is_file(), f"{path} is missing")
+    spec = importlib.util.spec_from_file_location("dram_codesign_torch", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def captured(fn) -> tuple[object, str]:
+    """`fn()` with its standard output captured: (result, text)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn()
+    return out, buf.getvalue()
+
+
+def sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def example_phase(dev, kernel) -> dict:
+    """`examples/dram_codesign_torch.py --smoke` on the card: the paper's
+    selected design, through the row-cycle kernel."""
+    example = load_example()
+    kernel.launches = 0
+    t0 = time.perf_counter()
+    rc, text = captured(lambda: example.main(["--smoke", "--device",
+                                              dev.type]))
+    sync(dev)
+    wall_s = time.perf_counter() - t0
+    launches = kernel.launches
+    check(rc == 0, f"the example twin returned {rc}")
+    check(launches > 0, "the example twin launched no row-cycle kernel")
+    selected = [ln.strip() for ln in text.splitlines()
+                if ln.strip().startswith("aos / sel_strap @ 87 layers")]
+    check(selected and selected[0].startswith(
+        "aos / sel_strap @ 87 layers -> 2.60 Gb/mm2, tRC 10.50 ns"),
+        f"the example twin selected {selected}")
+    check("sweeping design space (25 design points" in text,
+          "the example twin's smoke grid is not 25 points")
+    log(f"[example] dram_codesign_torch.py --smoke: {launches} row-cycle "
+        f"launch(es), {wall_s:.2f} s; selected {selected[0]}")
+    return {"launches": launches, "wall_s": wall_s, "selected": selected[0]}
+
+
+def service_phase(dev, kernel, mc_space) -> dict:
+    """The co-design service on the card (the slice's main path): two
+    concurrent clients (a sweep and a yield query) in one window, one
+    dispatch and one row-cycle launch, the responses bit-identical to
+    direct sweeps; a repeat answered from the memo with no launch; the
+    background dispatcher; a 6 x 4 client stress run; `sweep_stream` of
+    the paper grid; and the 299,008-row yield query served in one window,
+    bit-identical to the direct sweep."""
+    import threading
+
+    import torch
+
+    from repro_torch.core import calibration as cal
+    from repro_torch.core import dse
+    from repro_torch.core.batch import DesignBatch
+    from repro_torch.core.space import DesignSpace
+    from repro_torch.kernels.bench import profile
+    from repro_torch.launch.serve import _batches_identical
+    from repro_torch.serving.dse_service import DSEService
+
+    out: dict = {}
+
+    def join_all(threads):
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120.0)
+        check(not any(t.is_alive() for t in threads), "a client hung")
+
+    svc = DSEService(window_ms=3.0, device=dev)
+    t0 = time.perf_counter()
+    svc.warm()
+    sync(dev)
+    out["warm_s"] = time.perf_counter() - t0
+
+    # two concurrent clients, one window
+    s_sweep = DesignSpace.product(techs=["aos"], layers=(4, 8, 16))
+    s_yield = DesignSpace.paper_targets().with_mc(samples=32, key=1)
+    before = svc.stats()
+    barrier = threading.Barrier(2)
+    futures = {}
+
+    def client(name, submit):
+        barrier.wait(timeout=60.0)
+        futures[name] = submit()
+
+    join_all([threading.Thread(target=client, args=(
+                  "sweep", lambda: svc.submit(s_sweep))),
+              threading.Thread(target=client, args=(
+                  "yield", lambda: svc.submit(
+                      s_yield, kind="yield", spec={"margin_mv": 5.0})))])
+    check(len(futures) == 2, "a client did not submit")
+    sync(dev)
+    kernel.launches = 0
+    t0 = time.perf_counter()
+    served = svc.flush()
+    sync(dev)
+    window_ms = (time.perf_counter() - t0) * 1e3
+    window_launches = kernel.launches
+    after = svc.stats()
+    check(served == 2, f"the window served {served} requests")
+    check(after["windows"] - before["windows"] == 1, "expected one window")
+    check(after["dispatches"] - before["dispatches"] == 1,
+          "two concurrent clients did not share one dispatch")
+    check(window_launches == 1, f"the window launched the row-cycle kernel "
+          f"{window_launches} times, expected 1")
+    r_sweep = futures["sweep"].result(timeout=60.0)
+    r_yield = futures["yield"].result(timeout=60.0)
+    check(_batches_identical(r_sweep.batch, dse.sweep(s_sweep, device=dev)),
+          "served sweep differs from the direct sweep")
+    check(_batches_identical(r_yield.batch, dse.sweep(s_yield, device=dev)),
+          "served yield batch differs from the direct sweep")
+    check(r_yield.summary is not None
+          and "yield_frac" in r_yield.summary.corners,
+          "the yield query returned no summary")
+    rows = after["rows"]["dispatched"] - before["rows"]["dispatched"]
+    log(f"[service] 2 clients: 1 window, 1 dispatch, {window_launches} "
+        f"row-cycle launch, {rows} packed rows, {window_ms:.3f} ms "
+        "(host clock, synchronized); responses == direct sweeps, bit for bit")
+    out["window"] = {"launches": window_launches, "rows": rows,
+                     "ms": window_ms}
+
+    # a repeat: answered from the memo, no launch
+    kernel.launches = 0
+    f_again = svc.submit(s_sweep)
+    svc.flush()
+    sync(dev)
+    r_again = f_again.result(timeout=60.0)
+    check(r_again.memo_hit and kernel.launches == 0,
+          f"repeat: memo_hit {r_again.memo_hit}, {kernel.launches} launches")
+    check(svc.stats()["dispatches"] == after["dispatches"],
+          "the repeat re-dispatched")
+    check(_batches_identical(r_again.batch, r_sweep.batch),
+          "the memo hit returned a different batch")
+    log("[service] repeat: memo hit, 0 launches")
+    out["repeat_launches"] = kernel.launches
+
+    # the background dispatcher, live
+    with DSEService(window_ms=3.0, device=dev) as bg:
+        live = bg.sweep(s_sweep, timeout=60.0)
+        check(bg._dispatcher_running(), "the dispatcher is not running")
+    check(_batches_identical(live, r_sweep.batch),
+          "the dispatcher thread's result differs")
+    log("[service] background dispatcher served a blocking client")
+
+    # 6 clients x 4 queries against the live dispatcher
+    spaces = (DesignSpace.product(techs=["aos"], layers=(87, 137)),
+              DesignSpace.product(techs=["si"], layers=(87,)),
+              DesignSpace.product(techs=["d1b"], layers=(87,)))
+    golden = [dse.sweep(s, device=dev) for s in spaces]
+    n_clients, n_iters = 6, 4
+    results = [[] for _ in range(n_clients)]
+    errors = []
+    barrier = threading.Barrier(n_clients)
+
+    def hammer(i, service):
+        try:
+            barrier.wait(timeout=60.0)
+            for j in range(n_iters):
+                k = (i + j) % len(spaces)
+                results[i].append((k, service.sweep(spaces[k],
+                                                    timeout=120.0)))
+        except Exception as e:
+            errors.append(repr(e))
+
+    t0 = time.perf_counter()
+    with DSEService(window_ms=2.0, memo_entries=64, device=dev) as stress:
+        join_all([threading.Thread(target=hammer, args=(i, stress))
+                  for i in range(n_clients)])
+        st = stress.stats()
+    stress_s = time.perf_counter() - t0
+    check(errors == [], f"stress errors {errors}")
+    check(all(_batches_identical(b, golden[k])
+              for per in results for k, b in per)
+          and all(len(per) == n_iters for per in results),
+          "a stress response differs from the direct sweep")
+    total = n_clients * n_iters
+    memo = st["memo"]
+    check(st["requests"] == total
+          and memo["hits"] + memo["misses"] + memo["coalesced"] == total
+          and memo["misses"] >= len(spaces) and st["queued"] == 0
+          and st["errors"] == 0 and st["dispatches"] >= 1,
+          f"stress counters do not reconcile: {json.dumps(st)}")
+    log(f"[service] stress {n_clients}x{n_iters}: {json.dumps(st)} "
+        f"({stress_s:.2f} s)")
+    out["stress"] = st
+
+    # sweep_stream of the paper grid concatenates to the monolithic sweep
+    grid = DesignSpace.paper_grid()
+    chunks = list(svc.sweep_stream(grid, chunk_rows=16))
+    merged = DesignBatch.concat([c.response.batch for c in chunks])
+    check(len(chunks) > 1 and _batches_identical(
+        merged, dse.sweep(grid, device=dev)),
+        "sweep_stream of the paper grid differs from the monolithic sweep")
+    log(f"[service] sweep_stream(paper_grid, 16 rows): {len(chunks)} "
+        "chunks == the monolithic sweep, bit for bit")
+    out["stream_chunks"] = len(chunks)
+
+    # the 299,008-row yield query, served in one window, against the
+    # direct sweep of the same space, in turns (served, direct, ...)
+    spec = {"margin_mv": cal.MIN_FUNCTIONAL_MARGIN_MV}
+    runs = {"served": [], "direct": []}
+    served_launches, windows = [], []
+    rows = len(mc_space)
+    for _ in range(REPEATS):
+        fresh = DSEService(window_ms=0.0, device=dev)
+        sync(dev)
+        kernel.launches = 0
+        t0 = time.perf_counter()
+        resp = fresh.query_yield(mc_space, timeout=600.0, **spec)
+        sync(dev)
+        runs["served"].append((time.perf_counter() - t0) * 1e3)
+        served_launches.append(kernel.launches)
+        st = fresh.stats()
+        windows.append((st["windows"], st["dispatches"]))
+        t0 = time.perf_counter()
+        want = dse.sweep(mc_space, device=dev)
+        want_summary = want.mc_summary(**spec)
+        sync(dev)
+        runs["direct"].append((time.perf_counter() - t0) * 1e3)
+        check(len(resp.batch) == rows and _batches_identical(resp.batch,
+                                                             want),
+              "the served 299,008-row batch differs from the direct sweep")
+        check(_batches_identical(resp.summary, want_summary),
+              "the served yield summary differs from the direct one")
+        check(bool(torch.isfinite(resp.summary.corners["yield_frac"]).all()),
+              "a non-finite yield fraction")
+        del resp, want, want_summary
+    check(served_launches == [1] * REPEATS and windows == [(1, 1)] * REPEATS,
+          f"the {rows}-row query: launches {served_launches}, "
+          f"(windows, dispatches) {windows}")
+
+    def served_once():
+        return DSEService(window_ms=0.0, device=dev).query_yield(
+            mc_space, timeout=600.0, **spec)
+
+    def direct_once():
+        return dse.sweep(mc_space, device=dev).mc_summary(**spec)
+
+    out["mc_yield"] = {"rows": rows, "launches": served_launches,
+                       "served_ms": runs["served"],
+                       "direct_ms": runs["direct"],
+                       "served_profile": profile(served_once),
+                       "direct_profile": profile(direct_once)}
+    log(f"[service] {rows}-row yield query: 1 window, 1 launch each; "
+        "served " + " / ".join(f"{x:.2f}" for x in runs["served"])
+        + " ms, direct sweep + mc_summary "
+        + " / ".join(f"{x:.2f}" for x in runs["direct"])
+        + " ms (in turns, host clock, synchronized); batch and summary "
+        "bit-identical")
+    for key in ("served_profile", "direct_profile"):
+        log(f"[profile] {key}: {json.dumps(out['mc_yield'][key])}")
+    out["stats"] = svc.stats()
+    log(f"[service] stats(): {json.dumps(out['stats'])}")
+    return out
+
+
+def cli_phase(dev, kernel) -> dict:
+    """`python -m repro_torch.launch.serve --smoke` on the card, in this
+    process (`serve.main`)."""
+    from repro_torch.launch import serve
+
+    kernel.launches = 0
+    t0 = time.perf_counter()
+    rc, text = captured(lambda: serve.main(["--smoke", "--device",
+                                            dev.type]))
+    sync(dev)
+    wall_s = time.perf_counter() - t0
+    launches = kernel.launches
+    check(rc == serve.EXIT_OK, f"serve --smoke returned {rc}")
+    check(text.rstrip().endswith("serve smoke: OK"),
+          f"serve --smoke printed {text[-200:]!r}")
+    check(launches > 0, "serve --smoke launched no row-cycle kernel")
+    for line in text.splitlines():
+        log(f"[cli] {line}")
+    log(f"[cli] {launches} row-cycle launch(es), {wall_s:.2f} s")
+    return {"launches": launches, "wall_s": wall_s}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -1378,7 +1690,16 @@ def main(argv=None) -> int:
     record["serve"], strap_calls = serve_phase(args, ops, strap_kernel, dev)
     strap_err = max(strap_f32_err, record["serve"]["max_abs_err_vs_plain"])
 
-    # 13. the kernels line: row_cycle at the sized path's one launch over
+    # 13. the co-design example's twin, --smoke, on the card
+    record["example"] = example_phase(dev, kernel)
+
+    # 14. the co-design service: the slice's main path
+    record["service"] = service_phase(dev, kernel, mc_space)
+
+    # 15. the service's CLI smoke
+    record["cli"] = cli_phase(dev, kernel)
+
+    # 16. the kernels line: row_cycle at the sized path's one launch over
     #    299,008 rows and at one 2048-row chunk; rc_multistep at the phased
     #    path's ACT call; strap_attend at the full-width path's last
     #    exact-mode (and gated) step
@@ -1399,6 +1720,15 @@ def main(argv=None) -> int:
         "source": "src/repro_torch/kernels/csrc/row_cycle.cu",
         "replaces": "src/repro/kernels/row_cycle.py:181",
         "launches": main_launches,
+        "launches_by_path": {
+            "sweep_paper_grid": main_launches,
+            "example_smoke": record["example"]["launches"],
+            "service_two_client_window": record["service"]["window"][
+                "launches"],
+            "service_repeat_memo_hit": record["service"]["repeat_launches"],
+            "service_mc_yield_window": record["service"]["mc_yield"][
+                "launches"][0],
+            "cli_smoke": record["cli"]["launches"]},
         "max_abs_err": max_err_ns,
         "max_abs_err_unit": "ns (event times; events, NaN pattern and v_end "
                             "bit-identical to the plain version)",

@@ -11,7 +11,8 @@ the `tests/test_torch_*` parity tests.
 
 Entry points (`core.dse.sweep`, `core.dse.plan_sweep`,
 `core.transient.simulate_row_cycle*`, `core.transient.nominal_trc_ns`,
-`models.registry.init_params`, `serving.engine.ServeEngine`, ...) take
-`device=` and default to "cuda"; pass `device="cpu"` to run the plain
-PyTorch path on the CPU.
+`serving.dse_service.DSEService`, `models.registry.init_params`,
+`serving.engine.ServeEngine`, ...) take `device=` and default to "cuda";
+pass `device="cpu"` to run the plain PyTorch path on the CPU
+(`--device cpu` for `python -m repro_torch.launch.serve`).
 """

@@ -14,6 +14,8 @@ import os
 import numpy as np
 import torch
 
+from ..device import to_host
+
 
 class ContractError(AssertionError):
     """A fused-pipeline invariant violated at a checked seam."""
@@ -26,10 +28,6 @@ def checks_enabled() -> bool:
 
 def _fail(where: str, msg: str):
     raise ContractError(f"[{where}] {msg}")
-
-
-def _host(x) -> np.ndarray:
-    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
 def check_operands(operands, where: str = "lower_operands") -> None:
@@ -66,12 +64,12 @@ def check_operands(operands, where: str = "lower_operands") -> None:
         _fail(where, f"replica mode interleaves [replica, main] pairs; "
                      f"B={b} must be even")
     for name, arr in named:
-        if not np.isfinite(_host(arr)).all():
+        if not np.isfinite(to_host(arr)).all():
             _fail(where, f"{name} contains non-finite operand values — "
                          "infeasible points must lower to INACTIVE rows, "
                          "never NaN/inf operands")
     if params.shape[1] == 6:
-        role = _host(params[:, 5])
+        role = to_host(params[:, 5])
         if np.any(role[0::2] > ROLE_MAIN - 0.5):
             _fail(where, "a role-2 (main) row sits at an even index; its SA "
                          "enable comes from the replica at row-1, so pairs "
@@ -117,11 +115,11 @@ def check_batch(batch, where: str = "dse.sweep") -> None:
         _fail(where, f"MC batch must be sample-major with len == "
                      f"n_samples * base_len; got len={b}, "
                      f"n_samples={n_samples}, base_len={base_len}")
-    valid = _host(batch.valid)
-    feasible = _host(batch.feasible)
+    valid = to_host(batch.valid)
+    feasible = to_host(batch.feasible)
     if not np.all(valid | ~feasible):
         _fail(where, "feasible rows must be a subset of valid rows "
                      "(padding can never be feasible)")
-    layers = _host(batch.layers)
+    layers = to_host(batch.layers)
     if valid.any() and not np.isfinite(layers[valid]).all():
         _fail(where, "valid rows must carry finite layer counts")

@@ -1,6 +1,6 @@
 """Design-space exploration — the "co-optimization" of the paper's title.
 
-Port of the array-native half of `repro.core.dse`:
+Port of `repro.core.dse`:
 
     space = DesignSpace.paper_grid()        # declarative (core.space)
     batch = sweep(space)                    # ONE vectorized evaluation
@@ -11,25 +11,33 @@ Port of the array-native half of `repro.core.dse`:
 flat operand batch, runs the fused row-cycle engine over it (the CUDA
 kernel on the GPU) and scores every metric as flat (B,) tensors on the
 same device.
+
+Legacy surface: `full_sweep` / `evaluate_grid` still return the old
+`list[DesignPoint]` (deprecated; thin views over the batch), and
+`pareto_front` / `best_design` accept either a `DesignBatch` or a list.
 """
 
 from __future__ import annotations
 
+import warnings
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-from ..device import as_f32, resolve_device
+from ..device import as_f32, resolve_device, to_host
 from . import calibration as cal
 from . import contracts, transient
 from .batch import DesignBatch, DesignPoint
-from .density import bit_density_lowered, stack_height_lowered
-from .energy import read_energy_lowered, write_energy_lowered
-from .netlist import build_ladder_lowered
+from .calibration import TECHS, TechCal
+from .density import (bit_density_gb_mm2, bit_density_lowered,
+                      stack_height_lowered, stack_height_um)
+from .energy import (read_energy_fj, read_energy_lowered, write_energy_fj,
+                     write_energy_lowered)
+from .netlist import build_ladder_lowered, effective_cbl_ff
 from .parasitics import BLParasitics, bl_parasitics_lowered
-from .routing import bonding_geometry_lowered
-from .sense import sense_margin_lowered
+from .routing import SCHEMES, bonding_geometry, bonding_geometry_lowered
+from .sense import sense_margin_lowered, sense_margin_mv
 from .space import MC_AXES, MC_LOG_W, DesignSpace, LoweredSpace, SpaceView
 
 __all__ = [
@@ -37,6 +45,7 @@ __all__ = [
     "SweepPlan", "plan_sweep", "finalize_sweep",
     "score_columns", "score_from_events", "assemble_batch",
     "sweep", "pareto_mask", "pareto_front", "best_design", "as_batch",
+    "full_sweep", "evaluate_grid", "sweep_combos",
 ]
 
 # Corner axes `sweep` knows how to route into the physics models (the
@@ -267,18 +276,28 @@ def as_batch(points_or_batch, device="cuda") -> DesignBatch:
     return DesignBatch.from_points(list(points_or_batch), device=device)
 
 
+def _legacy_points(points_or_batch):
+    """The list half of the back-compat boundary: the materialized legacy
+    list when the caller passed one (so outputs keep list form), else
+    None for the batch-native path."""
+    if isinstance(points_or_batch, DesignBatch):
+        return None
+    return list(points_or_batch)
+
+
 def pareto_front(points_or_batch, require_feasible: bool = True,
                  extra_maximize=(), extra_minimize=(), device="cuda"):
     """Non-dominated set.  `DesignBatch` in -> filtered `DesignBatch` out;
-    legacy `list[DesignPoint]` in -> list out (order preserved), computed
-    on `device`."""
-    batch = as_batch(points_or_batch, device)
+    legacy `list[DesignPoint]` in -> list out (order preserved), bridged
+    through `as_batch` onto `device`."""
+    points = _legacy_points(points_or_batch)
+    batch = as_batch(points_or_batch if points is None else points, device)
     mask = pareto_mask(batch, require_feasible,
                        extra_maximize=extra_maximize,
                        extra_minimize=extra_minimize)
-    if batch is points_or_batch:
+    if points is None:
         return batch.select(mask)
-    return [p for p, m in zip(points_or_batch, mask.tolist()) if m]
+    return [p for p, m in zip(points, mask.tolist()) if m]
 
 
 def best_design(points_or_batch,
@@ -287,17 +306,17 @@ def best_design(points_or_batch,
                 device="cuda"):
     """The paper's selection rule: hit the density target with a functional,
     manufacturable design; break ties by tRC then read energy then height.
-    Returns a `DesignPoint` (or None if nothing qualifies).  A legacy
-    `list[DesignPoint]` is bridged onto `device`.
+    Accepts a `DesignBatch` or the legacy list (bridged onto `device`);
+    returns a `DesignPoint` (the caller's own for a list), or None if
+    nothing qualifies.
 
     `min_yield` adds a Monte-Carlo yield floor on an explicit (B,)
     `yield_frac` column or the batch's `corners["yield_frac"]`.
     """
-    batch = as_batch(points_or_batch, device)
-    host = lambda x: x.detach().cpu().numpy() if isinstance(
-        x, torch.Tensor) else np.asarray(x)
-    cand = (host(batch.valid) & host(batch.feasible)
-            & (host(batch.density_gb_mm2) >= density_target - 1e-9))
+    points = _legacy_points(points_or_batch)
+    batch = as_batch(points_or_batch if points is None else points, device)
+    cand = (to_host(batch.valid) & to_host(batch.feasible)
+            & (to_host(batch.density_gb_mm2) >= density_target - 1e-9))
     if min_yield is not None:
         if yield_frac is None:
             yield_frac = batch.corners.get("yield_frac")
@@ -305,13 +324,108 @@ def best_design(points_or_batch,
             raise ValueError(
                 "min_yield needs a yield column: pass yield_frac= or use "
                 "a batch with corners['yield_frac']")
-        cand &= host(yield_frac) >= min_yield - 1e-9
+        cand &= to_host(yield_frac) >= min_yield - 1e-9
     idx = np.flatnonzero(cand)
     if idx.size == 0:
         return None
-    trc = host(batch.trc_ns).astype(np.float64)[idx]
+    trc = to_host(batch.trc_ns).astype(np.float64)[idx]
     trc = np.where(np.isnan(trc), np.inf, trc)
-    e_rd = host(batch.e_read_fj).astype(np.float64)[idx]
-    height = host(batch.height_um).astype(np.float64)[idx]
+    e_rd = to_host(batch.e_read_fj).astype(np.float64)[idx]
+    height = to_host(batch.height_um).astype(np.float64)[idx]
     order = np.lexsort((height, e_rd, trc))     # last key is primary
-    return batch.point(int(idx[order[0]]))
+    best = int(idx[order[0]])
+    return points[best] if points is not None else batch.point(best)
+
+
+# ---------------------------------------------------------------------------
+# Legacy list[DesignPoint] surface (deprecated)
+# ---------------------------------------------------------------------------
+
+def evaluate_grid(tech: TechCal, scheme: str, layers,
+                  with_transient: bool = True, trc=None,
+                  device="cuda") -> list[DesignPoint]:
+    """Evaluate a vector of layer counts for one (tech, scheme) on `device`.
+
+    Deprecated reference path: per-(tech, scheme) scalar evaluation kept
+    as the equivalence oracle for the vectorized `sweep`.  `trc` may carry
+    precomputed row-cycle times; otherwise the transient engine runs here.
+    """
+    device = resolve_device(device)
+    arr = as_f32(np.asarray(layers), device)
+    dens = to_host(bit_density_gb_mm2(tech, arr, device))
+    height = to_host(stack_height_um(tech, arr, device))
+    cbl = to_host(effective_cbl_ff(tech, scheme, arr, device))
+    margin = to_host(sense_margin_mv(tech, scheme, arr, device=device))
+    margin_d = to_host(sense_margin_mv(tech, scheme, arr, with_disturb=True,
+                                     device=device))
+    e_wr = to_host(write_energy_fj(tech, scheme, arr, device))
+    e_rd = to_host(read_energy_fj(tech, scheme, arr, device))
+    geom = bonding_geometry(tech, scheme, device)
+    pitch = float(geom.hcb_pitch_um)
+    blsa = float(geom.blsa_area_um2)
+    manufacturable = bool(geom.manufacturable) or tech.baseline_2d
+    if trc is not None:
+        trc = to_host(trc)
+    elif with_transient:
+        trc = to_host(transient.simulate_row_cycle(tech, scheme, arr,
+                                                 device=device).trc_ns)
+    else:
+        trc = np.full(len(layers), np.nan)
+
+    pts = []
+    for i, layer in enumerate(np.asarray(layers)):
+        feas = (manufacturable
+                and margin[i] >= cal.MIN_FUNCTIONAL_MARGIN_MV - 1e-9
+                and margin_d[i] >= cal.MIN_DISTURBED_MARGIN_MV - 1e-9)
+        pts.append(DesignPoint(
+            tech=tech.name, scheme=scheme, layers=int(layer),
+            density_gb_mm2=float(dens[i]), height_um=float(height[i]),
+            cbl_ff=float(cbl[i]), margin_mv=float(margin[i]),
+            margin_disturbed_mv=float(margin_d[i]), trc_ns=float(trc[i]),
+            e_write_fj=float(e_wr[i]), e_read_fj=float(e_rd[i]),
+            hcb_pitch_um=pitch, blsa_area_um2=blsa, feasible=bool(feas)))
+    return pts
+
+
+def sweep_combos(layer_grid) -> list[tuple[TechCal, str, np.ndarray]]:
+    """The (tech, scheme, layer-grid) combos of the full design space.
+
+    Deprecated: capability flags on each registered `TechCal` drive this
+    now; new code should build a `DesignSpace` instead.
+    """
+    warnings.warn(
+        "dse.sweep_combos is deprecated and will be removed (see "
+        "docs/api.md for the timeline); build a DesignSpace "
+        "(DesignSpace.paper_grid / product) instead",
+        DeprecationWarning, stacklevel=2)
+    combos: list[tuple[TechCal, str, np.ndarray]] = []
+    for tech in TECHS.values():
+        schemes = tech.allowed_schemes or tuple(SCHEMES)
+        grid = (np.asarray(tech.layer_grid) if tech.layer_grid is not None
+                else layer_grid)
+        for scheme in schemes:
+            combos.append((tech, scheme, grid))
+    return combos
+
+
+def full_sweep(layer_grid=None, with_transient: bool = True,
+               device="cuda") -> list[DesignPoint]:
+    """Sweep the whole (tech x scheme x layers) design space on `device`.
+
+    Deprecated compatibility shim: equivalent to
+    `sweep(DesignSpace.paper_grid(layer_grid)).to_points()`.
+    """
+    warnings.warn(
+        "dse.full_sweep is deprecated and will be removed (see docs/api.md "
+        "for the timeline); use dse.sweep(DesignSpace.paper_grid(...)) and "
+        "consume the DesignBatch columns",
+        DeprecationWarning, stacklevel=2)
+    grid = None if layer_grid is None else tuple(
+        float(x) for x in np.asarray(layer_grid).reshape(-1))
+    space = DesignSpace.paper_grid(layer_grid=grid)
+    with warnings.catch_warnings():
+        # the shim IS the deprecated surface; its internal to_points call
+        # must not double-warn the caller
+        warnings.simplefilter("ignore", DeprecationWarning)
+        return sweep(space, with_transient=with_transient,
+                     device=device).to_points()

@@ -19,7 +19,7 @@ from dataclasses import dataclass
 
 import torch
 
-from ..device import as_f32
+from ..device import as_f32, resolve_device
 from . import calibration as cal
 from .calibration import TechCal
 from .parasitics import bl_parasitics, bl_parasitics_lowered
@@ -97,6 +97,13 @@ def replica_ladder_arrays(c: torch.Tensor, g_branch: torch.Tensor,
     c_rep[:, -1] = c[:, -1] * cells         # ganged storage caps
     g_rep[:, -1] = g_branch[:, -1] * cells  # parallel access transistors
     return c_rep, g_rep
+
+
+def effective_cbl_ff(tech: TechCal, scheme: str, layers,
+                     device="cuda") -> torch.Tensor:
+    """Effective C_BL (all capacitance the cell must share charge with)."""
+    layers = as_f32(layers, resolve_device(device))
+    return bl_parasitics(tech, scheme, layers).c_bl_total_ff
 
 
 def effective_cbl_lowered(view) -> torch.Tensor:

@@ -18,7 +18,7 @@ from dataclasses import dataclass, replace
 
 import torch
 
-from ..device import as_bool, as_f32
+from ..device import as_bool, as_f32, resolve_device
 from . import routing
 from .calibration import TechCal
 
@@ -38,6 +38,14 @@ class BLParasitics:
         """Effective C_BL (everything the sense node must charge except Cs)."""
         return (self.c_local_ff + self.c_unselected_ff + self.c_global_ff
                 + self.c_sa_ff)
+
+
+def local_bl_cap_ff(tech: TechCal, layers, device="cuda") -> torch.Tensor:
+    """Vertical local BL: per-tier sidewall/fringe capacitance x tier count,
+    plus the selector junction it terminates in."""
+    layers = as_f32(layers, resolve_device(device))
+    return (layers * as_f32(tech.c_bl_per_layer_ff, layers.device)
+            + as_f32(tech.c_sel_junction_ff, layers.device))
 
 
 def _assemble(layers: torch.Tensor, *, baseline_2d, fixed_c_bl_ff,
@@ -143,3 +151,8 @@ def bl_parasitics_lowered(view) -> BLParasitics:
                              -0.5 * vov, 0.5 * vov)
         par = replace(par, r_on_kohm=par.r_on_kohm * vov / (vov - dvth_v))
     return par
+
+
+def wl_parasitics(tech: TechCal):
+    """WL loading seen by the sub-wordline driver (R in kOhm, C in fF)."""
+    return tech.r_wl_kohm, tech.c_wl_ff

@@ -28,7 +28,7 @@ import itertools
 
 import numpy as np
 
-from ..device import resolve_device
+from ..device import resolve_device, to_host
 from . import calibration as cal
 from . import dse
 from .batch import ARRAY_FIELDS
@@ -42,20 +42,16 @@ def _non_baseline_techs():
     return [t for t in TECHS.values() if not t.baseline_2d]
 
 
-def _host(x) -> np.ndarray:
-    return x.detach().cpu().numpy()
-
-
 def _columns(batch) -> dict:
     """Every (B,) column of a batch as a host numpy array."""
-    return {f: _host(getattr(batch, f)) for f in ARRAY_FIELDS}
+    return {f: to_host(getattr(batch, f)) for f in ARRAY_FIELDS}
 
 
 def _density_space(densities, scheme: str, device) -> DesignSpace:
     """One (tech, scheme, layers) point per 3D tech and target density."""
     space = DesignSpace(entries=())
     for tech in _non_baseline_techs():
-        layers = _host(layers_for_density(tech, densities, device=device))
+        layers = to_host(layers_for_density(tech, densities, device=device))
         space = space + DesignSpace.points(
             [(tech.name, scheme, int(l)) for l in layers])
     return space
@@ -109,8 +105,8 @@ def fig9a_stack_height(densities=None, device="cuda") -> list[dict]:
     rows = []
     for tech in _non_baseline_techs():
         layers = layers_for_density(tech, densities, device=device)
-        heights = _host(stack_height_um(tech, layers, device=device))
-        for d, l, h in zip(densities, _host(layers), heights):
+        heights = to_host(stack_height_um(tech, layers, device=device))
+        for d, l, h in zip(densities, to_host(layers), heights):
             rows.append(dict(tech=tech.name, density_gb_mm2=float(d),
                              layers=int(l), height_um=float(h)))
     return rows
@@ -194,23 +190,23 @@ def mc_yield_table(samples: int = 256, key=0,
     space = DesignSpace.paper_targets().with_mc(samples=samples, key=key)
     batch = dse.sweep(space, with_transient=with_transient, device=device)
 
-    y_margin = _host(batch.yield_fraction(margin_mv=margin_floor_mv))
-    y_dist = _host(batch.yield_fraction(
+    y_margin = to_host(batch.yield_fraction(margin_mv=margin_floor_mv))
+    y_dist = to_host(batch.yield_fraction(
         margin_mv=cal.MIN_DISTURBED_MARGIN_MV, disturbed=True))
-    y_spec = _host(batch.yield_fraction(
+    y_spec = to_host(batch.yield_fraction(
         margin_mv=margin_floor_mv, trc_ns=trc_ceiling_ns))
-    p05_margin = _host(batch.quantile(0.05, "margin_mv"))
-    med_margin = _host(batch.quantile(0.5, "margin_mv"))
+    p05_margin = to_host(batch.quantile(0.05, "margin_mv"))
+    med_margin = to_host(batch.quantile(0.5, "margin_mv"))
     if with_transient:
-        med_trc = _host(batch.quantile(0.5, "trc_ns"))
-        p95_trc = _host(batch.quantile(0.95, "trc_ns"))
+        med_trc = to_host(batch.quantile(0.5, "trc_ns"))
+        p95_trc = to_host(batch.quantile(0.95, "trc_ns"))
 
     out = {"samples": samples,
            "margin_floor_mv": float(margin_floor_mv),
            "trc_ceiling_ns": trc_ceiling_ns}
     base = batch.base_len
     tech_col = batch.tech_col[:base]       # sample 0 carries the row labels
-    layers = _host(batch.layers)[:base]
+    layers = to_host(batch.layers)[:base]
     for i, tname in enumerate(tech_col):
         entry = dict(
             layers=int(layers[i]),
@@ -254,7 +250,7 @@ def mc_tail_yield_table(samples: int = 4096, key=0,
         margin_floor_mv = cal.MIN_FUNCTIONAL_MARGIN_MV
     batch = dse.sweep(_tail_space(samples, key, corr, tail_shift, tail_scale),
                       with_transient=False, device=device)
-    ppm = {k: _host(v) for k, v in batch.yield_ppm(
+    ppm = {k: to_host(v) for k, v in batch.yield_ppm(
         margin_mv=margin_floor_mv, min_ess=min_ess).items()}
 
     out = {"samples": samples,
@@ -263,7 +259,7 @@ def mc_tail_yield_table(samples: int = 4096, key=0,
            "tail_scale": float(tail_scale),
            "corr": float(corr)}
     base = batch.base_len
-    layers = _host(batch.layers)
+    layers = to_host(batch.layers)
     for i, tname in enumerate(batch.tech_col[:base]):
         out[tname] = dict(layers=int(layers[i]), **_ppm_row(ppm, i))
     return out
@@ -285,7 +281,7 @@ def fig_tail_probability(floors_mv=None, samples: int = 4096, key=0,
 
     rows = []
     for floor in floors_mv:
-        ppm = {k: _host(v) for k, v in batch.yield_ppm(
+        ppm = {k: to_host(v) for k, v in batch.yield_ppm(
             margin_mv=float(floor), min_ess=min_ess).items()}
         for i, tname in enumerate(tech_col):
             rows.append(dict(tech=tname, margin_floor_mv=float(floor),
@@ -304,11 +300,11 @@ def fig9b_margin_yield_vs_density(densities=None, scheme: str = "sel_strap",
         densities = np.linspace(0.5, 3.5, 13)
     batch = dse.sweep(_density_space(densities, scheme, device).with_mc(
         samples=samples, key=key), with_transient=False, device=device)
-    y_dist = _host(batch.yield_fraction(
+    y_dist = to_host(batch.yield_fraction(
         margin_mv=cal.MIN_DISTURBED_MARGIN_MV, disturbed=True))
-    p05 = _host(batch.quantile(0.05, "margin_disturbed_mv"))
-    med = _host(batch.quantile(0.5, "margin_disturbed_mv"))
-    layers = _host(batch.layers)
+    p05 = to_host(batch.quantile(0.05, "margin_disturbed_mv"))
+    med = to_host(batch.quantile(0.5, "margin_disturbed_mv"))
+    layers = to_host(batch.layers)
 
     rows = []
     for i, (tech, d) in enumerate(itertools.product(_non_baseline_techs(),

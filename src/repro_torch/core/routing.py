@@ -17,8 +17,9 @@ from dataclasses import dataclass
 
 import torch
 
-from ..device import as_bool, as_f32
+from ..device import as_bool, as_f32, resolve_device
 from . import calibration as cal
+from .calibration import TechCal
 
 
 @dataclass(frozen=True)
@@ -123,6 +124,21 @@ def _assemble_geometry(cell_x_nm, hcb_route_span_um, bond_shared,
                        1.0 / torch.clamp_min(pitch * pitch, 1e-9) * 1e-6,
                        0.0)
     return BondingGeometry(pitch, blsa_area, ok, dens)
+
+
+def hcb_pitch_um(tech: TechCal, scheme: str, device="cuda") -> torch.Tensor:
+    """Required hybrid-bond pitch for the scheme on this technology."""
+    return bonding_geometry(tech, scheme, device).hcb_pitch_um
+
+
+def bonding_geometry(tech: TechCal, scheme: str,
+                     device="cuda") -> BondingGeometry:
+    """Bonding geometry of one (tech, scheme) as 0-d tensors on `device`;
+    `manufacturable` is the pitch window alone (no 2D-baseline
+    exemption, unlike `bonding_geometry_lowered`)."""
+    return _assemble_geometry(tech.cell_x_nm, tech.hcb_route_span_um,
+                              scheme_spec(scheme).bond_shared,
+                              tech.baseline_2d, resolve_device(device))
 
 
 def bonding_geometry_lowered(view) -> BondingGeometry:

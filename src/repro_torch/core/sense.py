@@ -1,6 +1,6 @@
 """Sense-margin model (full SWD + BLSA compact model, Fig. 3).
 
-Port of `repro.core.sense.sense_margin_lowered`:
+Port of `repro.core.sense`:
 
   dV_nominal = (VDD/2) * Cs/(Cs + C_BL)            charge sharing
              - (1 - writeback_eff) * (VDD/2)       incomplete restore level
@@ -8,7 +8,9 @@ Port of `repro.core.sense.sense_margin_lowered`:
 
   dV_disturbed = dV_nominal - disturb_loss(FBE+RH) (Fig. 9b)
 
-All terms in mV.
+All terms in mV.  The scalar functions take one (tech, scheme) batched
+over `layers` and return float32 tensors on `device`; the `*_lowered`
+function works over a lowered design space.
 """
 
 from __future__ import annotations
@@ -17,8 +19,28 @@ import torch
 
 from ..device import as_f32, rdiv
 from . import calibration as cal
-from .disturb import disturb_loss_lowered
-from .netlist import effective_cbl_lowered
+from .calibration import TechCal
+from .disturb import disturb_loss_lowered, disturb_loss_mv
+from .netlist import effective_cbl_ff, effective_cbl_lowered
+
+
+def charge_share_mv(tech: TechCal, scheme: str, layers,
+                    device="cuda") -> torch.Tensor:
+    cbl = effective_cbl_ff(tech, scheme, layers, device)
+    return rdiv(1e3 * (cal.VDD_ARRAY / 2.0) * cal.CS_FF, cal.CS_FF + cbl)
+
+
+def sense_margin_mv(tech: TechCal, scheme: str, layers,
+                    with_disturb: bool = False,
+                    device="cuda") -> torch.Tensor:
+    dv = charge_share_mv(tech, scheme, layers, device)
+    dev = dv.device
+    dv = dv - as_f32((1.0 - tech.writeback_eff) * (cal.VDD_ARRAY / 2.0)
+                     * 1e3, dev)
+    dv = dv - as_f32(tech.sa_offset_mv, dev)
+    if with_disturb:
+        dv = dv - disturb_loss_mv(tech, scheme, layers, device=dev)
+    return dv
 
 
 def sense_margin_lowered(view, with_disturb: bool = False,
@@ -42,3 +64,14 @@ def sense_margin_lowered(view, with_disturb: bool = False,
     if with_disturb:
         dv = dv - disturb_loss_lowered(view)
     return dv
+
+
+def functional(tech: TechCal, scheme: str, layers,
+               with_disturb: bool = True, device="cuda") -> torch.Tensor:
+    """Feasibility: margin above the functional sensing threshold
+    (80 mV nominal; 60 mV with FBE+RH disturb, per the paper's 70 mV
+    functional Si point)."""
+    thresh = (cal.MIN_DISTURBED_MARGIN_MV if with_disturb
+              else cal.MIN_FUNCTIONAL_MARGIN_MV)
+    return sense_margin_mv(tech, scheme, layers, with_disturb,
+                           device) >= thresh

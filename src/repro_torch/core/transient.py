@@ -315,9 +315,30 @@ def result_from_events(operands: FusedOperands,
 def row_cycle_events(operands: FusedOperands, backend: str = "auto",
                      b_chunk: int = DEFAULT_B_CHUNK) -> torch.Tensor:
     """Raw fused-engine event columns for a lowered operand batch -> (B, 4),
-    before rollup and replica de-interleave."""
+    before rollup and replica de-interleave.
+
+    The serving layer's packing seam: many requests' operand batches are
+    concatenated, run in one launch on the card, and the event rows are
+    sliced back per request before each request's own
+    `result_from_events` rollup (where replica pairs collapse).
+    """
     evt, _ = _row_cycle_fused_chunked(operands[:6], backend, b_chunk)
     return evt
+
+
+def simulate_row_cycle_lowered(operands: FusedOperands,
+                               backend: str = "auto",
+                               b_chunk: int = DEFAULT_B_CHUNK) -> RowCycleResult:
+    """Fused row-cycle over an already-lowered flat operand batch, on the
+    operands' device -> one flat `RowCycleResult`.
+
+    The array-native entry point of the engine: the DSE sweep lowers its
+    whole space to ONE `FusedOperands` and gets ONE result back.  It runs
+    the engine directly, not through `row_cycle_events` (the serving
+    layer's packing seam).
+    """
+    evt, _ = _row_cycle_fused_chunked(operands[:6], backend, b_chunk)
+    return result_from_events(operands, evt)
 
 
 def simulate_row_cycle_many(entries, backend: str = "auto",
@@ -334,8 +355,7 @@ def simulate_row_cycle_many(entries, backend: str = "auto",
     if isinstance(entries, FusedOperands):
         operands = FusedOperands(
             *(x.to(device) for x in entries[:8]), replica=entries.replica)
-        return result_from_events(
-            operands, row_cycle_events(operands, backend, b_chunk))
+        return simulate_row_cycle_lowered(operands, backend, b_chunk)
 
     sizes, parts = [], []
     for tech, scheme, layers in entries:
@@ -347,8 +367,7 @@ def simulate_row_cycle_many(entries, backend: str = "auto",
         parts.append((*core, torch.full((b,), tech.sa_tau_ns, device=device),
                       torch.full((b,), tech.t_overhead_ns, device=device)))
     operands = FusedOperands(*(torch.cat(xs) for xs in zip(*parts)))
-    flat = result_from_events(operands,
-                              row_cycle_events(operands, backend, b_chunk))
+    flat = simulate_row_cycle_lowered(operands, backend, b_chunk)
     results, lo = [], 0
     for b in sizes:
         sl = slice(lo, lo + b)

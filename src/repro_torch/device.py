@@ -76,6 +76,13 @@ def as_bool(x, device) -> torch.Tensor:
     return torch.as_tensor(arr, device=device)
 
 
+def to_host(x) -> np.ndarray:
+    """A tensor (on any device) or array-like as a numpy array."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
 def rdiv(num: float, t: torch.Tensor) -> torch.Tensor:
     """`num / t` as ONE correctly rounded division.
 

@@ -505,3 +505,83 @@ def test_strap_engine_on_card_equals_dense(cuda):
         launches = strap_gather.strap_attend_cuda.launches - before
         assert launches == (cfg.n_layers * 6 if backend == "strap" else 0)
     assert torch.equal(out["dense"], out["strap"])
+
+
+def test_service_window_on_card_is_one_launch_and_equals_direct(cuda):
+    """The co-design service on the card: a sweep and a yield query in one
+    window share one row-cycle launch; each response equals the direct
+    sweep (NaN-aware, bit for bit); a fixed and a replica space in one
+    window take one launch each; a repeat is a memo hit with no launch."""
+    from repro_torch.launch.serve import _batches_identical
+    from repro_torch.serving.dse_service import DSEService
+
+    kernel = row_cycle.row_cycle_fused_cuda
+    svc = DSEService(window_ms=0.0, device=cuda)
+    svc.warm()
+    s_grid = DesignSpace.paper_grid()
+    s_mc = DesignSpace.paper_grid().with_mc(samples=512, key=2)
+    torch.cuda.synchronize()
+    before = kernel.launches
+    fa = svc.submit(s_grid)
+    fy = svc.submit(s_mc, kind="yield", spec={"margin_mv": 80.0})
+    assert svc.flush() == 2
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    assert _batches_identical(fa.result(timeout=60.0).batch,
+                              dse.sweep(s_grid, device=cuda))
+    ry = fy.result(timeout=60.0)
+    want = dse.sweep(s_mc, device=cuda)
+    assert _batches_identical(ry.batch, want)
+    assert _batches_identical(ry.summary, want.mc_summary(margin_mv=80.0))
+
+    s_fixed = DesignSpace.product(techs=["aos"], layers=(64, 87))
+    s_rep = DesignSpace.paper_grid().with_replica()
+    torch.cuda.synchronize()
+    before = kernel.launches
+    ff, fr = svc.submit(s_fixed), svc.submit(s_rep)
+    svc.flush()
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 2
+    assert _batches_identical(ff.result(timeout=60.0).batch,
+                              dse.sweep(s_fixed, device=cuda))
+    assert _batches_identical(fr.result(timeout=60.0).batch,
+                              dse.sweep(s_rep, device=cuda))
+
+    before = kernel.launches
+    again = svc.submit(s_grid)
+    svc.flush()
+    torch.cuda.synchronize()
+    assert again.result(timeout=60.0).memo_hit
+    assert kernel.launches == before
+
+
+def test_service_dispatcher_thread_on_card(cuda):
+    """Blocking clients on other threads, the dispatcher thread launching:
+    every client reads results equal to the direct sweep."""
+    import threading
+
+    from repro_torch.launch.serve import _batches_identical
+    from repro_torch.serving.dse_service import DSEService
+
+    spaces = (DesignSpace.product(techs=["aos"], layers=(87, 137)),
+              DesignSpace.product(techs=["si"], layers=(87,)),
+              DesignSpace.paper_targets().with_mc(samples=16, key=0))
+    golden = [dse.sweep(s, device=cuda) for s in spaces]
+    out, errors = {}, []
+
+    def client(i, service):
+        try:
+            out[i] = service.sweep(spaces[i % 3], timeout=120.0)
+        except Exception as e:          # pragma: no cover
+            errors.append(e)
+
+    with DSEService(window_ms=5.0, device=cuda) as service:
+        threads = [threading.Thread(target=client, args=(i, service))
+                   for i in range(6)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120.0)
+        assert not any(t.is_alive() for t in threads)
+    assert errors == []
+    assert all(_batches_identical(out[i], golden[i % 3]) for i in range(6))

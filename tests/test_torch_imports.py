@@ -13,19 +13,24 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.core import (calibration, density, dse, report,  # noqa: E402
-                              space, transient)
+from repro_torch.core import (calibration, density,  # noqa: E402
+                              device_models, disturb, dse, energy, netlist,
+                              parasitics, report, routing, sense, space,
+                              transient)
 from repro_torch import interop  # noqa: E402
 from repro_torch.configs.registry import get_arch  # noqa: E402
 from repro_torch.core.batch import DesignBatch  # noqa: E402
 from repro_torch.memory.strap_cache import (StrapCacheConfig,  # noqa: E402
                                             StrapKVCache)
 from repro_torch.models import registry as models  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.serving.dse_service import DSEService  # noqa: E402
 from repro_torch.serving.engine import ServeEngine  # noqa: E402
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "src" / "repro_torch"
-PORT_FILES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+PORT_FILES = sorted(PORT.rglob("*.py")) + [
+    REPO / "chip_smoke.py", REPO / "examples" / "dram_codesign_torch.py"]
 
 
 def _module_names():
@@ -118,6 +123,39 @@ ENTRY_POINTS = {
         StrapCacheConfig(), 1, 64, 1, 8),
     "ServeEngine": lambda: ServeEngine(get_arch("qwen2-1.5b-smoke"),
                                        {"embed": torch.zeros(4, 2)}),
+    "DSEService": lambda: DSEService(),
+    "launch.serve.main": lambda: serve.main(["--smoke"]),
+    "dse.evaluate_grid": lambda: dse.evaluate_grid(
+        calibration.AOS, "sel_strap", np.asarray([87])),
+    "transient.simulate_row_cycle_lowered(plan)": lambda: (
+        transient.simulate_row_cycle_lowered(dse.plan_sweep(
+            space.DesignSpace.paper_targets()).operands)),
+    "sense.sense_margin_mv": lambda: sense.sense_margin_mv(
+        calibration.AOS, "sel_strap", [87]),
+    "sense.charge_share_mv": lambda: sense.charge_share_mv(
+        calibration.AOS, "sel_strap", [87]),
+    "sense.functional": lambda: sense.functional(
+        calibration.AOS, "sel_strap", [87]),
+    "energy.write_energy_fj": lambda: energy.write_energy_fj(
+        calibration.AOS, "sel_strap", [87]),
+    "energy.read_energy_fj": lambda: energy.read_energy_fj(
+        calibration.AOS, "sel_strap", [87]),
+    "netlist.effective_cbl_ff": lambda: netlist.effective_cbl_ff(
+        calibration.AOS, "sel_strap", [87]),
+    "parasitics.local_bl_cap_ff": lambda: parasitics.local_bl_cap_ff(
+        calibration.AOS, [87]),
+    "routing.bonding_geometry": lambda: routing.bonding_geometry(
+        calibration.AOS, "sel_strap"),
+    "routing.hcb_pitch_um": lambda: routing.hcb_pitch_um(
+        calibration.AOS, "sel_strap"),
+    "disturb.disturb_loss_mv": lambda: disturb.disturb_loss_mv(
+        calibration.AOS, "sel_strap", [87]),
+    "device_models.ids_ua": lambda: device_models.ids_ua(
+        device_models.SI_ACCESS, 1.0, 0.5),
+    "device_models.r_on_eff_kohm": lambda: device_models.r_on_eff_kohm(
+        device_models.SI_ACCESS, 2.0, 0.55),
+    "device_models.subthreshold_swing_mv_dec": lambda: (
+        device_models.subthreshold_swing_mv_dec(device_models.SI_ACCESS)),
 }
 
 
