@@ -69,7 +69,17 @@ Phases (any failure exits non-zero and prints no result line):
    query served in one window (one launch), bit-identical to the direct
    sweep and its `mc_summary`, timed against it; `stats()`;
 15. the service CLI's smoke (`repro_torch.launch.serve --smoke`);
-16. one JSON line listing the ported kernels (row_cycle at the sweep's
+16. the sweep fabric (`launch.mesh`, `launch.shard`, `launch.elastic`,
+   `launch.multiproc`), each result bit for bit (int32 views) against
+   phase 5's batch and Pareto mask: the 299,008-row sweep over every
+   card's slot and over 4 slots on the card (one launch a slot), timed in
+   turns with the direct sweep; a replica MC space over 3 slots; the
+   Pareto mask over 4 slots; the elastic sweep over 8 slots with a host
+   dropped (restarts 1, 8 -> 7 slots, overhead 0.25) and the reference's
+   fault pile-up (restarts 4, 8 -> 6); an NCCL group of one rank; two
+   gloo processes sharing the card (`launch.multiproc --smoke`); the shard
+   CLI's smoke and the example twin's `--smoke --sharded`;
+17. one JSON line listing the ported kernels (row_cycle at the sweep's
    one launch over 299,008 rows and at one 2048-row chunk, with the
    cycles of a step; rc_multistep at the phased path's ACT call, with
    cycles a step, its block as the library reports it and, in its
@@ -1211,6 +1221,206 @@ def cli_phase(dev, kernel) -> dict:
     return {"launches": launches, "wall_s": wall_s}
 
 
+# --------------------------------------------------------------------------
+# the sweep fabric
+# --------------------------------------------------------------------------
+
+def fabric_phase(dev, kernel, mc_space, mc_batch, mc_mask) -> dict:
+    """The multi-GPU sweep fabric on the card (`launch.mesh`, `.shard`,
+    `.elastic`, `.multiproc`), every result held bit for bit (int32
+    views) against phase 5's 299,008-row batch and Pareto mask or against
+    the sequential sweep of its space: the sweep over every card's slot
+    and over 4 slots on one card (one launch a slot, timed in turns with
+    the direct sweep), a replica MC space over 3 slots, the Pareto mask
+    over 4 slots, the elastic host drop and fault pile-up over 8 slots,
+    an NCCL group of one rank, two gloo processes sharing the card, and
+    the shard and example CLIs."""
+    import os
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import dse
+    from repro_torch.core.space import DesignSpace
+    from repro_torch.launch import elastic, shard
+    from repro_torch.launch.mesh import make_sweep_mesh, make_test_mesh
+    from repro_torch.runtime.fault import FailureInjector
+
+    out: dict = {}
+    rows = len(mc_space)
+
+    def equal(batch, want, what):
+        bad = shard.batch_mismatches(batch, want)
+        check(bad == [], f"{what}: differs from the sequential sweep in {bad}")
+
+    def timed(fn):
+        sync(dev)
+        kernel.launches = 0
+        t0 = time.perf_counter()
+        res = fn()
+        sync(dev)
+        return (time.perf_counter() - t0) * 1e3, kernel.launches, res
+
+    # 1-2. the 299,008-row sweep over every card's slot and over 4 slots
+    #      on one card, in turns with the direct sweep (the first round
+    #      warms up)
+    mesh_all = make_sweep_mesh(device=dev)
+    mesh4 = make_test_mesh((4,), ("batch",), device=dev)
+    modes = {"direct": lambda: dse.sweep(mc_space, device=dev),
+             "sharded_1slot": lambda: dse.sweep(mc_space, sharding=mesh_all,
+                                                device=dev),
+             "sharded_4slot": lambda: dse.sweep(mc_space, sharding=mesh4,
+                                                device=dev)}
+    runs = {m: [] for m in modes}
+    launches = {m: [] for m in modes}
+    for rep_i in range(REPEATS + 1):
+        for mode, fn in modes.items():
+            ms, n, batch = timed(fn)
+            equal(batch, mc_batch, f"{mode} sweep of {rows} rows")
+            del batch
+            if rep_i:
+                runs[mode].append(ms)
+                launches[mode].append(n)
+    want = {"direct": 1, "sharded_1slot": mesh_all.size, "sharded_4slot": 4}
+    for mode, n in want.items():
+        check(launches[mode] == [n] * REPEATS, f"{mode}: {launches[mode]} "
+              f"row-cycle launches a run, expected {n}")
+    out["mesh_all_slots"] = mesh_all.size
+    out["sweeps"] = {m: {"ms": runs[m], "median_ms": statistics.median(
+        runs[m]), "launches": launches[m][0]} for m in modes}
+    log(f"[fabric] {rows}-row sweep, in turns (host clock, synchronized): "
+        + "; ".join(f"{m} " + " / ".join(f"{x:.2f}" for x in runs[m])
+                    + f" ms, {launches[m][0]} launch(es)" for m in modes)
+        + "; every batch == phase 5's, bit for bit")
+    if dev.type == "cuda":
+        from repro_torch.kernels.bench import profile
+        for mode, fn in modes.items():
+            out["sweeps"][mode]["profile"] = profile(fn)
+            log(f"[profile] {mode} sweep: "
+                + json.dumps(out["sweeps"][mode]["profile"]))
+
+    # 3. a replica MC space over 3 slots
+    rep_space = DesignSpace.paper_targets().with_replica().with_mc(16, key=0)
+    ms, n, batch = timed(lambda: dse.sweep(
+        rep_space, sharding=make_test_mesh((3,), ("batch",), device=dev),
+        device=dev))
+    equal(batch, dse.sweep(rep_space, device=dev), "replica MC, 3 slots")
+    check(n == 3, f"replica MC over 3 slots: {n} launches")
+    out["replica_3slot"] = {"rows": len(batch), "launches": n, "ms": ms}
+    log(f"[fabric] replica MC ({len(batch)} points) over 3 slots: {n} "
+        f"launches, {ms:.2f} ms, == its sequential sweep")
+
+    # 4. the Pareto mask over 4 slots
+    ms, _, mask = timed(lambda: dse.pareto_mask(mc_batch, sharding=mesh4))
+    check(torch.equal(mask, mc_mask), "the 4-slot Pareto mask differs from "
+          "phase 5's")
+    out["pareto_4slot_ms"] = ms
+    log(f"[fabric] pareto_mask over 4 slots: {ms:.1f} ms, == phase 5's "
+        f"mask ({int(mask.sum())} points)")
+
+    # 5. the elastic sweep over 8 slots: one host dropped, then the
+    #    reference's pile-up
+    mesh8 = make_test_mesh((8,), ("batch",), device=dev)
+    cases = {"drop": ({1: "drop:host3"}, 1, ["host3"], 7),
+             "pileup": ({0: "crash", 1: "drop:host0", 2: "nan",
+                         3: "drop:host5"}, 4, ["host0", "host5"], 6)}
+    out["elastic"] = {}
+    for name, (schedule, restarts, dropped, last) in cases.items():
+        ms, n, (batch, rep) = timed(lambda schedule=schedule: (
+            elastic.elastic_sweep(mc_space, mesh8, device=dev,
+                                  injector=FailureInjector(
+                                      schedule=dict(schedule)))))
+        equal(batch, mc_batch, f"elastic {name}")
+        del batch
+        check((rep.restarts, rep.dropped_hosts) == (restarts, dropped)
+              and rep.device_history[0] == 8
+              and rep.device_history[-1] == last,
+              f"elastic {name}: {rep}")
+        check(n == sum(rep.device_history), f"elastic {name}: {n} launches "
+              f"for slab runs on {rep.device_history} slots")
+        out["elastic"][name] = {
+            "ms": ms, "launches": n, "restarts": rep.restarts,
+            "dropped": rep.dropped_hosts, "slots": rep.device_history,
+            "resume_overhead_frac": rep.resume_overhead_frac}
+        log(f"[fabric] elastic {name}: " + json.dumps(out["elastic"][name]))
+    check(out["elastic"]["drop"]["resume_overhead_frac"] == 0.25,
+          "elastic drop: resume overhead is not 0.25")
+
+    # 6. a process group of one rank (NCCL on the card), file rendezvous
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    with tempfile.TemporaryDirectory(prefix="fabric-") as tmp:
+        t0 = time.perf_counter()
+        dist.init_process_group(backend, init_method=f"file://{tmp}/rv",
+                                world_size=1, rank=0)
+        try:
+            group_mesh = make_sweep_mesh(device=dev, group=dist.group.WORLD)
+            first_ms = []
+            for _ in range(2):               # the first sets up the group
+                ms, n, batch = timed(lambda: dse.sweep(
+                    mc_space, sharding=group_mesh, device=dev))
+                equal(batch, mc_batch, f"the {backend} group's sweep")
+                first_ms.append(ms)
+                del batch
+            grid = dse.sweep(DesignSpace.paper_grid(), device=dev)
+            check(torch.equal(dse.pareto_mask(grid, sharding=group_mesh),
+                              dse.pareto_mask(grid)),
+                  f"the {backend} group's Pareto mask differs")
+        finally:
+            dist.destroy_process_group()
+        group_s = time.perf_counter() - t0
+    check(n == 1, f"the {backend} group's sweep: {n} launches")
+    out["group"] = {"backend": backend, "world": 1, "sweep_ms": ms,
+                    "first_sweep_ms": first_ms[0], "launches": n,
+                    "wall_s": group_s}
+    log(f"[fabric] {backend} group of 1 rank: the {rows}-row sweep in "
+        f"{ms:.2f} ms ({first_ms[0]:.2f} the first, with the group's "
+        f"setup; {n} launch), == phase 5's; the paper grid's Pareto mask "
+        f"through all_reduce == sequential; {group_s:.2f} s in all")
+
+    # 7. two gloo processes sharing the card
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.multiproc", "--smoke",
+         "--device", dev.type, "--timeout", "400"],
+        capture_output=True, text=True, env=env, timeout=450, check=False)
+    mp_s = time.perf_counter() - t0
+    for line in proc.stdout.splitlines():
+        log(f"[multiproc] {line}")
+    check(proc.returncode == 0 and proc.stdout.rstrip().splitlines()[-1]
+          .startswith("multiproc smoke: OK"),
+          f"multiproc --smoke: rc {proc.returncode}\n{proc.stderr[-3000:]}")
+    out["multiproc_wall_s"] = mp_s
+    log(f"[fabric] multiproc --smoke (2 gloo processes x 2 slots on "
+        f"{dev.type}): {mp_s:.1f} s")
+
+    # 8. the shard CLI's smoke and the example twin's --sharded
+    rc, text = captured(lambda: shard.main(
+        ["--smoke", "--device", dev.type, "--expect-devices",
+         str(mesh_all.size)]))
+    for line in text.splitlines():
+        log(f"[shard-cli] {line}")
+    check(rc == 0 and text.rstrip().endswith("shard smoke: OK"),
+          "shard --smoke failed")
+    example = load_example()
+    _, plain = captured(lambda: example.main(["--smoke", "--device",
+                                              dev.type]))
+    kernel.launches = 0
+    _, sharded = captured(lambda: example.main(["--smoke", "--sharded",
+                                                "--device", dev.type]))
+    sync(dev)
+    head, rest = sharded.split("\n", 1)
+    check(head.startswith("sharding the sweep over") and rest == plain,
+          "the example's --sharded output differs from its unsharded run")
+    check(kernel.launches == mesh_all.size,
+          f"example --sharded: {kernel.launches} launches")
+    out["example_sharded_launches"] = kernel.launches
+    log(f"[fabric] example --smoke --sharded: '{head}', then the unsharded "
+        f"report line for line ({kernel.launches} launch)")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -1699,7 +1909,10 @@ def main(argv=None) -> int:
     # 15. the service's CLI smoke
     record["cli"] = cli_phase(dev, kernel)
 
-    # 16. the kernels line: row_cycle at the sized path's one launch over
+    # 16. the sweep fabric, against phase 5's batch and mask
+    record["fabric"] = fabric_phase(dev, kernel, mc_space, mc_batch, mask)
+
+    # 17. the kernels line: row_cycle at the sized path's one launch over
     #    299,008 rows and at one 2048-row chunk; rc_multistep at the phased
     #    path's ACT call; strap_attend at the full-width path's last
     #    exact-mode (and gated) step
@@ -1728,7 +1941,12 @@ def main(argv=None) -> int:
             "service_repeat_memo_hit": record["service"]["repeat_launches"],
             "service_mc_yield_window": record["service"]["mc_yield"][
                 "launches"][0],
-            "cli_smoke": record["cli"]["launches"]},
+            "cli_smoke": record["cli"]["launches"],
+            "sharded_1slot": record["fabric"]["sweeps"]["sharded_1slot"][
+                "launches"],
+            "sharded_4slot": record["fabric"]["sweeps"]["sharded_4slot"][
+                "launches"],
+            "elastic_drop": record["fabric"]["elastic"]["drop"]["launches"]},
         "max_abs_err": max_err_ns,
         "max_abs_err_unit": "ns (event times; events, NaN pattern and v_end "
                             "bit-identical to the plain version)",

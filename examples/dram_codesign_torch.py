@@ -16,8 +16,8 @@ batch) and reports margin/tRC yield; `--mc-tail [N]` adds the
 importance-sampled deep-tail (ppm) margin yield.  `--replica` closes the
 SA-enable timing with a replica bitline per design point.  `--device`
 defaults to cuda and raises without a GPU; `--device cpu` runs the plain
-PyTorch path.  `--sharded` is not ported yet (it lands with the multi-GPU
-fabric, ROADMAP queue 1) and raises.
+PyTorch path.  `--sharded` shards the fused sweep over every card of
+`--device` (`launch.mesh.make_sweep_mesh`; the CPU is one slot).
 """
 
 import argparse
@@ -51,8 +51,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                         help="proposal shift (sigmas) of the SA-offset tail "
                              "draws")
     parser.add_argument("--sharded", action="store_true",
-                        help="shard the fused sweep over every GPU (not "
-                             "ported yet: raises)")
+                        help="shard the fused sweep over every card of "
+                             "--device")
     parser.add_argument("--replica", action="store_true",
                         help="replica-bitline timing closure: the SA enable "
                              "fires on a per-point replica column's crossing "
@@ -67,12 +67,15 @@ def codesign(args: argparse.Namespace) -> dict:
     """Run the co-design flow of `args` and print its report; returns the
     scored batch, its Pareto front and the selected design (and, with
     `--mc`, the yield summary and its selection)."""
-    if args.sharded:
-        raise NotImplementedError(
-            "--sharded is not ported yet; it lands with the multi-GPU "
-            "fabric (ROADMAP queue 1)")
     device = resolve_device(args.device)
     out = {}
+
+    sharding = None
+    if args.sharded:
+        from repro_torch.launch.mesh import make_sweep_mesh
+        sharding = make_sweep_mesh(device=device)   # all cards, "batch" axis
+        print(f"sharding the sweep over {sharding.size} {device.type} "
+              "slot(s)")
 
     grid = (64, 87, 137) if args.smoke else None
     space = DesignSpace.paper_grid(layer_grid=grid)
@@ -81,7 +84,7 @@ def codesign(args: argparse.Namespace) -> dict:
         print("replica-closed SA-enable timing (per-point replica bitline)")
     print(f"sweeping design space ({len(space)} design points, one fused "
           "transient batch)...")
-    batch = dse.sweep(space, device=device)
+    batch = dse.sweep(space, sharding=sharding, device=device)
     out["batch"] = batch
 
     n_feas = int(batch.feasible.sum())
@@ -174,7 +177,7 @@ def codesign(args: argparse.Namespace) -> dict:
               f"(key {args.mc_key}, {len(space) * args.mc} rows, one fused "
               "batch) ==")
         mc_batch = dse.sweep(space.with_mc(samples=args.mc, key=args.mc_key),
-                             device=device)
+                             sharding=sharding, device=device)
         trc_ceiling = 1.1 * d1b_trc / 2.0    # spec: comfortably beat D1b/2
         summary = mc_batch.mc_summary(margin_mv=cal.MIN_FUNCTIONAL_MARGIN_MV,
                                       trc_ns=trc_ceiling)

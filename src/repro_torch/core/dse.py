@@ -44,19 +44,14 @@ __all__ = [
     "DesignBatch", "DesignPoint", "DesignSpace",
     "SweepPlan", "plan_sweep", "finalize_sweep",
     "score_columns", "score_from_events", "assemble_batch",
-    "sweep", "pareto_mask", "pareto_front", "best_design", "as_batch",
+    "sweep", "pareto_mask", "dominated_by", "pareto_front", "best_design",
+    "as_batch",
     "full_sweep", "evaluate_grid", "sweep_combos",
 ]
 
 # Corner axes `sweep` knows how to route into the physics models (the
 # reserved mc_* channels of a with_mc space ride the same mechanism).
 SUPPORTED_CORNER_AXES = ("rh_toggles", "trc_cycles")
-
-
-def _no_sharding(sharding) -> None:
-    if sharding is not None:
-        raise NotImplementedError(
-            "sharding= is not ported yet; it lands with the multi-GPU slice")
 
 
 @dataclass(frozen=True)
@@ -220,10 +215,26 @@ def sweep(space: DesignSpace | None = None, with_transient: bool = True,
     `finalize_sweep`, all on `device`.  `backend` is the kernel dispatch
     of `kernels.ops.row_cycle_fused` ("auto": the CUDA kernel on the GPU,
     the plain version on the CPU).
+
+    `sharding` (a `launch.mesh.SweepMesh` or `launch.shard.SweepSharding`)
+    distributes BOTH the fused dispatch and the metric scoring over the
+    mesh's slots: the plan is lowered on `device`, each slot (each rank
+    under a process group) evaluates and scores its own slab via
+    `launch.shard`, and the batch is assembled on `device`, bit-identical
+    to the single-device sweep (which remains the equivalence oracle).
     """
-    _no_sharding(sharding)
+    if sharding is not None and not with_transient:
+        raise ValueError(
+            "sharding= only distributes the fused transient dispatch; a "
+            "with_transient=False sweep is elementwise scoring with "
+            "nothing to shard — pass sharding=None")
     device = resolve_device(device)
     plan = plan_sweep(space, with_transient=with_transient, device=device)
+    if plan.operands is not None and sharding is not None:
+        from ..launch import shard
+        cols = shard.sharded_sweep_columns(plan, sharding, backend=backend,
+                                           b_chunk=b_chunk)
+        return assemble_batch(plan.sp, cols)
     res = None
     if plan.operands is not None:
         res = transient.simulate_row_cycle_many(
@@ -244,8 +255,14 @@ def pareto_mask(batch: DesignBatch, require_feasible: bool = True,
     O(block * B).  `extra_maximize` / `extra_minimize` append further (B,)
     objective columns.  NaN metrics never dominate and are never
     dominated.
+
+    `sharding` (SweepMesh / SweepSharding) distributes the dominator
+    blocks over the mesh's slots instead of the host loop: each slot
+    tests its own dominator slab against the full batch and the slots'
+    dominated masks OR together (`launch.shard.sharded_pareto_dominated`).
+    Dominance tests are exact comparisons and OR does not depend on
+    order, so the sharded mask is bit-identical to the sequential one.
     """
-    _no_sharding(sharding)
     cand = batch.valid
     if require_feasible:
         cand = cand & batch.feasible
@@ -254,17 +271,36 @@ def pareto_mask(batch: DesignBatch, require_feasible: bool = True,
                       *(as_f32(x, dev) for x in extra_maximize)], dim=1)
     lo = torch.stack([batch.trc_ns, batch.e_read_fj,
                       *(as_f32(x, dev) for x in extra_minimize)], dim=1)
-    b = hi.shape[0]
-    dominated = torch.zeros((b,), dtype=torch.bool, device=dev)
-    for i0 in range(0, b, block):          # dominator blocks
-        hi_i, lo_i = hi[i0:i0 + block], lo[i0:i0 + block]
-        cand_i = cand[i0:i0 + block]
+    if sharding is not None:
+        from ..launch import shard
+        dominated = shard.sharded_pareto_dominated(hi, lo, cand, sharding,
+                                                   block=block)
+    else:
+        dominated = dominated_by(hi, lo, cand, hi, lo, cand, block)
+    return cand & ~dominated
+
+
+def dominated_by(hi_d, lo_d, cand_d, hi, lo, cand,
+                 block: int = 4096) -> torch.Tensor:
+    """Which rows of (hi, lo, cand) some candidate dominator row of
+    (hi_d, lo_d, cand_d) dominates -> (B,) bool, on hi's device.
+
+    The dominators run in blocks of `block` rows: each block is one
+    masked broadcast against the whole batch.  `pareto_mask` passes the
+    batch as its own dominators; the sharded mask passes each slot's
+    slab of them.
+    """
+    dominated = torch.zeros((hi.shape[0],), dtype=torch.bool,
+                            device=hi.device)
+    for i0 in range(0, hi_d.shape[0], block):          # dominator blocks
+        hi_i, lo_i = hi_d[i0:i0 + block], lo_d[i0:i0 + block]
+        cand_i = cand_d[i0:i0 + block]
         ge = ((hi_i[:, None, :] >= hi[None, :, :]).all(-1)
               & (lo_i[:, None, :] <= lo[None, :, :]).all(-1))
         gt = ((hi_i[:, None, :] > hi[None, :, :]).any(-1)
               | (lo_i[:, None, :] < lo[None, :, :]).any(-1))
         dominated |= (ge & gt & cand_i[:, None] & cand[None, :]).any(dim=0)
-    return cand & ~dominated
+    return dominated
 
 
 def as_batch(points_or_batch, device="cuda") -> DesignBatch:
@@ -286,15 +322,18 @@ def _legacy_points(points_or_batch):
 
 
 def pareto_front(points_or_batch, require_feasible: bool = True,
-                 extra_maximize=(), extra_minimize=(), device="cuda"):
+                 extra_maximize=(), extra_minimize=(), sharding=None,
+                 device="cuda"):
     """Non-dominated set.  `DesignBatch` in -> filtered `DesignBatch` out;
     legacy `list[DesignPoint]` in -> list out (order preserved), bridged
-    through `as_batch` onto `device`."""
+    through `as_batch` onto `device`.  Extra (B,) objective columns and
+    `sharding` (the dominance test over a mesh) pass through to
+    `pareto_mask`."""
     points = _legacy_points(points_or_batch)
     batch = as_batch(points_or_batch if points is None else points, device)
     mask = pareto_mask(batch, require_feasible,
                        extra_maximize=extra_maximize,
-                       extra_minimize=extra_minimize)
+                       extra_minimize=extra_minimize, sharding=sharding)
     if points is None:
         return batch.select(mask)
     return [p for p, m in zip(points, mask.tolist()) if m]

@@ -215,6 +215,44 @@ class SpaceView:
             return self.corners[name]
         return default
 
+    def pad_to(self, total: int) -> "SpaceView":
+        """Append inactive rows (valid=False) up to `total` — the view
+        counterpart of `transient._pad_operands`, so a padded dispatch
+        slab scores padding rows with benign finite inputs (tech/scheme 0,
+        layers 1.0, corners 0.0) and drops them on the slice back."""
+        pad = total - len(self)
+        if pad < 0:
+            raise ValueError(f"pad_to({total}) smaller than view ({len(self)})")
+        if pad == 0:
+            return self
+
+        def pad1(x, v):
+            return torch.cat([x, x.new_full((pad,), v)])
+
+        return replace(
+            self,
+            tech_idx=pad1(self.tech_idx, 0), scheme_idx=pad1(self.scheme_idx, 0),
+            layers=pad1(self.layers, 1.0), valid=pad1(self.valid, False),
+            corners={k: pad1(v, 0.0) for k, v in self.corners.items()})
+
+    def slice_rows(self, lo: int, hi: int) -> "SpaceView":
+        """Contiguous row slab [lo, hi) — the elastic re-slabbing unit."""
+        return replace(
+            self,
+            tech_idx=self.tech_idx[lo:hi], scheme_idx=self.scheme_idx[lo:hi],
+            layers=self.layers[lo:hi], valid=self.valid[lo:hi],
+            corners={k: v[lo:hi] for k, v in self.corners.items()})
+
+    def to(self, device) -> "SpaceView":
+        """The same view with every per-point tensor on `device` (a mesh
+        slot's card)."""
+        return replace(
+            self,
+            tech_idx=self.tech_idx.to(device),
+            scheme_idx=self.scheme_idx.to(device),
+            layers=self.layers.to(device), valid=self.valid.to(device),
+            corners={k: v.to(device) for k, v in self.corners.items()})
+
 
 def _gradient_basis(positions: np.ndarray, corr_length: np.ndarray,
                     n_factors: int = MC_GRADIENT_FACTORS) -> np.ndarray:

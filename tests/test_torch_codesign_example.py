@@ -105,8 +105,32 @@ def test_twin_options(example, capsys):
 
 
 def test_twin_sharded_is_not_ported(example):
-    with pytest.raises(NotImplementedError, match="multi-GPU fabric"):
-        example.main(["--sharded", "--device", "cpu"])
+    """`--sharded` is ported now: left at the default device it refuses to
+    run without a GPU, like every entry point, instead of raising
+    NotImplementedError."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is usable")
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        example.main(["--sharded"])
+
+
+def test_twin_sharded_prints_the_unsharded_report(example, full_run):
+    """`--sharded --device cpu` (every CPU slot: one) prints the unsharded
+    run's report — the 73 points, the front and the selected design —
+    after its line naming the mesh."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = example.codesign(example.parse_args(["--sharded", "--device",
+                                                   "cpu"]))
+    first, rest = buf.getvalue().split("\n", 1)
+    assert first == "sharding the sweep over 1 cpu slot(s)"
+    assert rest == full_run[1]
+    assert rows(out["batch"]) == rows(full_run[0]["batch"])
+    assert rows(out["front"]) == rows(full_run[0]["front"])
+    assert "73 design points" in rest and SELECTED in rest
 
 
 def test_twin_refuses_without_a_gpu(example):

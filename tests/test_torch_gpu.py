@@ -585,3 +585,62 @@ def test_service_dispatcher_thread_on_card(cuda):
         assert not any(t.is_alive() for t in threads)
     assert errors == []
     assert all(_batches_identical(out[i], golden[i % 3]) for i in range(6))
+
+
+# --------------------------------------------------------------------------
+# The sweep fabric on the card (launch.shard, launch.elastic)
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("slots", [1, 4])
+def test_sharded_sweep_on_card_one_launch_a_slot(cuda, slots):
+    """The Monte-Carlo paper grid over a mesh of `slots` slots on the card:
+    one row-cycle launch a slot, the batch bit-identical (int32 views) to
+    the direct sweep."""
+    from repro_torch.launch import shard
+    from repro_torch.launch.mesh import make_sweep_mesh, make_test_mesh
+
+    mesh = (make_sweep_mesh(1, device=cuda) if slots == 1 else
+            make_test_mesh((slots,), ("batch",), device=cuda))
+    space = DesignSpace.paper_grid().with_mc(samples=512, key=0)
+    want = dse.sweep(space, device=cuda)
+    torch.cuda.synchronize()
+    before = row_cycle.row_cycle_fused_cuda.launches
+    got = dse.sweep(space, sharding=mesh, device=cuda)
+    torch.cuda.synchronize()
+    assert row_cycle.row_cycle_fused_cuda.launches == before + slots
+    assert shard.batch_mismatches(got, want) == []
+
+
+def test_sharded_pareto_on_card_equals_sequential(cuda):
+    from repro_torch.launch.mesh import make_test_mesh
+
+    batch = dse.sweep(DesignSpace.paper_grid().with_mc(samples=64, key=1),
+                      device=cuda)
+    for slots, block in ((1, 4096), (4, 4096), (3, 97)):
+        mesh = make_test_mesh((slots,), ("batch",), device=cuda)
+        assert torch.equal(dse.pareto_mask(batch, sharding=mesh, block=block),
+                           dse.pareto_mask(batch, block=block))
+
+
+def test_elastic_host_drop_on_card(cuda):
+    """Eight slots on the card, host3 dropped after slab 1: one restart,
+    8 -> 7 slots, a quarter of the points redone, the batch bit-identical
+    to the direct sweep; every slab run is one launch a slot."""
+    from repro_torch.launch import elastic, shard
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.runtime.fault import FailureInjector
+
+    space = DesignSpace.paper_grid().with_mc(samples=64, key=0)
+    want = dse.sweep(space, device=cuda)
+    torch.cuda.synchronize()
+    before = row_cycle.row_cycle_fused_cuda.launches
+    batch, rep = elastic.elastic_sweep(
+        space, make_test_mesh((8,), ("batch",), device=cuda), device=cuda,
+        injector=FailureInjector(schedule={1: "drop:host3"}))
+    torch.cuda.synchronize()
+    assert shard.batch_mismatches(batch, want) == []
+    assert (rep.restarts, rep.dropped_hosts) == (1, ["host3"])
+    assert rep.device_history == [8, 8, 7, 7, 7]
+    assert rep.resume_overhead_frac == pytest.approx(0.25)
+    assert (row_cycle.row_cycle_fused_cuda.launches - before
+            == sum(rep.device_history))

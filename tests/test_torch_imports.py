@@ -23,7 +23,8 @@ from repro_torch.core.batch import DesignBatch  # noqa: E402
 from repro_torch.memory.strap_cache import (StrapCacheConfig,  # noqa: E402
                                             StrapKVCache)
 from repro_torch.models import registry as models  # noqa: E402
-from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch import (elastic, mesh, multiproc,  # noqa: E402
+                                serve, shard)
 from repro_torch.serving.dse_service import DSEService  # noqa: E402
 from repro_torch.serving.engine import ServeEngine  # noqa: E402
 
@@ -31,6 +32,21 @@ REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "src" / "repro_torch"
 PORT_FILES = sorted(PORT.rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "examples" / "dram_codesign_torch.py"]
+
+
+FABRIC_FILES = ("runtime/fault.py", "launch/mesh.py", "launch/shard.py",
+                "launch/elastic.py", "launch/multiproc.py")
+
+
+def test_fabric_modules_are_scanned():
+    """The multi-GPU fabric's modules are among the files the AST scan
+    below reads (and the import test loads)."""
+    scanned = {p.relative_to(PORT).as_posix() for p in PORT_FILES
+               if PORT in p.parents}
+    assert set(FABRIC_FILES) <= scanned
+    assert {"repro_torch.runtime.fault", "repro_torch.launch.mesh",
+            "repro_torch.launch.shard", "repro_torch.launch.elastic",
+            "repro_torch.launch.multiproc"} <= set(_module_names())
 
 
 def _module_names():
@@ -156,6 +172,17 @@ ENTRY_POINTS = {
         device_models.SI_ACCESS, 2.0, 0.55),
     "device_models.subthreshold_swing_mv_dec": lambda: (
         device_models.subthreshold_swing_mv_dec(device_models.SI_ACCESS)),
+    "mesh.make_sweep_mesh": lambda: mesh.make_sweep_mesh(),
+    "mesh.make_test_mesh": lambda: mesh.make_test_mesh(),
+    "mesh.make_local_mesh": lambda: mesh.make_local_mesh(),
+    "shard.sweep_sharding": lambda: shard.sweep_sharding(),
+    "shard.sharded_sweep": lambda: shard.sharded_sweep(
+        space.DesignSpace.paper_targets()),
+    "shard.main(--smoke)": lambda: shard.main(["--smoke"]),
+    "elastic.elastic_sweep": lambda: elastic.elastic_sweep(
+        space.DesignSpace.paper_targets()),
+    "multiproc.run_smoke": lambda: multiproc.run_smoke(),
+    "multiproc.main(--smoke)": lambda: multiproc.main(["--smoke"]),
 }
 
 

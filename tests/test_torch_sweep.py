@@ -243,7 +243,9 @@ def test_simulate_row_cycle_many_matches_single_calls():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    # sharding= is ported (tests/test_torch_shard.py); what is not a mesh
+    # is refused
+    with pytest.raises(TypeError, match="SweepMesh or SweepSharding"):
         dse.sweep(space.DesignSpace.paper_targets(), sharding=object(),
                   device="cpu")
     with pytest.raises(TypeError, match="int seed"):
