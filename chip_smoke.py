@@ -79,15 +79,39 @@ Phases (any failure exits non-zero and prints no result line):
    fault pile-up (restarts 4, 8 -> 6); an NCCL group of one rank; two
    gloo processes sharing the card (`launch.multiproc --smoke`); the shard
    CLI's smoke and the example twin's `--smoke --sharded`;
-17. one JSON line listing the ported kernels (row_cycle at the sweep's
+17. Pixtral-12B at full width and depth (VLM, 40 layers, GQA 32/8 heads
+   of 128, bf16, seeded weights): 8 requests of 2048-token prompts, 16
+   new tokens, through `ServeEngine.generate` with the dense, strap-exact
+   and strap-gated (top 4) backends, every strap_attend call (group 4)
+   held against the plain version; a direct prefill with stub vision
+   embeddings and a decode step against the prefill of one more token
+   (the reference's 2e-2 relative bar); the gated HLO decode
+   (`strap_decode`, 256-token straps, top 4 of 16 over a 4096-token
+   cache) and, with every strap selected, against the dense step (bf16
+   bar); strap_attend at this decode shape timed against its bound and
+   SDPA;
+18. Phi-3.5-MoE at full width, 16 of its 32 layers (16 experts top 2):
+   `generate` on the dense backend; layer 0's `moe_apply` at the
+   prefill's tokens in float32 against the per-pair loop, its dropped
+   pairs counted; the MoE layer timed; the strap backend's refusal;
+19. Arctic-480B at full width, one of its 35 layers (128 experts and the
+   dense residual): one prefill and one decode step, and the same
+   per-pair check;
+20. OLMo-1B in full (MHA, non-parametric LN): dense and strap-exact
+   engines (strap_attend at group 1, every call held against the plain
+   version), strap exact teacher-forced with the dense greedy tokens;
+   strap_attend at this shape timed;
+21. one JSON line listing the ported kernels (row_cycle at the sweep's
    one launch over 299,008 rows and at one 2048-row chunk, with the
    cycles of a step; rc_multistep at the phased path's ACT call, with
    cycles a step, its block as the library reports it and, in its
    `bound_work`, the chain model beside the byte bound;
    strap_attend at the full-width path's last exact-mode and gated
-   steps, on 1 to 8 rows, and SDPA on the same tokens; row_cycle's
-   `launches_by_path` counts each path's launches, read around it), then
-   the card line, then the result line {"ok": true, "device": {...}}.
+   steps, on 1 to 8 rows, and SDPA on the same tokens, with
+   `launches_by_path` (each served path's launches) and `by_shape` (the
+   Pixtral and OLMo decode shapes); row_cycle's `launches_by_path` counts
+   each path's launches, read around it), then the card line, then the
+   result line {"ok": true, "device": {...}}.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -97,6 +121,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -104,6 +129,7 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from contextlib import contextmanager
 from pathlib import Path
+from typing import NamedTuple
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
@@ -137,7 +163,6 @@ STRAP_BRANCH_SHAPES = STRAP_SHAPES[-2:]
 STRAP_UNALIGNED_SHAPE = (3, 8, 16, 2, 200, 12, 2)
 LM_ARCH = "qwen2-1.5b"
 LM_B, LM_PROMPT, LM_NEW = 8, 2048, 32
-LM_MAX = LM_PROMPT + LM_NEW + 16  # examples/serve_lm.py's PROMPT + NEW + 16
 LM_BACKENDS = (("dense", "dense", 0), ("strap_exact", "strap", 0),
                ("strap_gated_top4", "strap", 4))
 
@@ -624,7 +649,7 @@ def sdpa_library(calls, outs) -> dict:
 
 
 def strap_line(kernel, ops_mod, backend_calls, launches, max_err,
-               registers) -> dict:
+               registers, launches_by_path, by_shape) -> dict:
     """The kernels-line entry of strap_attend, timed at the full-width
     path's last exact-mode decode step: its calls for all layers in turn
     (28 distinct caches, 0.5 GB, so L2 holds none of them between
@@ -633,73 +658,70 @@ def strap_line(kernel, ops_mod, backend_calls, launches, max_err,
     kernel is also timed on the first 1, 2, 4 and 8 rows of the batch
     (36 to 288 split blocks) and at the gated engine's last step.  Times
     are the device time of the kernels (torch.profiler), beside CUDA
-    events around the calls, which on a slow host measure the host."""
+    events around the calls, which on a slow host measure the host.
+    `launches_by_path` counts each served path's launches (read around
+    its `generate`); `by_shape` times the other families' decode shapes
+    (`strap_shape_timing`)."""
     from repro_torch.kernels import strap_gather
-    from repro_torch.kernels.bench import (cuda_ms, device_ms,
-                                           device_ms_by_kernel)
+    from repro_torch.kernels.bench import cuda_ms, device_ms
 
     layer_calls = backend_calls["strap_exact"]
+    timing, library = strap_shape_timing(kernel, ops_mod, layer_calls)
     calls = [(a, kw) for a, kw, _ in layer_calls]
     n = len(calls)
 
     def each(fn):
         return lambda: [fn(a, kw) for a, kw in calls]
 
-    run_kernel = each(lambda a, kw: kernel(*a, lengths=kw["lengths"]))
-    run_plain = each(lambda a, kw: ops_mod.strap_attend(
-        *a, **{**kw, "backend": "ref"}))
-    ms_events = cuda_ms(run_kernel, 5)[0] / n
-    ms_by_kernel = device_ms_by_kernel(run_kernel, n)
-    ms = sum(ms_by_kernel.values())
-    plain_events = cuda_ms(run_plain, 2)[0] / n
-    plain_ms = device_ms(run_plain, n)
+    ms_events = cuda_ms(each(lambda a, kw: kernel(
+        *a, lengths=kw["lengths"])), 5)[0] / n
+    plain_events = cuda_ms(each(lambda a, kw: ops_mod.strap_attend(
+        *a, **{**kw, "backend": "ref"})), 2)[0] / n
     by_rows = {}
     for r in (1, 2, 4, 8):
         sub = [((a[0][:r], a[1][:r], a[2][:r], a[3][:r], a[4]),
                 kw["lengths"][:r]) for a, kw in calls]
         by_rows[str(r)] = device_ms(lambda sub=sub: [
             kernel(*a, lengths=ln) for a, ln in sub], n)
-    library = sdpa_library(calls, [out for _, _, out in layer_calls])
-    agreeing = {k: v for k, v in library.items()
-                if v.get("runs") and v.get("within_bf16_bar")}
-    check(bool(agreeing), f"no SDPA backend computes strap_attend's "
-          f"function within the bf16 bar: {library}")
-    best = min(agreeing, key=lambda k: agreeing[k]["ms"])
+    best = library[timing["library_call"]]
     gated = [(a, kw) for a, kw, _ in backend_calls["strap_gated_top4"]]
     gated_ms = device_ms(lambda: [kernel(*a, lengths=kw["lengths"])
                                   for a, kw in gated], len(gated))
     ga, gkw = gated[-1]
     gated_bound = strap_bound_ms(ga[0], ga[1], ga[3], ga[4], gkw["lengths"])
-    a, kw = calls[-1]
-    b_ms, b_by, work = strap_bound_ms(a[0], a[1], a[3], a[4], kw["lengths"])
+    a = calls[-1][0]
     plan = strap_gather.split_plan(a[1].shape, a[4], a[3].shape[1])
     return {"name": "strap_attend", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/strap_attend.cu",
             "replaces": "src/repro/kernels/strap_gather.py:101",
-            "launches": launches, "max_abs_err": max_err,
+            "launches": launches, "launches_by_path": launches_by_path,
+            "max_abs_err": max_err,
             "max_abs_err_unit": "attention output (bf16 on the path)",
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": agreeing[best]["ms"],
+            "ms": timing["ms"], "plain_ms": timing["plain_ms"],
+            "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
+            "library_ms": timing["library_ms"],
             "timing": "ms, plain_ms, library_ms, ms_by_rows, gated_top4_ms: "
-                      "device time of the call's kernels (torch.profiler); "
+                      "device time of the call's kernels (torch.profiler), "
+                      "library_ms by CUDA events where the profiler reads "
+                      "it below bound_ms (library_ms_from); "
                       "*_events: CUDA events around the calls, which also "
                       "count the card's idle time while the host enqueues",
             "ms_events": ms_events, "plain_ms_events": plain_events,
-            "library_ms_events": agreeing[best]["ms_events"],
-            "ms_by_kernel": {k[:80]: v for k, v in ms_by_kernel.items()},
+            "library_ms_from": timing["library_ms_from"],
+            "library_ms_events": timing["library_ms_events"],
+            "ms_by_kernel": timing["ms_by_kernel"],
             "library_call": "F.scaled_dot_product_attention on the gathered "
-                            f"selected tokens, {best}",
-            "library_max_abs_err": agreeing[best]["max_abs_err"],
+                            f"selected tokens, {timing['library_call']}",
+            "library_max_abs_err": best["max_abs_err"],
             "library_by_backend": library, "ms_by_rows": by_rows,
-            "device_kernels_per_call": len(ms_by_kernel),
+            "device_kernels_per_call": len(timing["ms_by_kernel"]),
             "split_plan": plan._asdict(),
             "gated_top4_ms": gated_ms, "gated_top4_bound_ms": gated_bound[0],
             "gated_top4_work": gated_bound[2],
             "registers": {k: v for k, v in registers.items()
                           if "strap_" in k},
-            "shape": {"q": list(a[0].shape), "pages": list(a[1].shape),
-                      "strap_ids": list(a[3].shape)},
-            "bound_work": work, "timed_calls": n}
+            "shape": timing["shape"], "bound_work": timing["bound_work"],
+            "timed_calls": n, "by_shape": by_shape}
 
 
 def strap_kernel_phase(ops_mod, rng, dev) -> tuple[dict, float]:
@@ -772,13 +794,64 @@ def smoke_engine_phase(dev) -> dict:
     return {"tokens": out["dense"].tolist(), "launches": launches}
 
 
-def serve_phase(args, ops_mod, strap_kernel, dev) -> tuple[dict, dict]:
-    """The LM server at full width: `ServeEngine.generate` with each
-    backend (the main path, launches counted), every strap_attend call of
-    it held against the plain version, a timed true-greedy decode
-    (`step()` with no token), the strap engines teacher-forced with the
-    dense engine's tokens, and one decode step under the profiler.
-    Returns the record and each strap backend's calls of the last step."""
+def set_precision() -> dict:
+    """TF32 and reduced-precision bf16 reductions off (a top-k choice of
+    the MoE router or the strap selector must not flip); returns the
+    settings as read back."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    return {
+        "matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+        "cudnn.allow_tf32": torch.backends.cudnn.allow_tf32,
+        "matmul.allow_bf16_reduced_precision_reduction":
+            torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}
+
+
+def param_tensors(params) -> list:
+    """Every tensor of a parameter tree."""
+    if isinstance(params, dict):
+        return [t for v in params.values() for t in param_tensors(v)]
+    return [params]
+
+
+def init_reckoning(cfg) -> dict:
+    """What the seeded init must hold at its peak, reckoned from the
+    schema before the draw: the bf16 params, and the float32 draw of the
+    largest stacked tensor with its bf16 cast (`init_from_schema` draws a
+    leaf in float32, then casts)."""
+    from repro_torch.models import registry as models
+    from repro_torch.models.common import schema_leaves
+
+    sizes = [math.prod(spec.shape) for _, spec in
+             schema_leaves(models.schema(cfg))]
+    return {"n_params": sum(sizes), "param_gb": 2 * sum(sizes) / 1e9,
+            "largest_leaf_float32_gb": 4 * max(sizes) / 1e9}
+
+
+class ServeSpec(NamedTuple):
+    """One LM-server workload: the config, batch, prompt and new tokens,
+    the backends (label, cache backend, top straps) and a depth cut."""
+    arch: str
+    batch: int
+    prompt: int
+    new: int
+    backends: tuple
+    n_layers: int | None = None        # None: the config's own depth
+
+
+def serve_phase(args, ops_mod, strap_kernel, dev, spec=None,
+                extra=None) -> tuple[dict, dict]:
+    """The LM server at full width (`spec`, Qwen2-1.5B by default):
+    `ServeEngine.generate` with each backend (the main path, launches
+    counted), every strap_attend call of it held against the plain
+    version, a timed true-greedy decode (`step()` with no token), the
+    strap engines teacher-forced with the dense engine's tokens, and one
+    decode step under the profiler; then `extra(cfg, params, prompts)`,
+    whose record joins this one, before the params are freed.  Returns
+    the record and each strap backend's calls of the last step."""
     import numpy as np
     import torch
 
@@ -789,16 +862,14 @@ def serve_phase(args, ops_mod, strap_kernel, dev) -> tuple[dict, dict]:
     from repro_torch.models.common import lm_logits
     from repro_torch.serving.engine import ServeEngine
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
-    precision = {
-        "matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32,
-        "cudnn.allow_tf32": torch.backends.cudnn.allow_tf32,
-        "matmul.allow_bf16_reduced_precision_reduction":
-            torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}
+    spec = spec or ServeSpec(LM_ARCH, LM_B, LM_PROMPT, LM_NEW, LM_BACKENDS)
+    precision = set_precision()
     log(f"[serve] precision: {json.dumps(precision)}")
-    cfg = get_arch(LM_ARCH)
+    cfg = full = get_arch(spec.arch)
+    if spec.n_layers is not None:
+        cfg = dataclasses.replace(full, n_layers=spec.n_layers)
+    reckoned = init_reckoning(cfg)
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -806,25 +877,33 @@ def serve_phase(args, ops_mod, strap_kernel, dev) -> tuple[dict, dict]:
         cfg, torch.Generator(device=dev).manual_seed(args.seed), device=dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    leaves = [params["embed"], params["final_w"],
-              *params["layers"].values()]
+    init_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    leaves = param_tensors(params)
     n_params = sum(t.numel() for t in leaves)
     param_bytes = sum(t.numel() * t.element_size() for t in leaves)
     check(params["embed"].dtype == torch.bfloat16, "params are not bf16")
     log(f"[serve] {cfg.name}: {n_params:,} params ({param_bytes / 1e9:.3f} "
         f"GB bf16) initialised on the card in {init_s:.2f} s")
+    check(n_params == reckoned["n_params"],
+          f"{cfg.name}: {n_params} params, the schema {reckoned['n_params']}")
+    # max_tokens as examples/serve_lm.py sets it: PROMPT + NEW + 16
+    b, new, max_tokens = spec.batch, spec.new, spec.prompt + spec.new + 16
     prompts = np.random.default_rng(args.seed).integers(
-        0, cfg.vocab_size, (LM_B, LM_PROMPT)).astype(np.int32)
+        0, cfg.vocab_size, (b, spec.prompt)).astype(np.int32)
     record = {"arch": cfg.name, "precision": precision, "init_s": init_s,
               "n_params": n_params, "param_bytes": param_bytes,
-              "batch": LM_B, "prompt": LM_PROMPT, "new_tokens": LM_NEW,
-              "max_tokens": LM_MAX, "backends": {}}
+              "reckoned_init": reckoned, "init_peak_gb": init_peak_gb,
+              "batch": b, "prompt": spec.prompt, "new_tokens": new,
+              "max_tokens": max_tokens, "backends": {}}
+    if spec.n_layers is not None:
+        record["reduced"] = {"n_layers": [full.n_layers, cfg.n_layers],
+                             "n_params_full": full.param_count()}
     sync = torch.cuda.synchronize
     dense_tokens = dense_logits = None
     line_calls = {}
     worst = 0.0
-    for label, backend, top in LM_BACKENDS:
-        eng = ServeEngine(cfg, params, max_tokens=LM_MAX,
+    for label, backend, top in spec.backends:
+        eng = ServeEngine(cfg, params, max_tokens=max_tokens,
                           cache_backend=backend,
                           strap_cfg=StrapCacheConfig(top_straps=top),
                           device=dev)
@@ -833,19 +912,19 @@ def serve_phase(args, ops_mod, strap_kernel, dev) -> tuple[dict, dict]:
         with recording(ops_mod, "strap_attend", outputs=True) as calls:
             sync()
             t0 = time.perf_counter()
-            out = eng.generate(prompts, LM_NEW)
+            out = eng.generate(prompts, new)
             sync()
             gen_s = time.perf_counter() - t0
         launches = strap_kernel.launches
-        want = cfg.n_layers * LM_NEW if backend == "strap" else 0
+        want = cfg.n_layers * new if backend == "strap" else 0
         check(launches == want == len(calls),
               f"{label}: {launches} strap_attend launches, {len(calls)} "
               f"calls, expected {want}")
-        check(tuple(out.shape) == (LM_B, LM_NEW) and int(out.min()) >= 0
+        check(tuple(out.shape) == (b, new) and int(out.min()) >= 0
               and int(out.max()) < cfg.vocab_size, f"{label}: tokens {out}")
         stats = dataclasses.asdict(eng.stats)
         stats["traffic_reduction"] = eng.stats.traffic_reduction
-        check(stats["tokens_decoded"] == LM_B * LM_NEW, f"{label}: {stats}")
+        check(stats["tokens_decoded"] == b * new, f"{label}: {stats}")
         cmps = [strap_compare(ops_mod, a, kw, o, STRAP_BF16_TOL)
                 for a, kw, o in calls]
         call_err = max((c["max_abs_err"] for c in cmps), default=0.0)
@@ -864,7 +943,7 @@ def serve_phase(args, ops_mod, strap_kernel, dev) -> tuple[dict, dict]:
         sync()
         prefill_s = time.perf_counter() - t0
         steps, toks, logits = [], [], []
-        for _ in range(LM_NEW):
+        for _ in range(new):
             t0 = time.perf_counter()
             tok, lg = eng.step()
             sync()
@@ -880,8 +959,8 @@ def serve_phase(args, ops_mod, strap_kernel, dev) -> tuple[dict, dict]:
                else None, "plain_output_scale": plain_scale if
                backend == "strap" else None, "prefill_s": prefill_s,
                "decode_step_ms_median": step_ms, "decode_step_ms": steps,
-               "decode_tokens_per_s": LM_B / (step_ms / 1e3),
-               "generate_tokens_per_s": LM_B * LM_NEW / gen_s,
+               "decode_tokens_per_s": b / (step_ms / 1e3),
+               "generate_tokens_per_s": b * new / gen_s,
                "generate_tokens": out[:, 0].tolist()}
         # one decode step under the profiler (two more steps of room)
         res["profile"] = profile(lambda: eng.step())
@@ -890,7 +969,7 @@ def serve_phase(args, ops_mod, strap_kernel, dev) -> tuple[dict, dict]:
         else:
             eng.prefill(prompts)
             d_max, agree = [], []
-            for i in range(LM_NEW):
+            for i in range(new):
                 _, lg = eng.step(dense_tokens[:, i:i + 1])
                 d_max.append((lg - dense_logits[i]).abs().max().item())
                 agree.append((lg.argmax(-1) == dense_logits[i].argmax(-1))
@@ -902,20 +981,352 @@ def serve_phase(args, ops_mod, strap_kernel, dev) -> tuple[dict, dict]:
             res["free_greedy_agreement_vs_dense"] = (
                 toks == dense_tokens).float().mean().item()
         record["backends"][label] = res
-        log(f"[serve] {label}: " + json.dumps(
+        log(f"[serve] {cfg.name} {label}: " + json.dumps(
             {k: v for k, v in res.items() if k not in ("decode_step_ms",)}))
         del eng
     # what lm_logits' float32 cast of the tied table costs a step
-    h = torch.zeros(LM_B, 1, cfg.d_model, dtype=torch.bfloat16, device=dev)
+    h = torch.zeros(b, 1, cfg.d_model, dtype=torch.bfloat16, device=dev)
     record["lm_logits_ms"] = cuda_ms(lambda: lm_logits(cfg, params, h), 10)[0]
     record["embed_cast_ms"] = cuda_ms(lambda: params["embed"].float(), 10)[0]
-    record["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
     record["max_abs_err_vs_plain"] = worst
+    if extra is not None:
+        record.update(extra(cfg, params, prompts))
+    record["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
     log(f"[serve] lm_logits {record['lm_logits_ms']:.3f} ms a step, of which "
         f"the float32 cast of the table {record['embed_cast_ms']:.3f} ms; "
         f"peak memory {record['peak_memory_gb']:.2f} GB")
-    del params
+    del params, leaves
+    torch.cuda.empty_cache()
     return record, line_calls
+
+
+# --------------------------------------------------------------------------
+# the other attention families: VLM, MoE, MHA, and the gated HLO decode
+# --------------------------------------------------------------------------
+
+PIXTRAL_SPEC = ServeSpec("pixtral-12b", 8, 2048, 16, LM_BACKENDS)
+PHI_SPEC = ServeSpec("phi3.5-moe-42b-a6.6b", 4, 512, 16,
+                     (("dense", "dense", 0),), n_layers=16)
+OLMO_SPEC = ServeSpec("olmo-1b", 8, 2048, 16,
+                      (("dense", "dense", 0), ("strap_exact", "strap", 0)))
+ARCTIC_ARCH, ARCTIC_B, ARCTIC_PROMPT = "arctic-480b", 2, 256
+VLM_B, VLM_TEXT = 2, 1024            # direct prefill + decode, Pixtral
+GATED_STRAP, GATED_CACHE = 256, 4096  # 16 straps of 256 tokens
+GATED_TOP = 4
+VLM_REL_BAR = 2e-2      # tests/test_models.py: decode vs forward, relative
+BF16_BAR = 3e-2         # tests/test_torch_lm.py: the port's bf16 bar
+F32_BAR = 2e-5          # tests/test_torch_lm.py's TOL
+
+
+def strap_shape_timing(kernel, ops_mod, layer_calls) -> tuple[dict, dict]:
+    """strap_attend at one decode step of a full-width path (`layer_calls`:
+    its calls for every layer, with outputs, each layer's cache distinct
+    so L2 holds none between launches, as on the path): the kernel's and
+    the plain version's device time a call (torch.profiler), which must
+    not lie below the bound, the bound, and the fastest SDPA backend and
+    operand form that agrees at the bf16 bar, by its device time or, where
+    the profiler reads that below the bound, by CUDA events around the
+    calls.  Returns the summary and SDPA's results by form and backend."""
+    from repro_torch.kernels.bench import device_ms, device_ms_by_kernel
+
+    calls = [(a, kw) for a, kw, _ in layer_calls]
+    n = len(calls)
+    ms_by_kernel = device_ms_by_kernel(lambda: [
+        kernel(*a, lengths=kw["lengths"]) for a, kw in calls], n)
+    plain_ms = device_ms(lambda: [ops_mod.strap_attend(
+        *a, **{**kw, "backend": "ref"}) for a, kw in calls], n)
+    a, kw = calls[-1]
+    b_ms, b_by, work = strap_bound_ms(a[0], a[1], a[3], a[4], kw["lengths"])
+    ms = sum(ms_by_kernel.values())
+    check(ms >= b_ms and plain_ms >= b_ms,
+          f"strap_attend's device time {ms} ms (plain {plain_ms} ms) lies "
+          f"below its bound {b_ms} ms: the profiler missed work")
+    library = sdpa_library(calls, [out for _, _, out in layer_calls])
+    for v in library.values():
+        if not v.get("runs"):
+            continue
+        v["ms_from"] = "device"
+        if v["ms"] < b_ms:
+            # a reading below the least time the bytes take: the profiler
+            # missed part of the call's work (seen for cuDNN), so the time
+            # is the CUDA events' around the calls
+            v["ms_profiler"], v["ms"] = v["ms"], v["ms_events"]
+            v["ms_from"] = "events, the profiler's reading is below the bound"
+    agreeing = {k: v for k, v in library.items()
+                if v.get("runs") and v.get("within_bf16_bar")}
+    check(bool(agreeing), f"no SDPA backend computes strap_attend's "
+          f"function within the bf16 bar: {library}")
+    best = min(agreeing, key=lambda k: agreeing[k]["ms"])
+    hkv = a[1].shape[3]
+    return {"ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": agreeing[best]["ms"], "library_call": best,
+            "library_ms_from": agreeing[best]["ms_from"],
+            "library_ms_events": agreeing[best]["ms_events"],
+            "ms_by_kernel": {k[:80]: v for k, v in ms_by_kernel.items()},
+            "launches_a_step": n, "group": a[0].shape[1] // hkv,
+            "kv_heads": hkv,
+            "shape": {"q": list(a[0].shape), "pages": list(a[1].shape),
+                      "strap_ids": list(a[3].shape)},
+            "bound_work": work}, library
+
+
+def moe_layer_input(cfg, params, tokens):
+    """Layer 0's MoE input at `tokens`: the prefill's own activations up to
+    the block's second norm."""
+    from repro_torch.models.attention import causal_attention
+    from repro_torch.models.common import apply_norm, embed_tokens, torch_dtype
+    from repro_torch.models.lm import layer_params
+
+    lp = layer_params(params, 0)
+    h = embed_tokens(params, tokens, torch_dtype(cfg.compute_dtype))
+    h = h + causal_attention(cfg, lp, apply_norm(cfg, h, lp, "ln1"))[0]
+    return apply_norm(cfg, h, lp, "ln2")
+
+
+def moe_vs_pairs(cfg, lp32, x32) -> dict:
+    """`moe_apply` in float32 on the card against the plain per-pair
+    version, at rtol = atol = 2e-5; the pairs dropped."""
+    import torch
+
+    from repro_torch.models import moe
+
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
+    y, aux = moe.moe_apply(cfg, lp32, x32)
+    want, info = moe.moe_apply_pairs(cfg, lp32, x32)
+    err = (y - want).abs()
+    res = {"max_abs_err": err.max().item(),
+           "out_abs_max": want.abs().max().item(), "aux": aux.item(),
+           "tokens": x32.shape[0] * x32.shape[1], "experts": cfg.n_experts,
+           **info}
+    check(bool(torch.isfinite(y).all().item()), f"{cfg.name}: MoE not finite")
+    check(bool((err <= F32_BAR + F32_BAR * want.abs()).all().item()),
+          f"{cfg.name}: moe_apply outside 2e-5 of the per-pair loop {res}")
+    return res
+
+
+def vlm_checks(args, dev):
+    """Pixtral-12B beyond the engine (`extra` of its serve phase): a direct
+    prefill with stub vision embeddings and a decode step on the padded
+    dense cache, against the prefill over one more token (the reference's
+    2e-2 relative bar); the gated decode step (256-token straps, top 4 of
+    16) and, with every strap selected, against the dense step at the bf16
+    bar."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import registry as models
+
+    def pad(cache, to):
+        return {k: torch.nn.functional.pad(v, (0, 0, 0, 0, 0,
+                                               to - v.shape[2]))
+                for k, v in cache.items()}
+
+    def run(cfg, params, prompts):
+        rng = np.random.default_rng(args.seed)
+        nv = cfg.n_vision_tokens
+        vision = lambda b: torch.as_tensor(
+            (rng.normal(size=(b, nv, cfg.d_model)) * 0.02).astype(np.float32),
+            device=dev)
+        tok = lambda b, s: torch.as_tensor(
+            rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32),
+            device=dev)
+        out = {}
+        # decode after a vision prefill vs the prefill of one more token
+        emb, toks = vision(VLM_B), tok(VLM_B, VLM_TEXT + 1)
+        sync = torch.cuda.synchronize
+        sync()
+        t0 = time.perf_counter()
+        full, _ = models.prefill(cfg, params, {"tokens": toks,
+                                               "vision_embeds": emb})
+        sync()
+        prefill_s = time.perf_counter() - t0
+        _, cache = models.prefill(cfg, params, {"tokens": toks[:, :-1],
+                                                "vision_embeds": emb})
+        held = nv + VLM_TEXT
+        cache = pad(cache, held + 16)
+        pos = torch.full((VLM_B,), held, dtype=torch.int32, device=dev)
+        step, _ = models.decode_step(cfg, params, cache, toks[:, -1:], pos)
+        rel_err = ((step - full).abs().max() / full.abs().max()).item()
+        check(bool(torch.isfinite(step).all().item())
+              and rel_err < VLM_REL_BAR,
+              f"pixtral decode vs prefill: relative {rel_err}")
+        out["vlm_decode_vs_prefill"] = {
+            "batch": VLM_B, "vision_tokens": nv, "text_tokens": VLM_TEXT,
+            "rel_err": rel_err, "bar": VLM_REL_BAR,
+            "greedy_agree": (step.argmax(-1) == full.argmax(-1)).float()
+            .mean().item(), "prefill_s": prefill_s}
+        log(f"[vlm] decode after a {nv}+{VLM_TEXT}-token vision prefill vs "
+            f"prefill of one more token: relative {rel_err:.3e} "
+            f"(bar {VLM_REL_BAR})")
+        del cache
+        # the gated decode over a 4096-token cache of 16 straps
+        text = GATED_CACHE - nv - GATED_STRAP
+        emb, toks = vision(VLM_B), tok(VLM_B, text + 1)
+        _, cache = models.prefill(cfg, params, {"tokens": toks[:, :-1],
+                                                "vision_embeds": emb})
+        cache = pad(cache, GATED_CACHE)
+        nst = GATED_CACHE // GATED_STRAP
+        ksum = cache["k"].reshape(cfg.n_layers, VLM_B, nst, GATED_STRAP,
+                                  cfg.n_kv_heads, cfg.head_dim_).float().sum(3)
+        held = nv + text
+        pos = torch.full((VLM_B,), held, dtype=torch.int32, device=dev)
+        logits = {}
+        for top in (GATED_TOP, nst):
+            gcfg = dataclasses.replace(cfg, strap_decode=True,
+                                       decode_strap_tokens=GATED_STRAP,
+                                       decode_top_straps=top)
+            c = {"k": cache["k"].clone(), "v": cache["v"].clone(),
+                 "ksum": ksum.clone()}
+            sync()
+            t0 = time.perf_counter()
+            logits[top], c = models.decode_step(gcfg, params, c,
+                                                toks[:, -1:], pos)
+            sync()
+            ms = (time.perf_counter() - t0) * 1e3
+            check(torch.equal(c["k"][:, :, :held], cache["k"][:, :, :held])
+                  and bool((c["k"][:, :, held] != 0).any().item())
+                  and not torch.equal(c["ksum"][:, :, held // GATED_STRAP],
+                                      ksum[:, :, held // GATED_STRAP]),
+                  f"gated top {top}: the cache update is wrong")
+            out[f"gated_top{top}_step_ms"] = ms
+            del c
+        dense, _ = models.decode_step(cfg, params, cache, toks[:, -1:], pos)
+        diff = (logits[nst] - dense).abs()
+        within = bool((diff <= BF16_BAR + BF16_BAR * dense.abs()).all()
+                      .item())
+        sel_rel = ((logits[GATED_TOP] - dense).abs().max()
+                   / dense.abs().max()).item()
+        out["gated"] = {
+            "cache_tokens": GATED_CACHE, "strap_tokens": GATED_STRAP,
+            "straps": nst, "valid_tokens": held + 1, "top": GATED_TOP,
+            "all_straps_vs_dense_max_abs": diff.max().item(),
+            "all_straps_within_bf16_bar": within,
+            "logit_abs_max": dense.abs().max().item(),
+            "top4_vs_dense_rel": sel_rel,
+            "top4_greedy_agree": (logits[GATED_TOP].argmax(-1)
+                                  == dense.argmax(-1)).float().mean().item(),
+            "all_finite": all(bool(torch.isfinite(x).all().item())
+                              for x in logits.values())}
+        check(within and out["gated"]["all_finite"],
+              f"gated decode with every strap vs dense: {out['gated']}")
+        log(f"[vlm] gated decode over {GATED_CACHE} tokens: "
+            + json.dumps(out["gated"]))
+        return out
+
+    return run
+
+
+def moe_checks(dev):
+    """Phi-3.5-MoE beyond the engine (`extra` of its serve phase): layer
+    0's `moe_apply` at the prefill's tokens in float32 against the
+    per-pair loop, the MoE layer timed in bf16 at the prefill's and a
+    decode step's tokens, and the strap backend's refusal."""
+    import torch
+
+    from repro_torch.kernels.bench import cuda_ms
+    from repro_torch.models import moe
+    from repro_torch.models.lm import layer_params
+    from repro_torch.serving.engine import ServeEngine
+
+    def run(cfg, params, prompts):
+        tokens = torch.as_tensor(prompts, device=dev)
+        x = moe_layer_input(cfg, params, tokens)
+        lp = layer_params(params, 0)
+        keys = [k for k in lp if k == "router" or k.startswith(("we_",
+                                                                "res_"))]
+        lp32 = {k: lp[k].float() for k in keys}
+        res = {"moe_vs_pairs": moe_vs_pairs(cfg, lp32, x.float())}
+        del lp32
+        res["moe_ms"] = {
+            "prefill_tokens": x.shape[0] * x.shape[1],
+            "prefill": cuda_ms(lambda: moe.moe_apply(cfg, lp, x), 3, 1)[0],
+            "decode_tokens": x.shape[0],
+            "decode": cuda_ms(lambda: moe.moe_apply(cfg, lp, x[:, -1:]), 10,
+                              2)[0]}
+        try:
+            ServeEngine(cfg, params, cache_backend="strap", device=dev)
+            refusal = None
+        except ValueError as exc:
+            refusal = str(exc)
+        check(refusal is not None, "the strap backend served a MoE config")
+        res["strap_backend_refusal"] = refusal
+        log(f"[moe] {cfg.name}: " + json.dumps(res))
+        return res
+
+    return run
+
+
+def arctic_phase(args, dev) -> dict:
+    """Arctic-480B at full width, one layer of 35 (128 experts top 2 and
+    the dense residual MLP): one prefill and one decode step through the
+    engine, then layer 0's `moe_apply` at the prefill's tokens in float32
+    against the per-pair loop (the bf16 params freed as the expert weights
+    are cast, to fit the card)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import registry as models
+    from repro_torch.serving.engine import ServeEngine
+
+    set_precision()
+    full = get_arch(ARCTIC_ARCH)
+    cfg = dataclasses.replace(full, n_layers=1)
+    reckoned = init_reckoning(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = models.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(args.seed), device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_params = sum(t.numel() for t in param_tensors(params))
+    check(n_params == reckoned["n_params"],
+          f"arctic: {n_params} params, the schema {reckoned['n_params']}")
+    prompts = np.random.default_rng(args.seed).integers(
+        0, cfg.vocab_size, (ARCTIC_B, ARCTIC_PROMPT)).astype(np.int32)
+    eng = ServeEngine(cfg, params, max_tokens=ARCTIC_PROMPT + 16, device=dev)
+    sync = torch.cuda.synchronize
+    sync()
+    t0 = time.perf_counter()
+    logits = eng.prefill(prompts)
+    sync()
+    prefill_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tok, step = eng.step()
+    sync()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    check(tuple(step.shape) == (ARCTIC_B, cfg.padded_vocab)
+          and bool(torch.isfinite(step).all().item())
+          and bool(torch.isfinite(logits).all().item()),
+          "arctic: prefill / decode logits")
+    x32 = moe_layer_input(cfg, params,
+                          torch.as_tensor(prompts, device=dev)).float()
+    del eng, logits, step
+    # the layer's float32 MoE weights, each cast as its bf16 stack goes
+    layers = params.pop("layers")
+    del params
+    lp32 = {}
+    for k in sorted(layers):
+        if k == "router" or k.startswith(("we_", "res_")):
+            lp32[k] = layers.pop(k)[0].float()
+    del layers
+    res = moe_vs_pairs(cfg, lp32, x32)
+    del lp32, x32
+    record = {"arch": cfg.name, "reduced": {"n_layers": [full.n_layers, 1],
+                                            "n_params_full":
+                                                full.param_count()},
+              "n_params": n_params, "reckoned_init": reckoned,
+              "init_s": init_s, "init_peak_gb": init_peak_gb,
+              "batch": ARCTIC_B, "prompt": ARCTIC_PROMPT,
+              "prefill_s": prefill_s, "decode_step_ms": step_ms,
+              "token": tok[:, 0].tolist(), "moe_vs_pairs": res,
+              "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    torch.cuda.empty_cache()
+    log("[arctic] " + json.dumps(record))
+    return record
 
 
 # --------------------------------------------------------------------------
@@ -1912,7 +2323,34 @@ def main(argv=None) -> int:
     # 16. the sweep fabric, against phase 5's batch and mask
     record["fabric"] = fabric_phase(dev, kernel, mc_space, mc_batch, mask)
 
-    # 17. the kernels line: row_cycle at the sized path's one launch over
+    # 17-20. the other attention families at full width: Pixtral-12B (VLM,
+    #    GQA group 4) served through strap_attend, its vision prefill and
+    #    its gated HLO decode; Phi-3.5-MoE (16 of 32 layers) on the dense
+    #    backend; Arctic-480B (one layer, 128 experts); OLMo-1B (MHA, group
+    #    1) strap-exact against dense
+    record["pixtral"], pix_calls = serve_phase(
+        args, ops, strap_kernel, dev, PIXTRAL_SPEC, vlm_checks(args, dev))
+    record["pixtral"]["strap_timing"] = strap_shape_timing(
+        strap_kernel, ops, pix_calls["strap_exact"])[0]
+    del pix_calls
+    record["phi_moe"], _ = serve_phase(args, ops, strap_kernel, dev, PHI_SPEC,
+                                       moe_checks(dev))
+    record["arctic"] = arctic_phase(args, dev)
+    record["olmo"], olmo_calls = serve_phase(args, ops, strap_kernel, dev,
+                                             OLMO_SPEC)
+    record["olmo"]["strap_timing"] = strap_shape_timing(
+        strap_kernel, ops, olmo_calls["strap_exact"])[0]
+    del olmo_calls
+    strap_err = max(strap_err, record["pixtral"]["max_abs_err_vs_plain"],
+                    record["olmo"]["max_abs_err_vs_plain"])
+    strap_paths = {
+        f"{record[key]['arch']}/{label}": res["launches"]
+        for key in ("serve", "pixtral", "phi_moe", "olmo")
+        for label, res in record[key]["backends"].items()}
+    strap_shapes = {record[key]["arch"]: record[key]["strap_timing"]
+                    for key in ("pixtral", "olmo")}
+
+    # 21. the kernels line: row_cycle at the sized path's one launch over
     #    299,008 rows and at one 2048-row chunk; rc_multistep at the phased
     #    path's ACT call; strap_attend at the full-width path's last
     #    exact-mode (and gated) step
@@ -1971,7 +2409,7 @@ def main(argv=None) -> int:
                rc_err, registers),
         strap_line(strap_kernel, ops, strap_calls,
                    record["serve"]["backends"]["strap_exact"]["launches"],
-                   strap_err, registers)]}
+                   strap_err, registers, strap_paths, strap_shapes)]}
     log("[kernels] row_cycle_fused: " + json.dumps(line["kernels"][0]))
     log("[kernels] rc_multistep: " + json.dumps(line["kernels"][1]))
     log("[kernels] strap_attend: " + json.dumps(line["kernels"][2]))

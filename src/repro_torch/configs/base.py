@@ -1,15 +1,19 @@
-"""Architecture config schema and shape cells (port of
-`repro.configs.base`).
+"""Architecture config schema, shape cells and abstract input specs (port
+of `repro.configs.base`).
 
-Every architecture is a frozen `ArchConfig`.  The reference's abstract
-input specs (`input_specs`, for its dry run) are not carried over: the
-dry run is not part of the port.
+Every architecture is a frozen `ArchConfig`.  `input_specs(cfg, cell)`
+gives every model input of a shape cell as a tensor on the `meta` device
+(shape and dtype, no storage): PyTorch's counterpart of the reference's
+`jax.ShapeDtypeStruct`, so no memory is allocated for the full-size
+configs.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+
+import torch
 
 # ---------------------------------------------------------------------------
 # Shape cells (assigned): seq_len x global_batch
@@ -182,3 +186,66 @@ class ArchConfig:
         conv = self.conv_kernel * (di + 2 * ng * st)
         out_proj = di * d
         return in_proj + conv + out_proj + 2 * nh + di + d
+
+
+# ---------------------------------------------------------------------------
+# Abstract input specs per shape cell
+# ---------------------------------------------------------------------------
+
+def _sds(shape, dtype) -> torch.Tensor:
+    if min(shape) < 0:
+        # the reference returns a ShapeDtypeStruct with the negative dim
+        # (a VLM whose vision tokens outnumber the cell's sequence); a
+        # tensor cannot have one
+        raise ValueError(f"input spec of shape {shape}: the cell's sequence "
+                         "is shorter than the config's vision tokens")
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def input_specs(cfg: ArchConfig, cell: str) -> dict:
+    """Meta-tensor stand-ins (shape and dtype) for every model input of
+    the cell; a name outside `SHAPE_CELLS` takes `SMOKE_SHAPE`.
+
+    Modality frontends are stubs: audio (whisper) supplies precomputed frame
+    embeddings; vlm (pixtral) supplies precomputed patch embeddings.
+    """
+    spec = SHAPE_CELLS[cell] if cell in SHAPE_CELLS else SMOKE_SHAPE
+    s, b, kind = spec["seq_len"], spec["global_batch"], spec["kind"]
+    emb_dt = (torch.bfloat16 if cfg.compute_dtype == "bfloat16"
+              else torch.float32)
+
+    if cfg.is_encdec:
+        # encoder frames : decoder tokens split the cell's seq budget
+        s_enc, s_dec = s // 2, s // 2
+        if kind == "train":
+            return dict(enc_embeds=_sds((b, s_enc, cfg.d_model), emb_dt),
+                        tokens=_sds((b, s_dec), torch.int32),
+                        targets=_sds((b, s_dec), torch.int32))
+        if kind == "prefill":
+            return dict(enc_embeds=_sds((b, s_enc, cfg.d_model), emb_dt),
+                        tokens=_sds((b, s_dec), torch.int32))
+        return dict(token=_sds((b, 1), torch.int32),
+                    pos=_sds((b,), torch.int32))
+
+    if cfg.n_vision_tokens and kind != "decode":
+        nv = cfg.n_vision_tokens
+        if kind == "train":
+            return dict(vision_embeds=_sds((b, nv, cfg.d_model), emb_dt),
+                        tokens=_sds((b, s - nv), torch.int32),
+                        targets=_sds((b, s - nv), torch.int32))
+        return dict(vision_embeds=_sds((b, nv, cfg.d_model), emb_dt),
+                    tokens=_sds((b, s - nv), torch.int32))
+
+    if kind == "train":
+        return dict(tokens=_sds((b, s), torch.int32),
+                    targets=_sds((b, s), torch.int32))
+    if kind == "prefill":
+        return dict(tokens=_sds((b, s), torch.int32))
+    # decode: one new token against a cache of length s (the cache's
+    # shapes come from the model's cache_schema()).
+    return dict(token=_sds((b, 1), torch.int32), pos=_sds((b,), torch.int32))
+
+
+def cell_batch_seq(cell: str) -> tuple[int, int]:
+    spec = SHAPE_CELLS[cell]
+    return spec["global_batch"], spec["seq_len"]

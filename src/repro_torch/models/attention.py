@@ -3,9 +3,10 @@
 Port of `repro.models.attention` (self-attention of the decoder family).
 The (S x S) score matrix is never materialized whole: queries are
 processed in blocks of `cfg.attn_chunk`, as the reference's `lax.scan`
-does.  Decode attends one token against the dense KV cache.  The
-reference's cross-attention and its gated HLO decode
-(`decode_attention_gated`, `cfg.strap_decode`) are not ported yet.
+does.  Decode attends one token against the dense KV cache, or, with
+`cfg.strap_decode`, against the straps a selector picks
+(`decode_attention_gated`).  The reference's cross-attention (enc-dec)
+is not ported yet.
 """
 
 from __future__ import annotations
@@ -132,3 +133,75 @@ def decode_attention(cfg, p, x, k_cache, v_cache, pos):
     o = torch.einsum("bhgk,bkhd->bhgd", w, v_cache.float())
     o = o.reshape(b, 1, -1).to(x.dtype)
     return o @ p["wo"], k_cache, v_cache
+
+
+def decode_attention_gated(cfg, p, x, k_cache, v_cache, ksum, pos):
+    """Selector+strap gated decode (the paper's technique in the model).
+
+    The KV cache is viewed as straps of `cfg.decode_strap_tokens` tokens.
+    A selector scores straps with the running per-strap key sum (`ksum`),
+    gathers only the top `cfg.decode_top_straps` straps (the newest always
+    included), and attends over that subset.
+
+    x: (B, 1, D); k_cache/v_cache: (B, S, Hkv, hd) with S a multiple of
+    the strap; ksum: (B, n_straps, Hkv, hd) float32; pos: (B,).  Returns
+    (out (B,1,D), k_cache, v_cache, ksum).  The new token's K/V and its
+    key's float32 add to the newest strap's sum are written IN PLACE (the
+    reference returns new arrays: a vmapped dynamic_update_slice and a
+    one-hot blend, `ksum + onehot * k`, which for finite keys add 0 to
+    every other strap and give the same numbers).
+    """
+    b = x.shape[0]
+    hd = cfg.head_dim_
+    scale = hd ** -0.5
+    T = cfg.decode_strap_tokens
+    q, k_new, v_new = _project_qkv(cfg, p, x)
+    if cfg.rope_theta > 0:
+        q = apply_rope(q, pos[:, None], cfg.rope_theta)
+        k_new = apply_rope(k_new, pos[:, None], cfg.rope_theta)
+
+    s_cache = k_cache.shape[1]
+    if s_cache % T:
+        raise ValueError(f"cache of {s_cache} tokens is not a multiple of "
+                         f"decode_strap_tokens={T}")
+    nst = s_cache // T
+
+    # ---- write the new token (one row of one page) and its key sum ------
+    rows = torch.arange(b, device=x.device)
+    idx = pos.long()
+    k_cache[rows, idx] = k_new[:, 0].to(k_cache.dtype)
+    v_cache[rows, idx] = v_new[:, 0].to(v_cache.dtype)
+    strap_idx = idx // T
+    ksum[rows, strap_idx] += k_new[:, 0].float()
+
+    # ---- selector: score straps by aggregated q . ksum ------------------
+    hkv = k_cache.shape[2]
+    grp = q.shape[2] // hkv
+    qg = q.reshape(b, hkv, grp, hd).float()
+    scores = torch.einsum("bhgd,bnhd->bn", qg, ksum)
+    base = torch.arange(nst, device=x.device) * T
+    valid = base[None, :] <= pos[:, None]
+    scores = torch.where(valid, scores, float("-inf"))
+    scores = scores + 1e30 * torch.nn.functional.one_hot(
+        strap_idx, nst).float()                               # keep newest
+    k_sel = min(cfg.decode_top_straps, nst)
+    # where k_sel exceeds the valid straps, some picks score -inf; every
+    # token of such a strap lies past `pos` and is masked by tok_valid
+    _, ids = torch.topk(scores, k_sel, dim=-1)                # (B, K)
+
+    # ---- gather ONLY the selected straps ---------------------------------
+    kr = k_cache.reshape(b, nst, T, hkv, hd)
+    vr = v_cache.reshape(b, nst, T, hkv, hd)
+    k_g = kr[rows[:, None], ids].reshape(b, k_sel * T, hkv, hd)
+    v_g = vr[rows[:, None], ids].reshape(b, k_sel * T, hkv, hd)
+    gpos = (ids[:, :, None] * T
+            + torch.arange(T, device=x.device)[None, None, :]).reshape(
+                b, k_sel * T)
+    tok_valid = gpos <= pos[:, None]
+
+    logits = _gqa_scores(q, k_g, scale)[..., 0, :]           # (B,Hkv,grp,K*T)
+    logits = torch.where(tok_valid[:, None, None, :], logits, NEG_INF)
+    w = torch.softmax(logits, dim=-1)
+    o = torch.einsum("bhgk,bkhd->bhgd", w, v_g.float())
+    o = o.reshape(b, 1, -1).to(x.dtype)
+    return o @ p["wo"], k_cache, v_cache, ksum

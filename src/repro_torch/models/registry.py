@@ -1,5 +1,6 @@
 """Family dispatch: one model API over the ported families (port of
-`repro.models.registry`; the dense decoder family only, see `lm`)."""
+`repro.models.registry`; the attention-decoder families of `lm`: dense,
+MoE and VLM)."""
 
 from __future__ import annotations
 
@@ -32,10 +33,17 @@ def cache_schema(cfg, batch: int, seq: int):
     return lm.cache_schema(cfg, batch, seq)
 
 
+def _cache_dtype(cfg, key):
+    # SSM states and strap key-sums are carried in fp32
+    if "ssm" in key or key == "ksum":
+        return torch.float32
+    return torch_dtype(cfg.compute_dtype)
+
+
 def init_cache(cfg, batch: int, seq: int, device="cuda"):
-    """A zeroed decode cache in the compute dtype on `device` (default
-    "cuda"; raises without a GPU unless `device="cpu"`)."""
+    """A zeroed decode cache on `device` (default "cuda"; raises without a
+    GPU unless `device="cpu"`): K/V in the compute dtype, strap key sums
+    in float32."""
     dev = resolve_device(device)
-    dtype = torch_dtype(cfg.compute_dtype)
-    return {k: torch.zeros(v.shape, dtype=dtype, device=dev)
+    return {k: torch.zeros(v.shape, dtype=_cache_dtype(cfg, k), device=dev)
             for k, v in cache_schema(cfg, batch, seq).items()}

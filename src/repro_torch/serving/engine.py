@@ -2,8 +2,9 @@
 
 Port of `repro.serving.engine`.  Two cache back-ends:
   dense : the model's native stacked cache (`models.registry.decode_step`).
-  strap : StrapCache-gated attention for the dense decoder family — the
-          paper-technique path, whose attention runs in the CUDA kernel
+  strap : StrapCache-gated attention for the full-attention decoder
+          families (dense, vlm) — the paper-technique path, whose
+          attention runs in the CUDA kernel
           `kernels/csrc/strap_attend.cu` on the card.  In exact mode
           (top_straps=0) it matches dense decode to numerical tolerance;
           gated mode trades bounded attention error for an HBM-traffic
@@ -11,7 +12,8 @@ Port of `repro.serving.engine`.  Two cache back-ends:
 
 The engine runs on `device` (default "cuda"; it raises without a GPU
 unless `device="cpu"`) and its params must already lie there.  Caches are
-updated in place.  MoE configs are not ported yet (ROADMAP.md).
+updated in place.  MoE configs serve on the dense backend; the strap
+backend refuses them, as the reference does.
 """
 
 from __future__ import annotations
@@ -28,8 +30,7 @@ from ..models import registry as M
 from ..models.attention import _project_qkv
 from ..models.common import (apply_norm, apply_rope, embed_tokens, lm_logits,
                              torch_dtype)
-from ..models.lm import check_supported, layer_params
-from ..models.mlp import mlp_apply
+from ..models.lm import check_supported, ffn_apply, layer_params
 
 BACKENDS = ("dense", "strap")
 
@@ -59,7 +60,10 @@ class ServeEngine:
         if cache_backend not in BACKENDS:
             raise ValueError(f"cache_backend {cache_backend!r}; expected one "
                              f"of {BACKENDS}")
-        check_supported(cfg)          # the dense family only: no MoE, no vlm
+        check_supported(cfg)          # no ssm, hybrid or enc-dec yet
+        if cache_backend == "strap" and cfg.family not in ("dense", "vlm"):
+            raise ValueError(
+                "strap cache applies to full-attention decoder families")
         self.device = resolve_device(device)
         if not _on_device(params["embed"], self.device):
             raise ValueError(f"params lie on {params['embed'].device}, the "
@@ -132,7 +136,7 @@ class ServeEngine:
             attn = o.reshape(o.shape[0], 1, -1).to(dtype) @ lp["wo"]
             h = h + attn
             m_in = apply_norm(cfg, h, lp, "ln2")
-            h = h + mlp_apply(cfg, lp, m_in)
+            h = h + ffn_apply(cfg, lp, m_in)
         h = apply_norm(cfg, h, p, "final")
         return lm_logits(cfg, p, h)[:, 0]
 

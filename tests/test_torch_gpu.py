@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card: the fused row cycle, the multi-step RC ladder (phased engine) and
-the strap-gated decode attention (LM server).
+the strap-gated decode attention (LM server), and the MoE layer against
+its per-pair plain version.
 
 Marked `gpu`: without a GPU every test here skips (the kernel has no CPU
 mode).  This file imports neither JAX nor the reference package, so it
@@ -505,6 +506,87 @@ def test_strap_engine_on_card_equals_dense(cuda):
         launches = strap_gather.strap_attend_cuda.launches - before
         assert launches == (cfg.n_layers * 6 if backend == "strap" else 0)
     assert torch.equal(out["dense"], out["strap"])
+
+
+# (B, P, page, Hkv, D, Hq, G) at the full-width decode calls of the new
+# families: Pixtral-12B (GQA group 4, 8 kv heads) and OLMo-1B (MHA, group
+# 1, 16 kv heads), a 2,304-token strap cache of 256-token straps
+STRAP_FAMILY_SHAPES = {"pixtral_group4": (8, 36, 64, 8, 128, 32, 4),
+                       "olmo_group1": (8, 36, 64, 16, 128, 16, 4)}
+
+
+@pytest.mark.parametrize("top", [0, 4], ids=["exact", "gated_top4"])
+@pytest.mark.parametrize("name", sorted(STRAP_FAMILY_SHAPES))
+def test_strap_attend_kernel_bf16_family_decode_shapes(rng, cuda, name, top):
+    q, k, v, ids, g, lengths = strap_case(rng, *STRAP_FAMILY_SHAPES[name],
+                                          cuda, torch.bfloat16)
+    if top:
+        ids = ids[:, :top].contiguous()
+    before = strap_gather.strap_attend_cuda.launches
+    out_k = ops.strap_attend(q, k, v, ids, g, lengths=lengths)
+    assert strap_gather.strap_attend_cuda.launches == before + 1
+    out_p = ops.strap_attend(q, k, v, ids, g, lengths=lengths, backend="ref")
+    got, want = out_k.float().cpu().numpy(), out_p.float().cpu().numpy()
+    np.testing.assert_allclose(got, want, rtol=3e-2, atol=3e-2)
+    np.testing.assert_allclose(got, want, rtol=2.0 ** -6, atol=1e-3)
+    assert not out_k[1].any()               # all-masked row: zeros
+
+
+@pytest.mark.parametrize("name", ["pixtral-12b-smoke", "olmo-1b-smoke"])
+def test_family_strap_engine_on_card_equals_dense(cuda, name):
+    """The VLM (group 2) and OLMo's MHA (group 1) smoke configs in float32:
+    strap-exact greedy tokens equal the dense engine's, through the
+    kernel, one launch a layer and step."""
+    cfg = get_arch(name)
+    params = models.init_params(
+        cfg, torch.Generator(device=cuda).manual_seed(0), device=cuda)
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 32))
+    out = {}
+    for backend in ("dense", "strap"):
+        eng = ServeEngine(cfg, params, max_tokens=48, cache_backend=backend,
+                          strap_cfg=StrapCacheConfig(8, 2), device=cuda)
+        before = strap_gather.strap_attend_cuda.launches
+        eng.prefill(prompts)
+        out[backend] = torch.cat([eng.step()[0] for _ in range(6)], 1)
+        launches = strap_gather.strap_attend_cuda.launches - before
+        assert launches == (cfg.n_layers * 6 if backend == "strap" else 0)
+    assert torch.equal(out["dense"], out["strap"])
+
+
+@pytest.mark.parametrize("expert", [None, 0, -1],
+                         ids=["no_drops", "expert0_biased",
+                              "last_expert_biased"])
+@pytest.mark.parametrize("name", ["phi3.5-moe-42b-a6.6b-smoke",
+                                  "arctic-480b-smoke"])
+def test_moe_apply_on_card_matches_pair_loop(cuda, monkeypatch, name, expert):
+    """`moe_apply` in float32 on the card against the plain per-pair
+    version (`moe.moe_apply_pairs`), TF32 off; the biased cases raise one
+    expert's router logit by 4 at capacity_factor 1.0, so pairs drop and
+    the reference's dropped-pair writes apply.  Bar: 2e-5, the port's
+    float32 bar."""
+    import dataclasses
+
+    from repro_torch.models import lm, moe
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = get_arch(name)
+    params = models.init_params(
+        cfg, torch.Generator(device=cuda).manual_seed(0), device=cuda)
+    lp = lm.layer_params(params, 0)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn(2, 64, cfg.d_model, generator=gen, device=cuda)
+    if expert is not None:
+        cfg = dataclasses.replace(cfg, capacity_factor=1.0)
+        x[..., 0] = 1.0
+        router = lp["router"].clone()
+        router[0] = 0.0
+        router[0, expert] = 4.0
+        lp = dict(lp, router=router)
+    y, _ = moe.moe_apply(cfg, lp, x)
+    want, info = moe.moe_apply_pairs(cfg, lp, x)
+    assert (info["dropped"] == 0) == (expert is None)
+    np.testing.assert_allclose(y.cpu().numpy(), want.cpu().numpy(),
+                               rtol=2e-5, atol=2e-5)
 
 
 def test_service_window_on_card_is_one_launch_and_equals_direct(cuda):
