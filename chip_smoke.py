@@ -101,17 +101,39 @@ Phases (any failure exits non-zero and prints no result line):
    engines (strap_attend at group 1, every call held against the plain
    version), strap exact teacher-forced with the dense greedy tokens;
    strap_attend at this shape timed;
-21. one JSON line listing the ported kernels (row_cycle at the sweep's
+21. Mamba2-780M in full (48 layers, d 1536, state 128, bf16, seeded
+   weights): 8 requests of 2048-token prompts, 32 new tokens, through
+   `ServeEngine.generate` on the dense backend (strap_attend's launches
+   counted: none); a decode step after a 2047-token prefill (chunks of 89)
+   against the prefill of 2048 (2e-2 relative); one layer's
+   `ssd_chunked` in float32 at its widths (B 8, L 1024) against a float64
+   per-token recurrence on the card (rtol / atol 2e-4), and the scan timed
+   at the prefill's length; the whole model in float32 with
+   `ssm_split_proj` and the weights re-partitioned against the fused
+   layout (1e-4); the strap backend's refusal;
+22. Zamba2-7B in full (81 layers: 13 groups of 6 Mamba2 layers, each
+   followed by the shared attention+MLP block, then 3 trailing; bf16): 8
+   x 2048 prompts, 16 new tokens on the dense backend; decode vs the
+   prefill of one more token; the engine's cache after prefill (the
+   shared block's K/V grown on the sequence axis only, every SSM state
+   unchanged); the strap backend's refusal;
+23. Whisper-tiny in full (4 + 4 layers, d 384, bf16): 8 sequences of
+   1,500 encoder frames (stub embeddings from the seed) and 128 decoder
+   tokens through `models.registry.prefill`, 32 greedy steps through
+   `registry.decode_step`, the cross cache bit for bit unchanged; decode
+   vs the prefill of one more token; the engine's refusal of enc-dec;
+24. one JSON line listing the ported kernels (row_cycle at the sweep's
    one launch over 299,008 rows and at one 2048-row chunk, with the
    cycles of a step; rc_multistep at the phased path's ACT call, with
    cycles a step, its block as the library reports it and, in its
    `bound_work`, the chain model beside the byte bound;
    strap_attend at the full-width path's last exact-mode and gated
    steps, on 1 to 8 rows, and SDPA on the same tokens, with
-   `launches_by_path` (each served path's launches) and `by_shape` (the
-   Pixtral and OLMo decode shapes); row_cycle's `launches_by_path` counts
-   each path's launches, read around it), then the card line, then the
-   result line {"ok": true, "device": {...}}.
+   `launches_by_path` (each served path's launches, 0 on the ssm,
+   hybrid and enc-dec paths) and `by_shape` (the Pixtral and OLMo decode
+   shapes); row_cycle's `launches_by_path` counts each path's launches,
+   read around it), then the card line, then the result line
+   {"ok": true, "device": {...}}.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -1117,11 +1139,6 @@ def vlm_checks(args, dev):
 
     from repro_torch.models import registry as models
 
-    def pad(cache, to):
-        return {k: torch.nn.functional.pad(v, (0, 0, 0, 0, 0,
-                                               to - v.shape[2]))
-                for k, v in cache.items()}
-
     def run(cfg, params, prompts):
         rng = np.random.default_rng(args.seed)
         nv = cfg.n_vision_tokens
@@ -1144,7 +1161,7 @@ def vlm_checks(args, dev):
         _, cache = models.prefill(cfg, params, {"tokens": toks[:, :-1],
                                                 "vision_embeds": emb})
         held = nv + VLM_TEXT
-        cache = pad(cache, held + 16)
+        cache = pad_kv(cache, held + 16)
         pos = torch.full((VLM_B,), held, dtype=torch.int32, device=dev)
         step, _ = models.decode_step(cfg, params, cache, toks[:, -1:], pos)
         rel_err = ((step - full).abs().max() / full.abs().max()).item()
@@ -1165,7 +1182,7 @@ def vlm_checks(args, dev):
         emb, toks = vision(VLM_B), tok(VLM_B, text + 1)
         _, cache = models.prefill(cfg, params, {"tokens": toks[:, :-1],
                                                 "vision_embeds": emb})
-        cache = pad(cache, GATED_CACHE)
+        cache = pad_kv(cache, GATED_CACHE)
         nst = GATED_CACHE // GATED_STRAP
         ksum = cache["k"].reshape(cfg.n_layers, VLM_B, nst, GATED_STRAP,
                                   cfg.n_kv_heads, cfg.head_dim_).float().sum(3)
@@ -1227,7 +1244,6 @@ def moe_checks(dev):
     from repro_torch.kernels.bench import cuda_ms
     from repro_torch.models import moe
     from repro_torch.models.lm import layer_params
-    from repro_torch.serving.engine import ServeEngine
 
     def run(cfg, params, prompts):
         tokens = torch.as_tensor(prompts, device=dev)
@@ -1244,13 +1260,7 @@ def moe_checks(dev):
             "decode_tokens": x.shape[0],
             "decode": cuda_ms(lambda: moe.moe_apply(cfg, lp, x[:, -1:]), 10,
                               2)[0]}
-        try:
-            ServeEngine(cfg, params, cache_backend="strap", device=dev)
-            refusal = None
-        except ValueError as exc:
-            refusal = str(exc)
-        check(refusal is not None, "the strap backend served a MoE config")
-        res["strap_backend_refusal"] = refusal
+        res["strap_backend_refusal"] = engine_refusal(cfg, params, dev)
         log(f"[moe] {cfg.name}: " + json.dumps(res))
         return res
 
@@ -1326,6 +1336,385 @@ def arctic_phase(args, dev) -> dict:
               "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
     torch.cuda.empty_cache()
     log("[arctic] " + json.dumps(record))
+    return record
+
+
+# --------------------------------------------------------------------------
+# the SSM, hybrid and enc-dec families
+# --------------------------------------------------------------------------
+
+MAMBA_SPEC = ServeSpec("mamba2-780m", 8, 2048, 32, (("dense", "dense", 0),))
+ZAMBA_SPEC = ServeSpec("zamba2-7b", 8, 2048, 16, (("dense", "dense", 0),))
+NEXT_B = 2              # decode after prefill(T) vs prefill(T + 1)
+SSD_SHAPE = (8, 1024, 48, 64, 128)   # B, L (4 chunks), nh, hp, st
+SSD_BAR = 2e-4          # tests/test_models.py TestSSD: chunked vs recurrence
+SPLIT_BAR = 1e-4        # tests/test_perf_features.py: split vs fused
+SPLIT_B, SPLIT_T = 2, 512
+KV_CHECK_T, KV_CHECK_MAX = 256, 320
+BF16_DEPTHS = (4, 12, 24)   # Mamba2-780M cut to its first n layers
+WHISPER_ARCH = "whisper-tiny"
+WHISPER_B, WHISPER_FRAMES, WHISPER_TOKENS, WHISPER_NEW = 8, 1500, 128, 32
+
+
+def pad_kv(cache, to):
+    """Grow the K/V's seq axis to `to`; SSM, conv and cross caches keep
+    their shapes (the engine's dense padding)."""
+    import torch
+
+    return {k: (torch.nn.functional.pad(v, (0, 0, 0, 0, 0, to - v.shape[2]))
+                if k in ("k", "v") else v) for k, v in cache.items()}
+
+
+def engine_refusal(cfg, params, dev, backend: str = "strap") -> str:
+    """The engine's refusal of `cfg` on `backend`; fails if it serves
+    it."""
+    from repro_torch.serving.engine import ServeEngine
+
+    try:
+        ServeEngine(cfg, params, cache_backend=backend, device=dev)
+    except ValueError as exc:
+        return str(exc)
+    raise SmokeFailure(f"the {backend} backend served {cfg.name}")
+
+
+def as_float32(cfg, params):
+    """The model in float32: the config's dtypes and every weight cast
+    (exactly) from its bf16 draw."""
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32")
+    return cfg32, {k: ({kk: vv.float() for kk, vv in v.items()}
+                       if isinstance(v, dict) else v.float())
+                   for k, v in params.items()}
+
+
+def decode_vs_next_prefill(cfg, params, batch, gate: bool = True) -> dict:
+    """A decode step after the prefill of T tokens against the prefill of
+    T + 1 (`batch["tokens"]` holds T + 1; an enc-dec batch its
+    `enc_embeds` too): the last logits' relative difference, held within
+    2e-2 (the reference's bar, tests/test_models.py, set on float32
+    configs) when `gate`, else recorded."""
+    import torch
+
+    from repro_torch.models import registry as models
+
+    toks = batch["tokens"]
+    b, held = toks.shape[0], toks.shape[1] - 1
+    sync = torch.cuda.synchronize
+    sync()
+    t0 = time.perf_counter()
+    full, _ = models.prefill(cfg, params, batch)
+    sync()
+    prefill_s = time.perf_counter() - t0
+    _, cache = models.prefill(cfg, params, dict(batch, tokens=toks[:, :-1]))
+    cache = pad_kv(cache, held + 16)
+    pos = torch.full((b,), held, dtype=torch.int32, device=toks.device)
+    step, _ = models.decode_step(cfg, params, cache, toks[:, -1:], pos)
+    rel_err = ((step - full).abs().max() / full.abs().max()).item()
+    res = {"dtype": cfg.compute_dtype, "batch": b, "prefill_tokens": held,
+           "rel_err": rel_err, "bar": VLM_REL_BAR, "gated": gate,
+           "logit_abs_max": full.abs().max().item(), "prefill_s": prefill_s,
+           "greedy_agree": (step.argmax(-1) == full.argmax(-1)).float()
+           .mean().item()}
+    check(bool(torch.isfinite(step).all().item()),
+          f"{cfg.name}: decode vs prefill, non-finite logits {res}")
+    check(not gate or rel_err < VLM_REL_BAR,
+          f"{cfg.name}: decode vs prefill of one more token {res}")
+    log(f"[{cfg.name}] {cfg.compute_dtype}: decode after a {held}-token "
+        f"prefill vs prefill of one more token: relative {rel_err:.3e} "
+        + (f"(bar {VLM_REL_BAR})" if gate else "(recorded)"))
+    return res
+
+
+def ssd_recurrence64(x, bmat, cmat, dt, a_neg):
+    """The SSD token by token in float64 on the card (tests/test_models.py's
+    recurrence, head h reading B/C group h // (nh // ng))."""
+    import torch
+
+    b, l, nh, hp = x.shape
+    rep = nh // bmat.shape[2]
+    x, dt, a = x.double(), dt.double(), a_neg.double()
+    bh = bmat.double().repeat_interleave(rep, dim=2)
+    ch = cmat.double().repeat_interleave(rep, dim=2)
+    h = torch.zeros(b, nh, hp, bmat.shape[-1], dtype=torch.float64,
+                    device=x.device)
+    ys = torch.empty(b, l, nh, hp, dtype=torch.float64, device=x.device)
+    for t in range(l):
+        dtx = x[:, t] * dt[:, t][..., None]
+        h = (h * torch.exp(dt[:, t] * a)[..., None, None]
+             + dtx[..., :, None] * bh[:, t][:, :, None, :])
+        ys[:, t] = torch.einsum("bhpn,bhn->bhp", h, ch[:, t])
+    return ys, h
+
+
+def ssd_vs_recurrence(cfg, dev, seed) -> dict:
+    """One layer's `ssd_chunked` in float32 at Mamba2-780M's widths (B 8,
+    L 1024: 4 chunks of 256) against the float64 recurrence on the card,
+    at the reference's rtol / atol 2e-4; the reference test's draw.  Then
+    the scan timed at the prefill's length (2048, bf16 inputs)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.bench import cuda_ms
+    from repro_torch.models import ssm
+
+    b, l, nh, hp, st = SSD_SHAPE
+    check((nh, hp, st) == (cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_state),
+          f"SSD_SHAPE {SSD_SHAPE} is not {cfg.name}'s")
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
+    rng = np.random.default_rng(seed)
+
+    def draw(*shape):
+        return torch.as_tensor(rng.standard_normal(shape, dtype=np.float32),
+                               device=dev)
+
+    x, bm, cm = draw(b, l, nh, hp), draw(b, l, 1, st) * 0.5, \
+        draw(b, l, 1, st) * 0.5
+    dt, a_neg = draw(b, l, nh).abs() * 0.1, -draw(nh).abs()
+    y, h = ssm.ssd_chunked(cfg, x, bm, cm, dt, a_neg)
+    y_ref, h_ref = ssd_recurrence64(x, bm, cm, dt, a_neg)
+    res = {"shape": list(SSD_SHAPE), "chunk": ssm.chunk_size(cfg, l),
+           "bar": SSD_BAR}
+    for name, got, want in (("y", y, y_ref), ("h", h, h_ref)):
+        err = (got.double() - want).abs()
+        res[name] = {"max_abs_err": err.max().item(),
+                     "ref_abs_max": want.abs().max().item(),
+                     "within": bool((err <= SSD_BAR + SSD_BAR * want.abs())
+                                    .all().item())}
+    check(res["y"]["within"] and res["h"]["within"],
+          f"ssd_chunked vs the float64 recurrence: {res}")
+    del y, h, y_ref, h_ref
+    # the scan at the prefill's length, as a layer runs it
+    xb, bb, cb = (torch.cat([t, t], 1).to(torch.bfloat16) for t in (x, bm, cm))
+    dt2 = torch.cat([dt, dt], 1)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    res["prefill_scan_ms"] = cuda_ms(
+        lambda: ssm.ssd_chunked(cfg, xb, bb, cb, dt2, a_neg), 5, 1)[0]
+    res["prefill_scan_shape"] = [b, 2 * l, nh, hp, st]
+    res["prefill_scan_peak_gb"] = (torch.cuda.max_memory_allocated()
+                                   - base) / 1e9
+    log("[ssm] ssd_chunked vs the float64 recurrence: " + json.dumps(res))
+    return res
+
+
+def split_layer(cfg, lp):
+    """Fused Mamba2 weights re-partitioned into the split layout (views):
+    the same linear map (tests/test_perf_features.py's `_split_params`)."""
+    di, gs = cfg.d_inner, cfg.ssm_ngroups * cfg.ssm_state
+    w, cw, cb = lp["in_proj"], lp["conv_w"], lp["conv_b"]
+    out = {k: v for k, v in lp.items()
+           if k not in ("in_proj", "conv_w", "conv_b")}
+    out.update(in_z=w[..., :di], in_x=w[..., di:2 * di],
+               in_B=w[..., 2 * di:2 * di + gs],
+               in_C=w[..., 2 * di + gs:2 * di + 2 * gs],
+               in_dt=w[..., 2 * di + 2 * gs:],
+               conv_x_w=cw[..., :di], conv_x_b=cb[..., :di],
+               conv_B_w=cw[..., di:di + gs], conv_B_b=cb[..., di:di + gs],
+               conv_C_w=cw[..., di + gs:], conv_C_b=cb[..., di + gs:])
+    return out
+
+
+def split_vs_fused(cfg32, p32, prompts) -> dict:
+    """The whole model in float32 (TF32 off) with `ssm_split_proj` and the
+    weights re-partitioned (views) against the fused layout: prefill
+    logits over 2 x 512 tokens and a decode step, within the reference's
+    1e-4."""
+    import torch
+
+    from repro_torch.models import registry as models
+
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
+    cfg_split = dataclasses.replace(cfg32, ssm_split_proj=True)
+    p_split = dict(p32, layers=split_layer(cfg32, p32["layers"]))
+    toks = prompts[:SPLIT_B, :SPLIT_T + 1]
+    pos = torch.full((SPLIT_B,), SPLIT_T, dtype=torch.int32,
+                     device=toks.device)
+    out = {}
+    for name, c, p in (("fused", cfg32, p32), ("split", cfg_split, p_split)):
+        logits, cache = models.prefill(c, p, {"tokens": toks[:, :-1]})
+        step, _ = models.decode_step(c, p, cache, toks[:, -1:], pos)
+        out[name] = (logits, step)
+    res = {"batch": SPLIT_B, "tokens": SPLIT_T, "bar": SPLIT_BAR}
+    for i, what in enumerate(("prefill", "decode")):
+        a, b = out["split"][i], out["fused"][i]
+        err = (a - b).abs()
+        res[what] = {"max_abs_err": err.max().item(),
+                     "logit_abs_max": b.abs().max().item(),
+                     "within": bool((err <= SPLIT_BAR + SPLIT_BAR * b.abs())
+                                    .all().item())}
+    check(res["prefill"]["within"] and res["decode"]["within"],
+          f"split vs fused layout: {res}")
+    log("[ssm] split vs fused layout, float32: " + json.dumps(res))
+    return res
+
+
+def decode_checks(cfg, params, toks) -> tuple[dict, tuple]:
+    """Decode vs the prefill of one more token, held at 2e-2 on the model
+    in float32 (the same weights; the dtype of the reference's test) and
+    recorded in bf16, where the reference's own numerics exceed the bar
+    at these depths (ROADMAP.md, queue 3).  Returns the records and the
+    float32 model, for further checks."""
+    cfg32, p32 = as_float32(cfg, params)
+    batch = {"tokens": toks[:NEXT_B]}
+    return {"decode_vs_prefill": decode_vs_next_prefill(cfg32, p32, batch),
+            "decode_vs_prefill_bf16": decode_vs_next_prefill(
+                cfg, params, batch, gate=False)}, (cfg32, p32)
+
+
+def ssm_checks(args, dev):
+    """Mamba2-780M beyond the engine (`extra` of its serve phase): decode
+    after a 2047-token prefill (chunks of 89) vs the prefill of 2048
+    (`decode_checks`), and in bf16 at the depths `BF16_DEPTHS`; the split
+    layout against the fused, in float32; the SSD against the float64
+    recurrence; the strap backend's refusal."""
+    import torch
+
+    def run(cfg, params, prompts):
+        toks = torch.as_tensor(prompts, device=dev)
+        res, (cfg32, p32) = decode_checks(cfg, params, toks)
+        res["split_vs_fused"] = split_vs_fused(cfg32, p32, toks)
+        del p32
+        # the bf16 gap's growth with depth: the first n layers' weights
+        res["decode_vs_prefill_bf16_by_depth"] = {
+            n: decode_vs_next_prefill(
+                dataclasses.replace(cfg, n_layers=n),
+                dict(params, layers={k: v[:n] for k, v in
+                                     params["layers"].items()}),
+                {"tokens": toks[:NEXT_B]}, gate=False)["rel_err"]
+            for n in BF16_DEPTHS}
+        res["ssd_vs_recurrence"] = ssd_vs_recurrence(cfg, dev, args.seed)
+        res["strap_backend_refusal"] = engine_refusal(cfg, params, dev)
+        return res
+
+    return run
+
+
+def hybrid_checks(args, dev):
+    """Zamba2-7B beyond the engine (`extra` of its serve phase): decode
+    after a 2047-token prefill vs the prefill of 2048 (`decode_checks`:
+    the float32 copy of its 6.6 B weights takes 26.5 GB); the engine's
+    cache
+    after prefill, the shared block's K/V grown on its sequence axis only
+    and every SSM state as prefill left it; the strap backend's
+    refusal."""
+    import torch
+
+    from repro_torch.models import registry as models
+    from repro_torch.serving.engine import ServeEngine
+
+    def run(cfg, params, prompts):
+        toks = torch.as_tensor(prompts, device=dev)
+        res = decode_checks(cfg, params, toks)[0]
+        torch.cuda.empty_cache()
+        _, cache = models.prefill(cfg, params,
+                                  {"tokens": toks[:NEXT_B, :KV_CHECK_T]})
+        eng = ServeEngine(cfg, params, max_tokens=KV_CHECK_MAX, device=dev)
+        eng.prefill(toks[:NEXT_B, :KV_CHECK_T])
+        want = {k: v.shape for k, v in
+                models.cache_schema(cfg, NEXT_B, KV_CHECK_MAX).items()}
+        got = {k: tuple(v.shape) for k, v in eng._cache.items()}
+        grown = {k: [list(cache[k].shape), list(eng._cache[k].shape)]
+                 for k in cache}
+        same = all(torch.equal(eng._cache[k], cache[k]) for k in cache
+                   if k not in ("k", "v"))
+        kv_held = all(torch.equal(eng._cache[k][:, :, :KV_CHECK_T], cache[k])
+                      and not eng._cache[k][:, :, KV_CHECK_T:].any()
+                      for k in ("k", "v"))
+        res["engine_cache"] = {"prefill_to_engine": grown,
+                               "states_unchanged": same,
+                               "kv_prefix_held": kv_held}
+        check(got == want and same and kv_held,
+              f"{cfg.name}: the engine's cache {res['engine_cache']}, "
+              f"schema {want}")
+        log(f"[hybrid] engine cache: " + json.dumps(res["engine_cache"]))
+        del eng, cache
+        res["strap_backend_refusal"] = engine_refusal(cfg, params, dev)
+        return res
+
+    return run
+
+
+def whisper_phase(args, dev, strap_kernel) -> dict:
+    """Whisper-tiny in full (4 + 4 layers, d 384, bf16, seeded weights):
+    8 sequences of 1,500 encoder frames (stub embeddings from the seed)
+    and 128 decoder tokens through `models.registry.prefill`, then 32
+    greedy decode steps through `registry.decode_step` (the main path,
+    strap_attend's launches counted: none), the cross cache bit for bit
+    unchanged across them; one step profiled; decode vs the prefill of
+    one more token; the engine's refusal."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels.bench import profile
+    from repro_torch.models import registry as models
+
+    set_precision()
+    cfg = get_arch(WHISPER_ARCH)
+    reckoned = init_reckoning(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = models.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(args.seed), device=dev)
+    n_params = sum(t.numel() for t in param_tensors(params))
+    check(n_params == reckoned["n_params"],
+          f"whisper: {n_params} params, the schema {reckoned['n_params']}")
+    rng = np.random.default_rng(args.seed)
+    b, t_dec, new = WHISPER_B, WHISPER_TOKENS, WHISPER_NEW
+    enc = torch.as_tensor((rng.normal(size=(b, WHISPER_FRAMES, cfg.d_model))
+                           * 0.02).astype(np.float32), device=dev)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (b, t_dec + 1)),
+                           dtype=torch.int32, device=dev)
+    batch = {"enc_embeds": enc, "tokens": toks[:, :t_dec]}
+    refusal = engine_refusal(cfg, params, dev, "dense")
+    sync = torch.cuda.synchronize
+    models.prefill(cfg, params, batch)                       # warm-up
+    # the main path: prefill, then greedy decode steps, launches counted
+    strap_kernel.launches = 0
+    sync()
+    t0 = time.perf_counter()
+    logits, cache = models.prefill(cfg, params, batch)
+    sync()
+    prefill_s = time.perf_counter() - t0
+    cache = pad_kv(cache, t_dec + new + 16)
+    xk, xv = cache["xk"].clone(), cache["xv"].clone()
+    pos = torch.full((b,), t_dec, dtype=torch.int32, device=dev)
+    steps, finite = [], bool(torch.isfinite(logits).all().item())
+    for _ in range(new):
+        tok = logits.argmax(-1)[:, None].to(torch.int32)
+        t0 = time.perf_counter()
+        logits, cache = models.decode_step(cfg, params, cache, tok, pos)
+        sync()
+        steps.append((time.perf_counter() - t0) * 1e3)
+        finite = finite and bool(torch.isfinite(logits).all().item())
+        pos = pos + 1
+    launches = strap_kernel.launches
+    check(launches == 0, f"whisper: {launches} strap_attend launches")
+    cross_same = (torch.equal(cache["xk"], xk)
+                  and torch.equal(cache["xv"], xv))
+    check(finite and cross_same and tuple(logits.shape) == (
+        b, cfg.padded_vocab), f"whisper: finite {finite}, cross cache "
+        f"unchanged {cross_same}, logits {tuple(logits.shape)}")
+    tok = logits.argmax(-1)[:, None].to(torch.int32)
+    step_ms = statistics.median(steps)
+    record = {"arch": cfg.name, "n_params": n_params,
+              "reckoned_init": reckoned, "batch": b,
+              "encoder_frames": WHISPER_FRAMES, "decoder_tokens": t_dec,
+              "new_tokens": new, "launches": launches,
+              "prefill_s": prefill_s, "decode_step_ms_median": step_ms,
+              "decode_step_ms": steps,
+              "decode_tokens_per_s": b / (step_ms / 1e3),
+              "cross_cache_bitwise_unchanged": cross_same,
+              "profile": profile(lambda: models.decode_step(
+                  cfg, params, cache, tok, pos)),
+              "decode_vs_prefill": decode_vs_next_prefill(
+                  cfg, params, {"enc_embeds": enc, "tokens": toks}),
+              "engine_refusal": refusal,
+              "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    log("[whisper] " + json.dumps({k: v for k, v in record.items()
+                                   if k != "decode_step_ms"}))
+    del params, cache
+    torch.cuda.empty_cache()
     return record
 
 
@@ -2343,14 +2732,26 @@ def main(argv=None) -> int:
     del olmo_calls
     strap_err = max(strap_err, record["pixtral"]["max_abs_err_vs_plain"],
                     record["olmo"]["max_abs_err_vs_plain"])
+
+    # 21-23. the SSM, hybrid and enc-dec families at full width: Mamba2-780M
+    #    and Zamba2-7B served on the dense backend (the strap backend
+    #    refuses them), Whisper-tiny through the model functions
+    record["mamba2"], _ = serve_phase(args, ops, strap_kernel, dev,
+                                      MAMBA_SPEC, ssm_checks(args, dev))
+    record["zamba2"], _ = serve_phase(args, ops, strap_kernel, dev,
+                                      ZAMBA_SPEC, hybrid_checks(args, dev))
+    record["whisper"] = whisper_phase(args, dev, strap_kernel)
     strap_paths = {
         f"{record[key]['arch']}/{label}": res["launches"]
-        for key in ("serve", "pixtral", "phi_moe", "olmo")
+        for key in ("serve", "pixtral", "phi_moe", "olmo", "mamba2",
+                    "zamba2")
         for label, res in record[key]["backends"].items()}
+    strap_paths[f"{record['whisper']['arch']}/decode"] = record["whisper"][
+        "launches"]
     strap_shapes = {record[key]["arch"]: record[key]["strap_timing"]
                     for key in ("pixtral", "olmo")}
 
-    # 21. the kernels line: row_cycle at the sized path's one launch over
+    # 24. the kernels line: row_cycle at the sized path's one launch over
     #    299,008 rows and at one 2048-row chunk; rc_multistep at the phased
     #    path's ACT call; strap_attend at the full-width path's last
     #    exact-mode (and gated) step

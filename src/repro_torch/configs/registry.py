@@ -2,9 +2,7 @@
 `repro.configs.registry`; one module each, the reference's own fields).
 
 `get_arch(name + "-smoke")` gives the config's `reduced()` smoke size.
-Every config loads; a config whose family the port's models do not run
-yet (ssm, hybrid, audio / enc-dec) raises `NotImplementedError` only when
-a model function is called (`models.lm.check_supported`).
+Every family's model runs in the port (`models.registry`).
 """
 
 from __future__ import annotations

@@ -5,8 +5,10 @@ The (S x S) score matrix is never materialized whole: queries are
 processed in blocks of `cfg.attn_chunk`, as the reference's `lax.scan`
 does.  Decode attends one token against the dense KV cache, or, with
 `cfg.strap_decode`, against the straps a selector picks
-(`decode_attention_gated`).  The reference's cross-attention (enc-dec)
-is not ported yet.
+(`decode_attention_gated`).  `prefix=` names a second attention beside
+the first (enc-dec's cross-attention, "xwq", ...): `causal_attention`
+with `causal=False` and `kv_override=` (the encoder's K/V), and
+`decode_attention` with `cross=True` (a static cache, never written).
 """
 
 from __future__ import annotations
@@ -18,34 +20,38 @@ from .common import ParamSpec, Schema, apply_rope
 NEG_INF = -1e30
 
 
-def attn_schema(cfg, layers: int | None = None) -> Schema:
+def attn_schema(cfg, layers: int | None = None, prefix: str = "") -> Schema:
     d, hd = cfg.d_model, cfg.head_dim_
     hq, hkv = cfg.n_heads, cfg.n_kv_heads
     L = (layers,) if layers is not None else ()
     A = ("layers",) if layers is not None else ()
     s: Schema = {
-        "wq": ParamSpec(L + (d, hq * hd), A + ("dmodel", "qkv"), "fan_in"),
-        "wk": ParamSpec(L + (d, hkv * hd), A + ("dmodel", "qkv"), "fan_in"),
-        "wv": ParamSpec(L + (d, hkv * hd), A + ("dmodel", "qkv"), "fan_in"),
-        "wo": ParamSpec(L + (hq * hd, d), A + ("qkv", "dmodel"), "fan_in"),
+        prefix + "wq": ParamSpec(L + (d, hq * hd), A + ("dmodel", "qkv"),
+                                 "fan_in"),
+        prefix + "wk": ParamSpec(L + (d, hkv * hd), A + ("dmodel", "qkv"),
+                                 "fan_in"),
+        prefix + "wv": ParamSpec(L + (d, hkv * hd), A + ("dmodel", "qkv"),
+                                 "fan_in"),
+        prefix + "wo": ParamSpec(L + (hq * hd, d), A + ("qkv", "dmodel"),
+                                 "fan_in"),
     }
     if cfg.qkv_bias:
-        s["bq"] = ParamSpec(L + (hq * hd,), A + ("qkv",), "zeros")
-        s["bk"] = ParamSpec(L + (hkv * hd,), A + ("qkv",), "zeros")
-        s["bv"] = ParamSpec(L + (hkv * hd,), A + ("qkv",), "zeros")
+        s[prefix + "bq"] = ParamSpec(L + (hq * hd,), A + ("qkv",), "zeros")
+        s[prefix + "bk"] = ParamSpec(L + (hkv * hd,), A + ("qkv",), "zeros")
+        s[prefix + "bv"] = ParamSpec(L + (hkv * hd,), A + ("qkv",), "zeros")
     return s
 
 
-def _project_qkv(cfg, p, x):
+def _project_qkv(cfg, p, x, prefix: str = ""):
     b, s, _ = x.shape
     hd, hq, hkv = cfg.head_dim_, cfg.n_heads, cfg.n_kv_heads
-    q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
+    q = x @ p[prefix + "wq"]
+    k = x @ p[prefix + "wk"]
+    v = x @ p[prefix + "wv"]
     if cfg.qkv_bias:
-        q = q + p["bq"].to(q.dtype)
-        k = k + p["bk"].to(k.dtype)
-        v = v + p["bv"].to(v.dtype)
+        q = q + p[prefix + "bq"].to(q.dtype)
+        k = k + p[prefix + "bk"].to(k.dtype)
+        v = v + p[prefix + "bv"].to(v.dtype)
     return (q.reshape(b, s, hq, hd), k.reshape(b, s, hkv, hd),
             v.reshape(b, s, hkv, hd))
 
@@ -67,27 +73,33 @@ def _gqa_out(w, v, out_dtype):
     return o.reshape(b, sq, hkv * grp, hd).to(out_dtype)
 
 
-def _causal_block(q, k, v, scale, q_pos, k_pos, out_dtype):
+def _attend_block(q, k, v, scale, q_pos, k_pos, out_dtype, causal):
     logits = _gqa_scores(q, k, scale)
-    mask = q_pos[:, None] >= k_pos[None, :]
-    logits = torch.where(mask[None, None, None], logits, NEG_INF)
+    if causal:
+        mask = q_pos[:, None] >= k_pos[None, :]
+        logits = torch.where(mask[None, None, None], logits, NEG_INF)
     return _gqa_out(torch.softmax(logits, dim=-1), v, out_dtype)
 
 
-def causal_attention(cfg, p, x, positions=None):
-    """Chunked causal self-attention for prefill.
+def causal_attention(cfg, p, x, positions=None, prefix: str = "",
+                     causal: bool = True, kv_override=None):
+    """Chunked (causal) attention for prefill.
 
     x: (B, S, D).  Returns (out (B,S,D), (k, v)) — the cache material.
     Query blocks of `cfg.attn_chunk`; a length that is not a multiple of
-    the chunk is attended in one block, as in the reference.
+    the chunk is attended in one block, as in the reference.  With
+    `kv_override=(k, v)` (cross-attention) the projected K/V are replaced
+    and no RoPE is applied; `causal=False` drops the mask.
     """
     b, s, _ = x.shape
     hd = cfg.head_dim_
     scale = hd ** -0.5
-    q, k, v = _project_qkv(cfg, p, x)
+    q, k, v = _project_qkv(cfg, p, x, prefix)
+    if kv_override is not None:                 # cross-attention path
+        k, v = kv_override
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
-    if cfg.rope_theta > 0:
+    if cfg.rope_theta > 0 and kv_override is None:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
 
@@ -97,14 +109,15 @@ def causal_attention(cfg, p, x, positions=None):
     k_pos = torch.arange(k.shape[1], device=x.device)
     q_pos = positions[0]
     out = torch.cat([
-        _causal_block(q[:, i:i + chunk], k, v, scale, q_pos[i:i + chunk],
-                      k_pos, x.dtype)
+        _attend_block(q[:, i:i + chunk], k, v, scale, q_pos[i:i + chunk],
+                      k_pos, x.dtype, causal)
         for i in range(0, s, chunk)], dim=1)
     o = out.reshape(b, s, -1)
-    return o @ p["wo"], (k, v)
+    return o @ p[prefix + "wo"], (k, v)
 
 
-def decode_attention(cfg, p, x, k_cache, v_cache, pos):
+def decode_attention(cfg, p, x, k_cache, v_cache, pos, prefix: str = "",
+                     cross: bool = False):
     """One-token attention against the cache.
 
     x: (B, 1, D); k_cache/v_cache: (B, S, Hkv, hd); pos: (B,) current index.
@@ -112,27 +125,36 @@ def decode_attention(cfg, p, x, k_cache, v_cache, pos):
     the caches IN PLACE at `pos` (the reference rewrites the whole cache
     through a one-hot blend, `k * (1 - onehot) + onehot * k_new`, and
     returns new arrays; for finite values both give the same numbers).
+    With `cross=True` (the encoder's K/V) every cached position is valid,
+    the cache is not written and the return is (out, None, None).
     """
     b = x.shape[0]
     hd = cfg.head_dim_
     scale = hd ** -0.5
-    q, k_new, v_new = _project_qkv(cfg, p, x)
+    q, k_new, v_new = _project_qkv(cfg, p, x, prefix)
     s_cache = k_cache.shape[1]
-    if cfg.rope_theta > 0:
-        q = apply_rope(q, pos[:, None], cfg.rope_theta)
-        k_new = apply_rope(k_new, pos[:, None], cfg.rope_theta)
-    rows = torch.arange(b, device=x.device)
-    idx = pos.long()
-    k_cache[rows, idx] = k_new[:, 0].to(k_cache.dtype)
-    v_cache[rows, idx] = v_new[:, 0].to(v_cache.dtype)
-    valid = torch.arange(s_cache, device=x.device)[None, :] <= pos[:, None]
+    if cross:
+        valid = torch.ones((b, s_cache), dtype=torch.bool, device=x.device)
+    else:
+        if cfg.rope_theta > 0:
+            q = apply_rope(q, pos[:, None], cfg.rope_theta)
+            k_new = apply_rope(k_new, pos[:, None], cfg.rope_theta)
+        rows = torch.arange(b, device=x.device)
+        idx = pos.long()
+        k_cache[rows, idx] = k_new[:, 0].to(k_cache.dtype)
+        v_cache[rows, idx] = v_new[:, 0].to(v_cache.dtype)
+        valid = (torch.arange(s_cache, device=x.device)[None, :]
+                 <= pos[:, None])
 
     logits = _gqa_scores(q, k_cache, scale)[..., 0, :]      # (B,Hkv,grp,S)
     logits = torch.where(valid[:, None, None, :], logits, NEG_INF)
     w = torch.softmax(logits, dim=-1)
     o = torch.einsum("bhgk,bkhd->bhgd", w, v_cache.float())
     o = o.reshape(b, 1, -1).to(x.dtype)
-    return o @ p["wo"], k_cache, v_cache
+    out = o @ p[prefix + "wo"]
+    if cross:
+        return out, None, None
+    return out, k_cache, v_cache
 
 
 def decode_attention_gated(cfg, p, x, k_cache, v_cache, ksum, pos):

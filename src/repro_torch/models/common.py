@@ -161,6 +161,16 @@ def apply_rope(x, positions, theta: float):
     return out.to(x.dtype)
 
 
+def sinusoid_pos_emb(seq: int, d: int, offset=0, device=None):
+    """(seq, d) float32 sinusoidal positions `offset .. offset + seq - 1`:
+    sines in the first half, cosines in the second (enc-dec)."""
+    pos = torch.arange(seq, dtype=torch.float32, device=device) + offset
+    inv = 1e4 ** (-torch.arange(0, d, 2, dtype=torch.float32, device=device)
+                  / d)
+    ang = pos[:, None] * inv[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # Embedding / head
 # ---------------------------------------------------------------------------

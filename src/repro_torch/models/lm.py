@@ -1,10 +1,13 @@
-"""Decoder-only LM of the attention families: schema, prefill and decode.
+"""Decoder-only LM: the dense / MoE / VLM / SSM / hybrid families.
 
-Port of the dense / MoE / VLM path of `repro.models.lm`, with the gated
-HLO decode (`cfg.strap_decode`).  Parameters are the reference's tree
-(layer-stacked tensors under "layers"); a Python loop over layers takes
-the place of `jax.lax.scan`.  The SSM and hybrid families, enc-dec and
-training (`forward_train`, `loss_fn`) are not ported yet (ROADMAP.md).
+Port of `repro.models.lm`'s serving path, with the gated HLO decode
+(`cfg.strap_decode`).  Parameters are the reference's tree (layer-stacked
+tensors under "layers"); a Python loop over layers takes the place of
+`jax.lax.scan`.  The hybrid (Zamba2) family runs groups of
+`shared_attn_every` Mamba2 layers, each followed by ONE weight-shared
+attention+MLP block ("shared"), then the trailing Mamba2 layers
+("trailing").  Training (`forward_train`, `loss_fn`) is not ported yet
+(ROADMAP.md).
 
 Public entry points (functions of (cfg, params, ...)):
   init_params     -> params on the requested device
@@ -23,14 +26,9 @@ from .common import (ParamSpec, Schema, add_norm, apply_norm, embed_schema,
                      embed_tokens, init_from_schema, lm_logits, torch_dtype)
 from .mlp import mlp_apply, mlp_schema
 from .moe import moe_apply, moe_schema
+from .ssm import ssm_apply, ssm_decode_step, ssm_schema
 
-
-def check_supported(cfg) -> None:
-    """Raise for a config outside the ported attention-decoder families."""
-    if cfg.family in ("ssm", "hybrid", "audio") or cfg.is_encdec:
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet (the port "
-            "runs the dense, MoE and VLM decoder families); see ROADMAP.md")
+ATTENTION_FAMILIES = ("dense", "moe", "vlm")
 
 
 def _tf_layer_schema(cfg, layers: int) -> Schema:
@@ -45,10 +43,48 @@ def _tf_layer_schema(cfg, layers: int) -> Schema:
     return s
 
 
+def _ssm_layer_schema(cfg, layers: int) -> Schema:
+    s: Schema = {}
+    add_norm(s, cfg, "ln1", cfg.d_model, layers)
+    s.update(ssm_schema(cfg, layers))
+    return s
+
+
+def _shared_block_schema(cfg) -> Schema:
+    """Zamba2's weight-shared attention+MLP block (no layer stacking)."""
+    s: Schema = {}
+    add_norm(s, cfg, "ln1", cfg.d_model)
+    s.update(attn_schema(cfg))
+    add_norm(s, cfg, "ln2", cfg.d_model)
+    s.update(mlp_schema(cfg))
+    return s
+
+
+def _hybrid_split(cfg) -> tuple[int, int, int]:
+    """(groups, per_group, trailing) for the hybrid family."""
+    per = cfg.shared_attn_every
+    groups = cfg.n_layers // per
+    trailing = cfg.n_layers - groups * per
+    return groups, per, trailing
+
+
 def lm_schema(cfg) -> Schema:
-    check_supported(cfg)
     s = embed_schema(cfg)
-    s["layers"] = _tf_layer_schema(cfg, cfg.n_layers)
+    if cfg.family == "ssm":
+        s["layers"] = _ssm_layer_schema(cfg, cfg.n_layers)
+    elif cfg.family == "hybrid":
+        groups, per, trailing = _hybrid_split(cfg)
+        grouped = _ssm_layer_schema(cfg, groups * per)
+        # the stacked specs as (groups, per, ...)
+        s["layers"] = {
+            k: ParamSpec((groups, per) + v.shape[1:],
+                         ("layer_groups",) + v.axes, v.scale)
+            for k, v in grouped.items()}
+        if trailing:
+            s["trailing"] = _ssm_layer_schema(cfg, trailing)
+        s["shared"] = _shared_block_schema(cfg)
+    else:
+        s["layers"] = _tf_layer_schema(cfg, cfg.n_layers)
     return s
 
 
@@ -59,9 +95,11 @@ def init_params(cfg, generator: torch.Generator, device="cuda") -> dict:
                             torch_dtype(cfg.param_dtype), device)
 
 
-def layer_params(params, li: int) -> dict:
-    """Layer `li`'s slice of the stacked weights (views, no copy)."""
-    return {k: v[li] for k, v in params["layers"].items()}
+def layer_params(params, *idx, key: str = "layers") -> dict:
+    """One layer's slice of the stacked weights under `key` (views, no
+    copy): `layer_params(params, li)`, or `(params, g, i)` for layer i of
+    the hybrid's group g."""
+    return {k: v[idx] for k, v in params[key].items()}
 
 
 def ffn_apply(cfg, lp, m_in):
@@ -80,6 +118,13 @@ def _tf_block(cfg, lp, h, positions):
     return h + ffn_apply(cfg, lp, m_in), (k, v)
 
 
+def _ssm_block(cfg, lp, h):
+    """A Mamba2 layer over the prompt: (h, (ssm state, conv tail))."""
+    a_in = apply_norm(cfg, h, lp, "ln1")
+    out, hf, convf = ssm_apply(cfg, lp, a_in, return_state=True)
+    return h + out, (hf, convf)
+
+
 def _embed_inputs(cfg, params, batch, dtype):
     """Token (+ vision-stub) embedding -> (B, S, D), positions (1, S): the
     vision embeddings come first and the positions run over both."""
@@ -90,21 +135,70 @@ def _embed_inputs(cfg, params, batch, dtype):
     return h, positions
 
 
+def _ssm_stack(cfg, params, h, *lead, key="layers"):
+    """The Mamba2 layers of `params[key]` (under the leading index `lead`,
+    a hybrid group) in order; returns (h, stacked ssm states, stacked conv
+    tails)."""
+    n = params[key]["A_log"][lead].shape[0]
+    states = []
+    for i in range(n):
+        h, st = _ssm_block(cfg, layer_params(params, *lead, i, key=key), h)
+        states.append(st)
+    return (h, torch.stack([s for s, _ in states]),
+            torch.stack([c for _, c in states]))
+
+
+def _prefill_ssm_like(cfg, params, h, positions) -> tuple:
+    """(h, cache) of the ssm and hybrid families."""
+    if cfg.family == "ssm":
+        h, hs, convs = _ssm_stack(cfg, params, h)
+        return h, {"ssm": hs, "conv": convs}
+    shared = params["shared"]
+    groups = _hybrid_split(cfg)[0]
+    hs, convs, ks, vs = [], [], [], []
+    for g in range(groups):
+        h, hs_g, convs_g = _ssm_stack(cfg, params, h, g)
+        hs.append(hs_g)
+        convs.append(convs_g)
+        h, (k, v) = _shared_block(cfg, shared, h, positions)
+        ks.append(k)
+        vs.append(v)
+    cache = {"ssm": torch.stack(hs), "conv": torch.stack(convs),
+             "k": torch.stack(ks), "v": torch.stack(vs)}
+    if "trailing" in params:
+        h, cache["t_ssm"], cache["t_conv"] = _ssm_stack(cfg, params, h,
+                                                        key="trailing")
+    return h, cache
+
+
+def _shared_block(cfg, shared, h, positions):
+    """The hybrid's weight-shared attention + MLP block over the prompt."""
+    a_in = apply_norm(cfg, h, shared, "ln1")
+    attn_out, kv = causal_attention(cfg, shared, a_in, positions)
+    h = h + attn_out
+    m_in = apply_norm(cfg, h, shared, "ln2")
+    return h + mlp_apply(cfg, shared, m_in), kv
+
+
 def prefill(cfg, params, batch):
     """Forward over the prompt `batch["tokens"]` (B, S), after
     `batch["vision_embeds"]` (B, Nv, D) for a VLM; returns (last-token
-    logits (B, V) float32, cache {"k", "v"}: (L, B, Nv + S, Hkv, hd)).  A
-    gated config (`strap_decode`) gets the same cache: as in the
-    reference, the caller adds the per-strap key sums `ksum`."""
-    check_supported(cfg)
+    logits (B, V) float32, cache).  The attention families' cache is
+    {"k", "v"}: (L, B, Nv + S, Hkv, hd); a gated config (`strap_decode`)
+    gets the same cache: as in the reference, the caller adds the
+    per-strap key sums `ksum`.  The ssm and hybrid caches are as
+    `cache_schema` gives them (the SSM state in float32)."""
     dtype = torch_dtype(cfg.compute_dtype)
     h, positions = _embed_inputs(cfg, params, batch, dtype)
-    ks, vs = [], []
-    for li in range(cfg.n_layers):
-        h, (k, v) = _tf_block(cfg, layer_params(params, li), h, positions)
-        ks.append(k)
-        vs.append(v)
-    cache = dict(k=torch.stack(ks).to(dtype), v=torch.stack(vs).to(dtype))
+    if cfg.family in ("ssm", "hybrid"):
+        h, cache = _prefill_ssm_like(cfg, params, h, positions)
+    else:
+        ks, vs = [], []
+        for li in range(cfg.n_layers):
+            h, (k, v) = _tf_block(cfg, layer_params(params, li), h, positions)
+            ks.append(k)
+            vs.append(v)
+        cache = dict(k=torch.stack(ks).to(dtype), v=torch.stack(vs).to(dtype))
     logits = lm_logits(cfg, params, apply_norm(cfg, h[:, -1:, :], params,
                                                "final"))
     return logits[:, 0], cache
@@ -112,48 +206,107 @@ def prefill(cfg, params, batch):
 
 def cache_schema(cfg, batch: int, seq: int) -> Schema:
     """Decode-cache schema (shapes + logical axes)."""
-    check_supported(cfg)
     hd, hkv = cfg.head_dim_, cfg.n_kv_heads
-    if cfg.strap_decode:
+    nh, hp, st = cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_state
+    conv_dim = cfg.d_inner + 2 * cfg.ssm_ngroups * cfg.ssm_state
+    kc = cfg.conv_kernel - 1
+    kv_axes = ("layers", "batch", "seq", "kv", None)
+    if cfg.strap_decode and cfg.family in ATTENTION_FAMILIES:
         # gated decode: seq stays device-local (the gather must be local);
         # the reference's TP moves to the head_dim axis instead.
         nst = max(seq // cfg.decode_strap_tokens, 1)
-        kv_axes = ("layers", "batch", None, "kv", "headdim")
+        g_axes = ("layers", "batch", None, "kv", "headdim")
         return {
-            "k": ParamSpec((cfg.n_layers, batch, seq, hkv, hd), kv_axes,
+            "k": ParamSpec((cfg.n_layers, batch, seq, hkv, hd), g_axes,
                            "zeros"),
-            "v": ParamSpec((cfg.n_layers, batch, seq, hkv, hd), kv_axes,
+            "v": ParamSpec((cfg.n_layers, batch, seq, hkv, hd), g_axes,
                            "zeros"),
-            "ksum": ParamSpec((cfg.n_layers, batch, nst, hkv, hd),
-                              ("layers", "batch", None, "kv", "headdim"),
+            "ksum": ParamSpec((cfg.n_layers, batch, nst, hkv, hd), g_axes,
                               "zeros"),
         }
-    kv_axes = ("layers", "batch", "seq", "kv", None)
+    if cfg.family == "ssm":
+        return {
+            "ssm": ParamSpec((cfg.n_layers, batch, nh, hp, st),
+                             ("layers", "batch", "heads", None, None), "zeros"),
+            "conv": ParamSpec((cfg.n_layers, batch, kc, conv_dim),
+                              ("layers", "batch", None, "ssm_out"), "zeros"),
+        }
+    if cfg.family == "hybrid":
+        groups, per, trailing = _hybrid_split(cfg)
+        s: Schema = {
+            "ssm": ParamSpec((groups, per, batch, nh, hp, st),
+                             ("layer_groups", "layers", "batch", "heads",
+                              None, None), "zeros"),
+            "conv": ParamSpec((groups, per, batch, kc, conv_dim),
+                              ("layer_groups", "layers", "batch", None,
+                               "ssm_out"), "zeros"),
+            "k": ParamSpec((groups, batch, seq, hkv, hd), kv_axes, "zeros"),
+            "v": ParamSpec((groups, batch, seq, hkv, hd), kv_axes, "zeros"),
+        }
+        if trailing:
+            s["t_ssm"] = ParamSpec((trailing, batch, nh, hp, st),
+                                   ("layers", "batch", "heads", None, None),
+                                   "zeros")
+            s["t_conv"] = ParamSpec((trailing, batch, kc, conv_dim),
+                                    ("layers", "batch", None, "ssm_out"),
+                                    "zeros")
+        return s
     return {
         "k": ParamSpec((cfg.n_layers, batch, seq, hkv, hd), kv_axes, "zeros"),
         "v": ParamSpec((cfg.n_layers, batch, seq, hkv, hd), kv_axes, "zeros"),
     }
 
 
+def _ssm_decode_stack(cfg, params, h, ssm, conv, *lead, key="layers"):
+    """One token through the Mamba2 layers of `params[key]` (under the
+    leading index `lead`); each layer's state written into `ssm[i]` and
+    `conv[i]` in place."""
+    for i in range(ssm.shape[0]):
+        lp = layer_params(params, *lead, i, key=key)
+        a_in = apply_norm(cfg, h, lp, "ln1")
+        out, h_new, conv_new = ssm_decode_step(cfg, lp, a_in, ssm[i], conv[i])
+        ssm[i].copy_(h_new)
+        conv[i].copy_(conv_new)
+        h = h + out
+    return h
+
+
 def decode_step(cfg, params, cache, token, pos):
     """One decode step: (B,1) token ids at positions `pos` (B,) -> ((B, V)
-    float32 logits, cache).  The token's K/V (and, gated, its key sum)
-    are written into `cache` in place; the same dict is returned."""
-    check_supported(cfg)
+    float32 logits, cache).  The token's K/V (gated: and its key sum) or
+    the SSM and conv states are written into `cache` in place; the same
+    dict is returned."""
     dtype = torch_dtype(cfg.compute_dtype)
     h = embed_tokens(params, token, dtype)                   # (B,1,D)
-    for li in range(cfg.n_layers):
-        lp = layer_params(params, li)
-        a_in = apply_norm(cfg, h, lp, "ln1")
-        if cfg.strap_decode:
-            attn_out = decode_attention_gated(
-                cfg, lp, a_in, cache["k"][li], cache["v"][li],
-                cache["ksum"][li], pos)[0]
-        else:
-            attn_out = decode_attention(cfg, lp, a_in, cache["k"][li],
-                                        cache["v"][li], pos)[0]
-        h = h + attn_out
-        m_in = apply_norm(cfg, h, lp, "ln2")
-        h = h + ffn_apply(cfg, lp, m_in)
+    if cfg.family == "ssm":
+        h = _ssm_decode_stack(cfg, params, h, cache["ssm"], cache["conv"])
+    elif cfg.family == "hybrid":
+        shared = params["shared"]
+        for g in range(cache["k"].shape[0]):
+            h = _ssm_decode_stack(cfg, params, h, cache["ssm"][g],
+                                  cache["conv"][g], g)
+            a_in = apply_norm(cfg, h, shared, "ln1")
+            h = h + decode_attention(cfg, shared, a_in, cache["k"][g],
+                                     cache["v"][g], pos)[0]
+            m_in = apply_norm(cfg, h, shared, "ln2")
+            h = h + mlp_apply(cfg, shared, m_in)
+        if "t_ssm" in cache:
+            h = _ssm_decode_stack(cfg, params, h, cache["t_ssm"],
+                                  cache["t_conv"], key="trailing")
+    else:
+        gated = cfg.strap_decode and cfg.family in ATTENTION_FAMILIES
+        for li in range(cfg.n_layers):
+            lp = layer_params(params, li)
+            a_in = apply_norm(cfg, h, lp, "ln1")
+            if gated:
+                attn_out = decode_attention_gated(
+                    cfg, lp, a_in, cache["k"][li], cache["v"][li],
+                    cache["ksum"][li], pos)[0]
+            else:
+                attn_out = decode_attention(cfg, lp, a_in, cache["k"][li],
+                                            cache["v"][li], pos)[0]
+            h = h + attn_out
+            m_in = apply_norm(cfg, h, lp, "ln2")
+            h = h + ffn_apply(cfg, lp, m_in)
     h = apply_norm(cfg, h, params, "final")
     return lm_logits(cfg, params, h)[:, 0], cache

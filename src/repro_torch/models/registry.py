@@ -1,35 +1,41 @@
-"""Family dispatch: one model API over the ported families (port of
-`repro.models.registry`; the attention-decoder families of `lm`: dense,
-MoE and VLM)."""
+"""Family dispatch: one model API over `lm` (the decoder-only families:
+dense, MoE, VLM, SSM, hybrid) and `encdec` (Whisper); port of
+`repro.models.registry`."""
 
 from __future__ import annotations
 
 import torch
 
 from ..device import resolve_device
-from . import lm
+from . import encdec, lm
 from .common import torch_dtype
 
 
+def _mod(cfg):
+    return encdec if cfg.is_encdec else lm
+
+
 def schema(cfg):
-    return lm.lm_schema(cfg)
+    return encdec.encdec_schema(cfg) if cfg.is_encdec else lm.lm_schema(cfg)
 
 
 def init_params(cfg, generator: torch.Generator, device="cuda"):
     """Parameters drawn from `generator` on `device` (default "cuda";
     raises without a GPU unless `device="cpu"`)."""
-    return lm.init_params(cfg, generator, device)
+    return _mod(cfg).init_params(cfg, generator, device)
 
 
 def prefill(cfg, params, batch):
-    return lm.prefill(cfg, params, batch)
+    return _mod(cfg).prefill(cfg, params, batch)
 
 
 def decode_step(cfg, params, cache, token, pos):
-    return lm.decode_step(cfg, params, cache, token, pos)
+    return _mod(cfg).decode_step(cfg, params, cache, token, pos)
 
 
 def cache_schema(cfg, batch: int, seq: int):
+    if cfg.is_encdec:
+        return encdec.cache_schema(cfg, batch, seq // 2)
     return lm.cache_schema(cfg, batch, seq)
 
 
@@ -42,8 +48,8 @@ def _cache_dtype(cfg, key):
 
 def init_cache(cfg, batch: int, seq: int, device="cuda"):
     """A zeroed decode cache on `device` (default "cuda"; raises without a
-    GPU unless `device="cpu"`): K/V in the compute dtype, strap key sums
-    in float32."""
+    GPU unless `device="cpu"`): K/V and conv tails in the compute dtype,
+    SSM states and strap key sums in float32."""
     dev = resolve_device(device)
     return {k: torch.zeros(v.shape, dtype=_cache_dtype(cfg, k), device=dev)
             for k, v in cache_schema(cfg, batch, seq).items()}

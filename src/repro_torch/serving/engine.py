@@ -12,8 +12,11 @@ Port of `repro.serving.engine`.  Two cache back-ends:
 
 The engine runs on `device` (default "cuda"; it raises without a GPU
 unless `device="cpu"`) and its params must already lie there.  Caches are
-updated in place.  MoE configs serve on the dense backend; the strap
-backend refuses them, as the reference does.
+updated in place.  The MoE, SSM and hybrid configs serve on the dense
+backend; the strap backend refuses them, as the reference does.  An
+enc-dec config (Whisper) is refused: the engine's prefill takes token
+ids only, with no encoder embeddings; it runs through
+`models.registry.prefill` / `decode_step`.
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ from ..models import registry as M
 from ..models.attention import _project_qkv
 from ..models.common import (apply_norm, apply_rope, embed_tokens, lm_logits,
                              torch_dtype)
-from ..models.lm import check_supported, ffn_apply, layer_params
+from ..models.lm import ffn_apply, layer_params
 
 BACKENDS = ("dense", "strap")
 
@@ -60,7 +63,14 @@ class ServeEngine:
         if cache_backend not in BACKENDS:
             raise ValueError(f"cache_backend {cache_backend!r}; expected one "
                              f"of {BACKENDS}")
-        check_supported(cfg)          # no ssm, hybrid or enc-dec yet
+        if cfg.is_encdec:
+            # the reference's engine fails here with a KeyError: its
+            # prefill passes no `enc_embeds`
+            raise ValueError(
+                f"{cfg.name}: the engine serves decoder-only configs; its "
+                "prefill passes no encoder embeddings (`enc_embeds`), so an "
+                "enc-dec config runs through models.registry.prefill and "
+                "decode_step")
         if cache_backend == "strap" and cfg.family not in ("dense", "vlm"):
             raise ValueError(
                 "strap cache applies to full-attention decoder families")
@@ -99,10 +109,12 @@ class ServeEngine:
         self._pos = torch.full((b,), s, dtype=torch.int32, device=self.device)
         self._n_tokens = s
         if self.backend == "dense":
-            # grow the seq axis to max_tokens
+            # grow the seq axis of the K/V to max_tokens; an SSM or conv
+            # state has no seq axis and keeps its shape
             pad = self.max_tokens - s
-            self._cache = {k: torch.nn.functional.pad(
-                x, (0, 0, 0, 0, 0, pad)) for k, x in cache.items()}
+            self._cache = {k: (torch.nn.functional.pad(
+                x, (0, 0, 0, 0, 0, pad)) if k in ("k", "v") and x.ndim == 5
+                else x) for k, x in cache.items()}
         else:
             self._cache = [
                 StrapKVCache.create(self.strap_cfg, b, self.max_tokens,

@@ -111,29 +111,13 @@ def test_input_specs_allocate_nothing():
     assert specs["tokens"].dtype == torch.int32
 
 
-FAMILIES_TO_COME = {"mamba2-780m": "ssm", "zamba2-7b": "hybrid",
-                    "whisper-tiny": "audio"}
-
-
-@pytest.mark.parametrize("name", sorted(FAMILIES_TO_COME))
-def test_unported_family_loads_and_raises_at_the_model(name):
-    """A config of a family still to port loads; a model function raises
-    `NotImplementedError` naming ROADMAP.md."""
-    cfg = registry.get_arch(name + "-smoke")
-    assert cfg.family == FAMILIES_TO_COME[name]
-    for call in (lambda: M.schema(cfg), lambda: M.cache_schema(cfg, 2, 64),
-                 lambda: M.prefill(cfg, {}, {}),
-                 lambda: M.decode_step(cfg, {}, {}, None, None)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            call()
-
-
-@pytest.mark.parametrize("name", [n for n in NAMES
-                                  if n not in FAMILIES_TO_COME])
+@pytest.mark.parametrize("name", NAMES)
 @pytest.mark.parametrize("gated", [False, True], ids=["dense", "gated"])
 def test_cache_schema_equals_reference(name, gated):
-    """The decode cache's shapes and axes, for each attention config, with
-    and without the gated decode (`ksum`)."""
+    """The decode cache's shapes and axes, for each config, with and
+    without the gated decode (`ksum`).  The gated flag applies to the
+    attention families only: an ssm or hybrid config with it takes its
+    own cache, as in the reference, and enc-dec its own."""
     change = dict(strap_decode=gated, decode_strap_tokens=256)
     ours = M.cache_schema(dataclasses.replace(registry.get_arch(name),
                                               **change), 8, 4096)
@@ -141,4 +125,8 @@ def test_cache_schema_equals_reference(name, gated):
                                                  **change), 8, 4096)
     assert {k: (v.shape, v.axes) for k, v in ours.items()} == {
         k: (v.shape, v.axes) for k, v in theirs.items()}
-    assert ("ksum" in ours) == gated
+    cfg = registry.get_arch(name)
+    assert ("ksum" in ours) == (gated and cfg.family in ("dense", "moe",
+                                                         "vlm"))
+    assert ("ssm" in ours) == (cfg.family in ("ssm", "hybrid"))
+    assert ("xk" in ours) == cfg.is_encdec

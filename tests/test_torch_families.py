@@ -1,13 +1,17 @@
-"""The port's MoE, VLM and gated-decode paths (`models/attention.py`'s
-`decode_attention_gated`, `models/lm.py`, `serving/engine.py`) against the
-JAX reference, on the CPU.
+"""The port's MoE, VLM, gated-decode, SSM and hybrid paths
+(`models/attention.py`'s `decode_attention_gated`, `models/ssm.py`,
+`models/lm.py`, `serving/engine.py`) against the JAX reference, on the
+CPU.
 
 The reference's weights are carried across with
 `interop.params_from_numpy`; every input is drawn from a seeded numpy
 generator.  Bars: rtol / atol 2e-5 in float32 (tests/test_torch_lm.py's
 TOL); gated decode with every strap selected against exact decode, 1e-4
 (the reference's own bar, tests/test_perf_features.py); the engine's
-greedy tokens and `ServeStats` equal.
+greedy tokens and `ServeStats` equal.  The ssm and hybrid families:
+|port - ref| <= 2e-5 * max|ref| for logits and every cache entry; a
+decode step against the prefill of one more token, 2e-2 relative (the
+reference's own bar, tests/test_models.py).
 """
 
 import dataclasses
@@ -28,7 +32,7 @@ from repro.serving.engine import ServeEngine as JEngine  # noqa: E402
 from repro_torch import interop  # noqa: E402
 from repro_torch.configs import registry  # noqa: E402
 from repro_torch.memory.strap_cache import StrapCacheConfig  # noqa: E402
-from repro_torch.models import attention, lm  # noqa: E402
+from repro_torch.models import attention, common, lm  # noqa: E402
 from repro_torch.models import registry as M  # noqa: E402
 from repro_torch.serving.engine import ServeEngine, ServeStats  # noqa: E402
 
@@ -36,6 +40,7 @@ TOL = 2e-5
 PHI, ARCTIC = "phi3.5-moe-42b-a6.6b-smoke", "arctic-480b-smoke"
 PIXTRAL, OLMO, DEEPSEEK = "pixtral-12b-smoke", "olmo-1b-smoke", \
     "deepseek-67b-smoke"
+MAMBA, ZAMBA = "mamba2-780m-smoke", "zamba2-7b-smoke"
 B, PROMPT, NV = 2, 48, 8
 STRAP = 16                   # decode_strap_tokens of the gated cases
 S_CACHE = 64                 # 4 straps
@@ -65,7 +70,7 @@ _MODELS = {}
 def model(key):
     """One set of weights per case, built on first use."""
     if key not in _MODELS:
-        name, change = CASES[key]
+        name, change = {**CASES, **SSM_CASES}[key]
         _MODELS[key] = both(name, **change)
     return _MODELS[key]
 
@@ -75,6 +80,11 @@ def model(key):
 CASES = {"phi": (PHI, {}), "arctic": (ARCTIC, {}), "pixtral": (PIXTRAL, {}),
          "pixtral_hd48": (PIXTRAL, {"head_dim": 48}), "olmo": (OLMO, {}),
          "deepseek": (DEEPSEEK, {})}
+# the ssm and hybrid families: zamba2_trailing is 2 groups of 2 Mamba2
+# layers, each followed by the shared block, then one trailing layer
+SSM_CASES = {"mamba2": (MAMBA, {}), "mamba2_ng2": (MAMBA, {"ssm_ngroups": 2}),
+             "zamba2": (ZAMBA, {}),
+             "zamba2_trailing": (ZAMBA, {"n_layers": 5})}
 
 
 def batch_for(cfg, rng, n_tok):
@@ -386,6 +396,208 @@ def test_engine_greedy_decode_matches_reference(name):
 
 @pytest.mark.parametrize("key", ["phi", "arctic"])
 def test_strap_backend_refuses_moe(key):
+    """As the reference: the strap cache applies to the full-attention
+    decoder families (dense, vlm)."""
+    cfg, jcfg, params, jparams = model(key)
+    with pytest.raises(ValueError, match="full-attention decoder families"):
+        ServeEngine(cfg, params, cache_backend="strap", device="cpu")
+    with pytest.raises(AssertionError, match="full-attention decoder"):
+        JEngine(jcfg, jparams, cache_backend="strap")
+
+
+# --------------------------------------------------------------------------
+# the ssm and hybrid families
+# --------------------------------------------------------------------------
+
+def close_scaled(got, want, tol=TOL):
+    """|got - want| <= tol * max|want|."""
+    if isinstance(got, torch.Tensor):
+        got = got.float().numpy()
+    want = np.asarray(want, np.float32)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=tol * float(np.abs(want).max()))
+
+
+def pad_kv(cache, to):
+    """Grow the K/V's seq axis to `to`; the states keep their shapes."""
+    return {k: (torch.nn.functional.pad(v, (0, 0, 0, 0, 0, to - v.shape[2]))
+                if k in ("k", "v") else v) for k, v in cache.items()}
+
+
+def jpad_kv(cache, to):
+    return {k: (jnp.pad(v, [(0, 0), (0, 0), (0, to - v.shape[2]), (0, 0),
+                            (0, 0)]) if k in ("k", "v") else v)
+            for k, v in cache.items()}
+
+
+@pytest.mark.parametrize("key", sorted(SSM_CASES))
+def test_ssm_like_prefill_and_three_steps_match_reference(rng, key):
+    """A prompt of 45 tokens (chunks of 15): the logits and every cache
+    entry, then three decode steps."""
+    cfg, jcfg, params, jparams = model(key)
+    batch = batch_for(cfg, rng, 45)
+    logits, cache = M.prefill(cfg, params, port_batch(batch))
+    jlogits, jcache = JM.prefill(jcfg, jparams, jax_batch(batch))
+    close_scaled(logits, jlogits)
+    want_keys = {"ssm", "conv"} | ({"k", "v"} if cfg.family == "hybrid"
+                                   else set())
+    if key == "zamba2_trailing":
+        want_keys |= {"t_ssm", "t_conv"}
+        assert cache["t_ssm"].shape == (1, B, 8, 32, 16)
+    assert set(cache) == set(jcache) == want_keys
+    schema = M.cache_schema(cfg, B, 45)
+    for k in jcache:
+        assert tuple(cache[k].shape) == schema[k].shape, k
+        close_scaled(cache[k], jcache[k])
+    assert cache["ssm"].dtype == torch.float32
+    cache, jcache = pad_kv(cache, 56), jpad_kv(jcache, 56)
+    pos = np.full((B,), 45, np.int32)
+    for _ in range(3):
+        token = rng.integers(0, cfg.vocab_size, (B, 1)).astype(np.int32)
+        logits, cache = M.decode_step(cfg, params, cache,
+                                      torch.as_tensor(token),
+                                      torch.as_tensor(pos))
+        jlogits, jcache = JM.decode_step(jcfg, jparams, jcache,
+                                         jnp.asarray(token), jnp.asarray(pos))
+        close_scaled(logits, jlogits)
+        for k in jcache:
+            close_scaled(cache[k], jcache[k])
+        pos = pos + 1
+
+
+@pytest.mark.parametrize("key", ["mamba2", "zamba2_trailing"])
+def test_params_from_numpy_walks_the_nested_tree(key):
+    """`interop.params_from_numpy` carries the reference's ssm and hybrid
+    trees ("layers" as (groups, per, ...), "shared", "trailing") leaf for
+    leaf, equal and in the schema's shapes."""
+    cfg, _, params, jparams = model(key)
+    leaves = common.schema_leaves(M.schema(cfg))
+    if key == "zamba2_trailing":
+        assert {p[0] for p, _ in leaves} >= {"layers", "shared", "trailing"}
+        assert params["layers"]["in_proj"].shape[:2] == (2, 2)
+    for path, spec in leaves:
+        got, want = params, jparams
+        for k in path:
+            got, want = got[k], want[k]
+        assert tuple(got.shape) == spec.shape, path
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("key", ["mamba2", "zamba2", "zamba2_trailing"])
+def test_ssm_like_decode_matches_prefill_of_one_more_token(rng, key):
+    """The reference's decode-vs-forward claim (tests/test_models.py), with
+    the prefill of T + 1 tokens in place of `forward_train`."""
+    cfg, _, params, _ = model(key)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, 65)),
+                           dtype=torch.int32)
+    full, _ = M.prefill(cfg, params, {"tokens": toks})
+    _, cache = M.prefill(cfg, params, {"tokens": toks[:, :64]})
+    step, _ = M.decode_step(cfg, params, pad_kv(cache, 72), toks[:, 64:],
+                            torch.full((B,), 64, dtype=torch.int32))
+    err = ((step - full).abs().max() / full.abs().max()).item()
+    assert err < 2e-2, err
+
+
+@pytest.mark.parametrize("key", ["mamba2", "zamba2"])
+def test_strap_decode_flag_keeps_the_ssm_cache(rng, key):
+    """The family is tested before `strap_decode`, as in the reference: an
+    ssm or hybrid config with the flag takes its own cache and decode."""
+    cfg, _, params, _ = model(key)
+    gcfg = dataclasses.replace(cfg, strap_decode=True,
+                               decode_strap_tokens=STRAP)
+    assert set(M.cache_schema(gcfg, B, S_CACHE)) == set(
+        M.cache_schema(cfg, B, S_CACHE))
+    assert "ksum" not in M.init_cache(gcfg, B, S_CACHE, device="cpu")
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, 33)),
+                           dtype=torch.int32)
+    _, cache = M.prefill(cfg, params, {"tokens": toks[:, :32]})
+    pos = torch.full((B,), 32, dtype=torch.int32)
+    copy = {k: v.clone() for k, v in pad_kv(cache, S_CACHE).items()}
+    want, _ = M.decode_step(cfg, params, copy, toks[:, 32:], pos)
+    got, _ = M.decode_step(gcfg, params, pad_kv(cache, S_CACHE),
+                           toks[:, 32:], pos)
+    assert torch.equal(got, want)
+
+
+def test_init_cache_carries_the_ssm_state_in_float32():
+    cfg = dataclasses.replace(registry.get_arch(ZAMBA), n_layers=5,
+                              compute_dtype="bfloat16")
+    cache = M.init_cache(cfg, B, S_CACHE, device="cpu")
+    theirs = JM.init_cache(dataclasses.replace(
+        jreg.get_arch(ZAMBA), n_layers=5, compute_dtype="bfloat16"), B,
+        S_CACHE)
+    assert {k: (tuple(v.shape), str(v.dtype).removeprefix("torch."))
+            for k, v in cache.items()} == {
+        k: (v.shape, np.dtype(v.dtype).name) for k, v in theirs.items()}
+    assert cache["ssm"].dtype == cache["t_ssm"].dtype == torch.float32
+    assert cache["conv"].dtype == cache["k"].dtype == torch.bfloat16
+
+
+def reference_greedy(jcfg, jparams, prompts, n, max_tokens):
+    """The reference's engine loop through its model functions (what its
+    `ServeEngine` runs), for a family its engine cannot prefill."""
+    logits, cache = JM.prefill(jcfg, jparams, {"tokens": jnp.asarray(prompts)})
+    if "k" in cache:
+        cache = jpad_kv(cache, max_tokens)
+    pos = jnp.full((prompts.shape[0],), prompts.shape[1], jnp.int32)
+    out = []
+    for _ in range(n):
+        tok = jnp.argmax(logits, axis=-1)[:, None].astype(jnp.int32)
+        logits, cache = JM.decode_step(jcfg, jparams, cache, tok, pos)
+        pos = pos + 1
+        out.append((tok, logits))
+    return out, cache
+
+
+@pytest.mark.parametrize("key", ["mamba2", "zamba2", "zamba2_trailing"])
+def test_ssm_like_engine_greedy_decode_matches_reference(key):
+    """The dense backend's true greedy loop: tokens equal at every step,
+    logits and the final cache within the bar.  Against the reference's
+    engine for the hybrid; for the ssm family, whose cache has no "k",
+    the reference's engine raises `KeyError` in prefill (ROADMAP.md, queue
+    3), so against its model functions' loop."""
+    cfg, jcfg, params, jparams = model(key)
+    prompts = np.random.default_rng(1).integers(0, 512, (B, 32)).astype(
+        np.int32)
+    ours = ServeEngine(cfg, params, max_tokens=ENGINE_MAX, device="cpu")
+    close_scaled(ours.prefill(prompts), JM.prefill(
+        jcfg, jparams, {"tokens": jnp.asarray(prompts)})[0])
+    if cfg.family == "ssm":
+        with pytest.raises(KeyError, match="'k'"):
+            JEngine(jcfg, jparams, max_tokens=ENGINE_MAX).prefill(
+                jnp.asarray(prompts))
+        want, jcache = reference_greedy(jcfg, jparams, prompts, ENGINE_NEW,
+                                        ENGINE_MAX)
+    else:
+        theirs = JEngine(jcfg, jparams, max_tokens=ENGINE_MAX)
+        theirs.prefill(jnp.asarray(prompts))
+        want = [theirs.step() for _ in range(ENGINE_NEW)]
+        jcache = theirs._cache
+    for jtok, jlogits in want:
+        tok, logits = ours.step()
+        np.testing.assert_array_equal(tok.numpy(), np.asarray(jtok))
+        close_scaled(logits, jlogits)
+    assert set(ours._cache) == set(jcache)
+    for k in jcache:
+        close_scaled(ours._cache[k], jcache[k])
+    assert ours.stats.tokens_decoded == B * ENGINE_NEW
+
+
+@pytest.mark.parametrize("key", ["mamba2", "zamba2_trailing"])
+def test_engine_pads_only_the_kv_seq_axis(key):
+    """The dense backend grows the K/V's seq axis to `max_tokens` and
+    leaves the SSM and conv states' shapes as prefill gave them."""
+    cfg, _, params, _ = model(key)
+    prompts = np.zeros((B, 16), np.int32)
+    eng = ServeEngine(cfg, params, max_tokens=40, device="cpu")
+    eng.prefill(prompts)
+    want = {k: v.shape for k, v in M.cache_schema(cfg, B, 40).items()}
+    assert {k: tuple(v.shape) for k, v in eng._cache.items()} == want
+
+
+@pytest.mark.parametrize("key", ["mamba2", "zamba2"])
+def test_strap_backend_refuses_ssm_like(key):
     """As the reference: the strap cache applies to the full-attention
     decoder families (dense, vlm)."""
     cfg, jcfg, params, jparams = model(key)

@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card: the fused row cycle, the multi-step RC ladder (phased engine) and
-the strap-gated decode attention (LM server), and the MoE layer against
-its per-pair plain version.
+the strap-gated decode attention (LM server), the MoE layer against
+its per-pair plain version, and the SSM scan and the ssm, hybrid and
+enc-dec decode steps on the card.
 
 Marked `gpu`: without a GPU every test here skips (the kernel has no CPU
 mode).  This file imports neither JAX nor the reference package, so it
@@ -587,6 +588,80 @@ def test_moe_apply_on_card_matches_pair_loop(cuda, monkeypatch, name, expert):
     assert (info["dropped"] == 0) == (expert is None)
     np.testing.assert_allclose(y.cpu().numpy(), want.cpu().numpy(),
                                rtol=2e-5, atol=2e-5)
+
+
+def ssd_recurrence64(x, bmat, cmat, dt, a_neg):
+    """The SSD token by token in float64 (tests/test_models.py's
+    recurrence; head h reads B/C group h // (nh // ng))."""
+    b, l, nh, hp = x.shape
+    rep = nh // bmat.shape[2]
+    x, dt, a = x.double(), dt.double(), a_neg.double()
+    bh = bmat.double().repeat_interleave(rep, dim=2)
+    ch = cmat.double().repeat_interleave(rep, dim=2)
+    h = torch.zeros(b, nh, hp, bmat.shape[-1], dtype=torch.float64,
+                    device=x.device)
+    ys = []
+    for t in range(l):
+        dtx = x[:, t] * dt[:, t][..., None]
+        h = (h * torch.exp(dt[:, t] * a)[..., None, None]
+             + dtx[..., :, None] * bh[:, t][:, :, None, :])
+        ys.append(torch.einsum("bhpn,bhn->bhp", h, ch[:, t]))
+    return torch.stack(ys, 1), h
+
+
+@pytest.mark.parametrize("ng", [1, 2])
+def test_ssd_chunked_on_card_equals_recurrence(cuda, monkeypatch, ng):
+    """The chunked scan in float32 on the card (TF32 off) against the
+    float64 recurrence: 3 chunks of 64 over 192 tokens, 16 heads of 64, a
+    state of 128.  Bar: rtol / atol 2e-4, the reference's (`TestSSD`)."""
+    import dataclasses
+
+    from repro_torch.models import ssm
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = dataclasses.replace(get_arch("mamba2-780m"), ssm_chunk=64)
+    gen = torch.Generator(device=cuda).manual_seed(ng)
+    draw = lambda *shape: torch.randn(*shape, generator=gen, device=cuda)
+    b, l, nh, hp, st = 2, 192, 16, 64, 128
+    x, bm, cm = draw(b, l, nh, hp), draw(b, l, ng, st) * 0.5, \
+        draw(b, l, ng, st) * 0.5
+    dt, a_neg = draw(b, l, nh).abs() * 0.1, -draw(nh).abs()
+    y, h = ssm.ssd_chunked(cfg, x, bm, cm, dt, a_neg)
+    y_ref, h_ref = ssd_recurrence64(x, bm, cm, dt, a_neg)
+    np.testing.assert_allclose(y.cpu().numpy(), y_ref.cpu().numpy(),
+                               rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(h.cpu().numpy(), h_ref.cpu().numpy(),
+                               rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("name", ["mamba2-780m-smoke", "zamba2-7b-smoke",
+                                  "whisper-tiny-smoke"])
+def test_family_decode_on_card_matches_prefill_of_one_more_token(cuda,
+                                                                 name):
+    """float32 smoke configs on the card: a decode step after the prefill
+    of 64 tokens against the prefill of 65, 2e-2 relative (the reference's
+    bar, tests/test_models.py); Whisper's cross cache unchanged."""
+    cfg = get_arch(name)
+    params = models.init_params(
+        cfg, torch.Generator(device=cuda).manual_seed(0), device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (2, 65), generator=gen,
+                         device=cuda, dtype=torch.int32)
+    batch = {"tokens": toks}
+    if cfg.is_encdec:
+        batch["enc_embeds"] = torch.randn(2, 48, cfg.d_model, generator=gen,
+                                          device=cuda) * 0.02
+    full, _ = models.prefill(cfg, params, batch)
+    _, cache = models.prefill(cfg, params, dict(batch, tokens=toks[:, :64]))
+    cache = {k: (torch.nn.functional.pad(v, (0, 0, 0, 0, 0, 8))
+                 if k in ("k", "v") else v) for k, v in cache.items()}
+    cross = {k: cache[k].clone() for k in ("xk", "xv") if k in cache}
+    step, cache = models.decode_step(
+        cfg, params, cache, toks[:, 64:],
+        torch.full((2,), 64, dtype=torch.int32, device=cuda))
+    err = ((step - full).abs().max() / full.abs().max()).item()
+    assert err < 2e-2, err
+    assert all(torch.equal(cache[k], v) for k, v in cross.items())
 
 
 def test_service_window_on_card_is_one_launch_and_equals_direct(cuda):

@@ -190,19 +190,6 @@ def test_init_params_in_bf16_and_generator_device():
                                 torch.float32, device="meta")
 
 
-@pytest.mark.parametrize("change", [
-    dict(family="ssm", ssm_state=16),
-    dict(family="hybrid", shared_attn_every=2),
-    dict(is_encdec=True, n_enc_layers=2)],
-    ids=["ssm", "hybrid", "encdec"])
-def test_unported_configs_raise(change):
-    cfg = dataclasses.replace(registry.get_arch(SMOKE), **change)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        M.schema(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        M.decode_step(cfg, {}, {}, None, None)
-
-
 # --------------------------------------------------------------------------
 # modules
 # --------------------------------------------------------------------------
@@ -447,8 +434,14 @@ def test_engine_refuses_what_it_cannot_serve(smoke, prompts):
         ServeEngine(moe_cfg, params, cache_backend="strap", device="cpu")
     ServeEngine(dataclasses.replace(cfg, family="vlm", n_vision_tokens=8),
                 params, cache_backend="strap", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ServeEngine(dataclasses.replace(cfg, family="ssm", ssm_state=16),
+    # the ssm and hybrid families serve on the dense backend only, enc-dec
+    # not at all (tests/test_torch_families.py, tests/test_torch_encdec.py)
+    ssm_cfg = dataclasses.replace(cfg, family="ssm", ssm_state=16)
+    ServeEngine(ssm_cfg, params, device="cpu")
+    with pytest.raises(ValueError, match="full-attention decoder families"):
+        ServeEngine(ssm_cfg, params, cache_backend="strap", device="cpu")
+    with pytest.raises(ValueError, match="enc_embeds"):
+        ServeEngine(dataclasses.replace(cfg, is_encdec=True, n_enc_layers=2),
                     params, device="cpu")
     with pytest.raises(ValueError, match="params lie on"):
         ServeEngine(cfg, params, device="meta")
