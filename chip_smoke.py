@@ -122,7 +122,35 @@ Phases (any failure exits non-zero and prints no result line):
    tokens through `models.registry.prefill`, 32 greedy steps through
    `registry.decode_step`, the cross cache bit for bit unchanged; decode
    vs the prefill of one more token; the engine's refusal of enc-dec;
-24. one JSON line listing the ported kernels (row_cycle at the sweep's
+24. training, card against CPU: one `train.step.make_train_step` step
+   of each of the ten smoke configs in float32 (and one with
+   microbatch=2 on qwen2-1.5b-smoke) on the card and on the CPU from the
+   same weights and batch: loss and grad_norm within 2e-5 relative, every
+   parameter after the step within 2e-5 of max(max|cpu|, lr) (2e-4 on
+   the ssm and hybrid configs), every parameter moved and finite;
+25. OLMo-1B at full width and depth (16 x 2048, bf16, remat on): 8 x
+   2048 tokens a step from `SyntheticSource`, 12 AdamW steps, then 12
+   AdamW8bit steps from the same weights; every loss finite, AdamW's
+   falling (AdamW8bit's recorded: the reference's int8 moments can step
+   by m / eps, ROADMAP queue 3); median step time, tokens/s, train_mfu
+   (6 N T plus the attention's 12 L S d a token, over the bf16 peak),
+   peak memory, each optimizer's state bytes, one profiled step (idle
+   share, kernels);
+26. Mamba2-780M at full width and depth (48 layers, bf16): the SSD
+   scan's gradients in float32 against float64 on the card (2 x 1024,
+   2e-4), 6 AdamW steps of 8 x 2048 tokens (losses finite and falling),
+   the scan's share of the step (one layer's scan timed by the profiler,
+   times the layers, forward twice under remat);
+27. `examples/train_lm_torch.py` at its defaults (200 steps of 8 x 256,
+   a checkpoint every 100, a crash at 150): one restart with its
+   exception text, the loss falling, train tokens/s, the step-100
+   checkpoint restored on the CPU bit for bit against the card's state;
+28. `python -m repro_torch.launch.train --arch qwen2-1.5b --smoke
+   --steps 25 --batch 4 --seq 64 --ckpt-every 8 --inject-crash 12` in a
+   subprocess: its `done:` line, 1 restart, the loss falling; the wall
+   time of phases 24-28 and the ported kernels' launches there (none of
+   them lies on the training path) on a log line;
+29. one JSON line listing the ported kernels (row_cycle at the sweep's
    one launch over 299,008 rows and at one 2048-row chunk, with the
    cycles of a step; rc_multistep at the phased path's ACT call, with
    cycles a step, its block as the library reports it and, in its
@@ -2221,6 +2249,491 @@ def fabric_phase(dev, kernel, mc_space, mc_batch, mc_mask) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# training: card vs CPU, OLMo-1B and Mamba2-780M at full width, the example
+# twin's config with a crash, the CLI
+# --------------------------------------------------------------------------
+
+TRAIN_B, TRAIN_S = 4, 64            # phase 24's batch (tests' smoke size)
+TRAIN_BAR = 2e-5                    # tests/test_torch_train_step.py
+TRAIN_SSD_BAR = 2e-4                # the reference's SSD bar
+OLMO_TRAIN = ("olmo-1b", 8, 2048, 12)         # arch, batch, seq, steps
+MAMBA_TRAIN = ("mamba2-780m", 8, 2048, 6)
+SSD_GRAD_SHAPE = (2, 1024)          # B, L of the float64 gradient check
+BF16_PEAK_FLOPS = 989e12            # H100 SXM dense bf16, data sheet
+TRAIN_CLI_ARGS = ["--arch", "qwen2-1.5b", "--smoke", "--steps", "25",
+                  "--batch", "4", "--seq", "64", "--ckpt-every", "8",
+                  "--inject-crash", "12"]
+
+
+def tree_bytes(tree) -> int:
+    from repro_torch.tree import leaves
+
+    return sum(t.numel() * t.element_size() for t in leaves(tree))
+
+
+def train_batch(cfg, rng, b, s, dev) -> dict:
+    """Tokens and next-token targets (and the stub vision / encoder
+    embeddings a VLM / enc-dec takes) from a numpy generator."""
+    import numpy as np
+    import torch
+
+    toks = rng.integers(0, cfg.vocab_size, (b, s + 1)).astype(np.int32)
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    if cfg.n_vision_tokens:
+        batch["vision_embeds"] = rng.standard_normal(
+            (b, cfg.n_vision_tokens, cfg.d_model), dtype=np.float32)
+    if cfg.is_encdec:
+        batch["enc_embeds"] = rng.standard_normal((b, s // 2, cfg.d_model),
+                                                  dtype=np.float32)
+    return {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+
+
+def train_parity_phase(args, dev) -> dict:
+    """Phase 24: one `make_train_step` step of every smoke config, float32,
+    on the card and on the CPU from the same weights and batch (and one
+    with microbatch=2 on qwen2-1.5b-smoke): loss and grad_norm within 2e-5
+    relative, every parameter after the step within 2e-5 of max(max|cpu|,
+    lr) (2e-4 on the ssm and hybrid configs), every parameter moved and
+    finite.  Adam's eps is 1e-3, as in tests/test_torch_train_step.py:
+    with 1e-8 the first step is the sign of the gradient, and an element
+    whose gradient is rounding noise moves by +-lr on a coin flip."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.registry import get_arch, list_archs
+    from repro_torch.models import registry as models
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.step import make_train_step
+    from repro_torch.tree import leaves_with_paths, tree_map
+
+    set_precision()
+    cpu = torch.device("cpu")
+    oc = OptConfig(lr=1e-3, eps=1e-3, warmup_steps=1, total_steps=10)
+    cases = [(n + "-smoke", None) for n in list_archs()]
+    cases.append(("qwen2-1.5b-smoke", 2))
+    out = {}
+    for name, microbatch in cases:
+        cfg = get_arch(name)
+        tol = TRAIN_SSD_BAR if cfg.family in ("ssm", "hybrid") else TRAIN_BAR
+        params = models.init_params(
+            cfg, torch.Generator().manual_seed(args.seed), "cpu")
+        start = tree_map(torch.clone, params)
+        batch = train_batch(cfg, np.random.default_rng(args.seed), TRAIN_B,
+                            TRAIN_S, cpu)
+        res = {}
+        for d in (cpu, dev):
+            p = tree_map(lambda t: t.to(d, copy=True), start)
+            fn, opt = make_train_step(cfg, oc, microbatch)
+            p, _, m = fn(p, opt.init(p),
+                         {k: v.to(d) for k, v in batch.items()})
+            res[d.type] = (p, {k: v.item() for k, v in m.items()})
+        (pc, mc), (pg, mg) = res["cpu"], res[dev.type]
+        worst = 0.0
+        for (path, want), (_, got), (_, old) in zip(
+                leaves_with_paths(pc), leaves_with_paths(pg),
+                leaves_with_paths(start)):
+            got = got.detach().cpu()
+            check(bool(torch.isfinite(got).all()),
+                  f"{name}: {path} not finite after the step")
+            check(not torch.equal(got, old), f"{name}: {path} did not move")
+            scale = max(want.abs().max().item(), oc.lr)
+            err = (got - want).abs().max().item() / scale
+            worst = max(worst, err)
+            check(err <= tol, f"{name}: {path} card vs cpu {err:.3e} of "
+                  f"max(max|cpu|, lr), bar {tol}")
+        rel = {k: abs(mg[k] - mc[k]) / abs(mc[k]) for k in mc}
+        check(all(r <= TRAIN_BAR for r in rel.values()),
+              f"{name}: card vs cpu metrics {mg} vs {mc}")
+        key = name + (f"/microbatch{microbatch}" if microbatch else "")
+        out[key] = {"loss": mg["loss"], "grad_norm": mg["grad_norm"],
+                    "loss_rel_err": rel["loss"],
+                    "grad_norm_rel_err": rel["grad_norm"],
+                    "param_worst_err": worst, "bar": tol}
+        log(f"[train-parity] {key}: loss {mg['loss']:.6f} (cpu "
+            f"{mc['loss']:.6f}), grad_norm rel {rel['grad_norm']:.2e}, "
+            f"worst parameter {worst:.2e} of max(max|cpu|, lr) (bar {tol})")
+    return out
+
+
+def train_flops(cfg, n_params: int, b: int, s: int) -> float:
+    """6 N T + the attention's 12 L S d per token (0 for the SSM)."""
+    attn = 12 * cfg.n_layers * s * cfg.d_model if cfg.n_heads else 0
+    return (6 * n_params + attn) * b * s
+
+
+def timed_steps(step_fn, params, state, loader, steps, dev):
+    """`steps` train steps on `loader.batch_at(i)`: (params, state,
+    losses, step ms each: host clock around the step and a sync, with the
+    batch already on the card)."""
+    import torch
+
+    losses, ms = [], []
+    for i in range(steps):
+        batch = {k: torch.as_tensor(v, device=dev)
+                 for k, v in loader.batch_at(i).items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step_fn(params, state, batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(m["loss"].item())
+    return params, state, losses, ms
+
+
+def full_train_run(cfg, oc, spec, dev, seed, start,
+                   must_fall: bool = True) -> dict:
+    """`spec` steps of `cfg` from the weights `start` (cloned), the last
+    under the profiler (its time left out of the median): losses (finite;
+    the last below the first when `must_fall`), median step ms, tokens/s,
+    train_mfu, peak memory, optimizer-state bytes and the profiled
+    step."""
+    import torch
+
+    from repro_torch.data.pipeline import (DataLoader, LoaderConfig,
+                                           SyntheticSource)
+    from repro_torch.kernels.bench import profile
+    from repro_torch.train.step import make_train_step
+    from repro_torch.tree import leaves, tree_map
+
+    _, b, s, steps = spec
+    params = tree_map(torch.clone, start)
+    fn, opt = make_train_step(cfg, oc)
+    state = opt.init(params)
+    loader = DataLoader(SyntheticSource(cfg.vocab_size, seed),
+                        LoaderConfig(batch_size=b, seq_len=s, seed=seed))
+    try:
+        t0 = time.perf_counter()
+        loader.batch_at(0)
+        batch_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        params, state, losses, ms = timed_steps(fn, params, state, loader,
+                                                steps - 1, dev)
+        batch = {k: torch.as_tensor(v, device=dev)
+                 for k, v in loader.batch_at(steps - 1).items()}
+        last = []
+        prof = profile(lambda: last.append(fn(params, state, batch)),
+                       warmup=False)
+        losses.append(last[0][2]["loss"].item())
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        loader.close()
+    n_params = sum(t.numel() for t in leaves(params))
+    step_ms = statistics.median(ms)
+    check(all(math.isfinite(x) for x in losses),
+          f"{cfg.name}/{cfg.optimizer}: non-finite losses {losses}")
+    check(losses[-1] < losses[0] or not must_fall,
+          f"{cfg.name}/{cfg.optimizer}: the loss did not fall {losses}")
+    moments = {k: v for k, v in state.items() if k != "count"}
+    res = {"optimizer": cfg.optimizer, "batch": b, "seq": s, "steps": steps,
+           "losses": losses, "fell": losses[-1] < losses[0],
+           "step_ms": ms, "median_step_ms": step_ms,
+           "tokens_per_s": b * s / (step_ms / 1e3),
+           "train_flops": train_flops(cfg, n_params, b, s),
+           "n_params": n_params, "peak_gb": peak_gb,
+           "param_bytes": tree_bytes(params),
+           "opt_state_bytes": tree_bytes(moments),
+           "host_batch_ms": batch_ms, "profile": prof}
+    res["train_mfu"] = (res["train_flops"] / (step_ms / 1e3)
+                        / BF16_PEAK_FLOPS)
+    del params, state
+    return res
+
+
+def olmo_train_phase(args, dev, card) -> dict:
+    """Phase 25: OLMo-1B at full width and depth (16 x 2048, MHA 16 heads,
+    vocab 50304, bf16 weights, remat on), 8 x 2048 tokens a step from
+    `SyntheticSource`, 12 AdamW steps and then 12 AdamW8bit steps from
+    the same start; every loss finite, AdamW's falling.  AdamW8bit's are
+    recorded, not held to fall: the reference's int8 moments step by
+    m / eps where a row's v quantizes to zero, and its loss spikes (the
+    port takes the reference's updates; ROADMAP queue 3)."""
+    import dataclasses as dc
+
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import registry as models
+    from repro_torch.train.optimizer import OptConfig
+
+    cfg = get_arch(OLMO_TRAIN[0])
+    check(cfg.remat and cfg.param_dtype == "bfloat16", f"{cfg}")
+    oc = OptConfig(lr=3e-4, warmup_steps=2, total_steps=12)
+    start = models.init_params(
+        cfg, torch.Generator(dev).manual_seed(args.seed), dev)
+    out = {"arch": cfg.name, "card": card}
+    for name in ("adamw", "adamw8bit"):
+        res = full_train_run(dc.replace(cfg, optimizer=name), oc,
+                             OLMO_TRAIN, dev, args.seed, start,
+                             must_fall=name == "adamw")
+        out[name] = res
+        torch.cuda.empty_cache()
+        log(f"[train-olmo] {name}: losses "
+            + " ".join(f"{x:.4f}" for x in res["losses"])
+            + f"; median step "
+            f"{res['median_step_ms']:.1f} ms, {res['tokens_per_s']:,.0f} "
+            f"tokens/s, train_mfu {res['train_mfu']:.3f}, peak "
+            f"{res['peak_gb']:.1f} GB, optimizer state "
+            f"{res['opt_state_bytes'] / 1e9:.2f} GB; profiled step: idle "
+            f"{res['profile']['idle_share']:.3f}, "
+            f"{res['profile']['device_kernels']} kernels, top "
+            f"{json.dumps(res['profile']['top'][:4])} ({card})")
+    ratio = out["adamw8bit"]["opt_state_bytes"] / out["adamw"][
+        "opt_state_bytes"]
+    check(0.25 <= ratio < 0.3, f"AdamW8bit / AdamW state bytes {ratio}")
+    out["opt_state_ratio_8bit"] = ratio
+    return out
+
+
+def ssd_grad_check(cfg, dev, seed) -> dict:
+    """`ssd_chunked`'s gradients (x, B, C, dt, A) at Mamba2-780M's widths,
+    B 2 x L 1024 (4 chunks of 256), in float32 on the card against the
+    same function run in float64 on the card: |g32 - g64| <= 2e-4 *
+    max|g64| per input.  Two draws: the reference test's (dt ~ 0.1 |N|,
+    A = -|N|) and the model's (dt = softplus(N), A = -exp(0.5 N)), whose
+    chunks' decay sums pass exp's float32 range in the masked triangle."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import ssm
+
+    b, l = SSD_GRAD_SHAPE
+    nh, hp, st = cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_state
+    rng = np.random.default_rng(seed)
+    draw = lambda *shape: rng.standard_normal(shape)     # noqa: E731
+    x, bm, cm = draw(b, l, nh, hp), draw(b, l, 1, st) * 0.5, \
+        draw(b, l, 1, st) * 0.5
+    draws = {"test": (np.abs(draw(b, l, nh)) * 0.1, -np.abs(draw(nh))),
+             "model": (np.logaddexp(draw(b, l, nh), 0.0),
+                       -np.exp(0.5 * draw(nh)))}
+    wy = torch.as_tensor(draw(b, l, nh, hp), device=dev)
+    q = ssm.chunk_size(cfg, l)
+    res = {"shape": [b, l, nh, hp, st], "chunk": q, "bar": TRAIN_SSD_BAR}
+    for label, (dt, a_neg) in draws.items():
+        inputs = [np.asarray(t, np.float32) for t in (x, bm, cm, dt, a_neg)]
+
+        def grads(dtype):
+            ts = [torch.tensor(t, dtype=dtype, device=dev,
+                               requires_grad=True) for t in inputs]
+            y, _ = ssm.ssd_chunked(cfg, *ts)
+            return torch.autograd.grad((y * wy.to(dtype)).sum(), ts)
+
+        decay_sum = float((inputs[3].reshape(b, l // q, q, nh)
+                           * -inputs[4]).sum(2).max())
+        out = {"max_chunk_decay_sum": decay_sum}
+        for name, g32, g64 in zip(("x", "B", "C", "dt", "A"),
+                                  grads(torch.float32),
+                                  grads(torch.float64)):
+            check(bool(torch.isfinite(g32).all()),
+                  f"ssd_chunked d/d{name} ({label} draw): not finite")
+            err = ((g32.double() - g64).abs().max()
+                   / g64.abs().max()).item()
+            out[name] = err
+            check(err <= TRAIN_SSD_BAR, f"ssd_chunked d/d{name} ({label} "
+                  f"draw): float32 vs float64 {err:.3e}")
+        res[label] = out
+    return res
+
+
+def ssd_share(cfg, dev, b, s) -> dict:
+    """One layer's scan at the step's shapes (bf16 x / B / C as the layer
+    gives them), device time by the profiler: the forward alone and the
+    forward with its backward.  A remat step runs each layer's scan
+    forward twice and backward once."""
+    import torch
+
+    from repro_torch.kernels.bench import device_ms
+    from repro_torch.models import ssm
+
+    g = torch.Generator(dev).manual_seed(0)
+    nh, hp, st = cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_state
+
+    def rand(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=g, device=dev).to(dtype) \
+            .requires_grad_(True)
+
+    x, bm, cm = rand(b, s, nh, hp), rand(b, s, 1, st), rand(b, s, 1, st)
+    dt = (rand(b, s, nh, dtype=torch.float32).detach().abs() * 0.1) \
+        .requires_grad_(True)
+    a_neg = (-rand(nh, dtype=torch.float32).detach().abs()) \
+        .requires_grad_(True)
+    gy = torch.randn((b, s, nh, hp), generator=g, device=dev)
+    ins = (x, bm, cm, dt, a_neg)
+    fwd = device_ms(lambda: ssm.ssd_chunked(cfg, *ins), 1)
+    both = device_ms(lambda: torch.autograd.grad(
+        ssm.ssd_chunked(cfg, *ins)[0], ins, gy), 1)
+    return {"layer_fwd_ms": fwd, "layer_fwd_bwd_ms": both,
+            "step_scan_ms": cfg.n_layers * (fwd + both)}
+
+
+def mamba_train_phase(args, dev, card) -> dict:
+    """Phase 26: Mamba2-780M at full width and depth (48 layers, bf16,
+    remat on), 8 x 2048 tokens, 6 AdamW steps: losses finite and falling,
+    step time, peak memory, the SSD scan's share of the step; the scan's
+    gradients in float32 against float64 on the card."""
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import registry as models
+    from repro_torch.train.optimizer import OptConfig
+
+    set_precision()
+    cfg = get_arch(MAMBA_TRAIN[0])
+    grad = ssd_grad_check(cfg, dev, args.seed)
+    log("[train-mamba] ssd_chunked gradients, float32 vs float64 on the "
+        "card: " + json.dumps(grad))
+    oc = OptConfig(lr=3e-4, warmup_steps=2, total_steps=12)
+    start = models.init_params(
+        cfg, torch.Generator(dev).manual_seed(args.seed), dev)
+    res = full_train_run(cfg, oc, MAMBA_TRAIN, dev, args.seed, start)
+    del start
+    torch.cuda.empty_cache()
+    share = ssd_share(cfg, dev, MAMBA_TRAIN[1], MAMBA_TRAIN[2])
+    share["share_of_step"] = share["step_scan_ms"] / res["median_step_ms"]
+    share["share_of_busy"] = (share["step_scan_ms"]
+                              / res["profile"]["device_busy_ms"])
+    out = {"arch": cfg.name, "card": card, "adamw": res, "ssd_grad": grad,
+           "ssd_share": share}
+    log(f"[train-mamba] adamw: losses "
+        + " ".join(f"{x:.4f}" for x in res["losses"])
+        + f"; median step {res['median_step_ms']:.1f} "
+        f"ms, {res['tokens_per_s']:,.0f} tokens/s, train_mfu "
+        f"{res['train_mfu']:.3f}, peak {res['peak_gb']:.1f} GB; idle "
+        f"{res['profile']['idle_share']:.3f}; the SSD scan "
+        f"{share['step_scan_ms']:.1f} ms a step = "
+        f"{share['share_of_step']:.3f} of the step; top "
+        f"{json.dumps(res['profile']['top'][:4])} ({card})")
+    return out
+
+
+def load_module(file_name: str):
+    """`examples/<file_name>` as a module (examples/ is not a package)."""
+    import importlib.util
+
+    path = ROOT / "examples" / file_name
+    check(path.is_file(), f"{path} is missing")
+    spec = importlib.util.spec_from_file_location(path.stem, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def int_bits(t):
+    """A tensor's raw bits as an integer tensor of its width, on the CPU."""
+    import torch
+
+    t = t.detach().cpu()
+    return t.view({1: torch.int8, 2: torch.int16, 4: torch.int32}[
+        t.element_size()])
+
+
+def example_train_phase(dev, card) -> dict:
+    """Phase 27: `examples/train_lm_torch.py` on the card at its defaults
+    (OLMo-1B cut to d 512, 8 layers, float32; 200 steps of 8 x 256;
+    checkpoints every 100; a crash injected at 150): one restart, the
+    loss falling, tokens/s; the step-100 checkpoint restored on the CPU
+    equals, bit for bit (integer views), the state the card saved."""
+    import re
+    import tempfile
+
+    import torch
+
+    from repro_torch.ckpt.manager import CheckpointManager
+    from repro_torch.tree import leaves_with_paths, tree_map
+
+    example = load_module("train_lm_torch.py")
+    saved = {}
+    real_save = CheckpointManager.save
+
+    def save(self, step, tree, blocking=True):
+        if step == 100:
+            saved["tree"] = tree_map(torch.clone, tree)
+        return real_save(self, step, tree, blocking)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        CheckpointManager.save = save
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, text = captured(lambda: example.main(
+                ["--device", dev.type, "--ckpt-dir", tmp]))
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+        finally:
+            CheckpointManager.save = real_save
+        check(out["restarts"] == 1 and out["faults"] == [
+            "RuntimeError: injected crash at step 150"],
+            f"example: restarts {out['restarts']}, faults {out['faults']}")
+        check(out["final_loss"] < out["first_loss"], "example: no progress")
+        check("tree" in saved, "example: no step-100 checkpoint was saved")
+        restored, step = CheckpointManager(tmp).restore(
+            100, like=saved["tree"], device="cpu")
+        mismatched = [
+            "/".join(p) for (p, a), (_, b) in zip(
+                leaves_with_paths(saved["tree"]),
+                leaves_with_paths(restored))
+            if a.dtype != b.dtype or not torch.equal(int_bits(a),
+                                                     int_bits(b))]
+        check(step == 100 and not mismatched,
+              f"the step-100 checkpoint differs from the card's state: "
+              f"{mismatched[:5]}")
+    lines = text.splitlines()
+    for line in lines[:1] + [ln for ln in lines if ln.startswith(
+            ("[fault]", "final:"))]:
+        log(f"[train-example] {line}")
+    shape = re.search(r"steps x (\d+)x(\d+) tokens", lines[0])
+    check(shape is not None, f"example: first line {lines[0]!r}")
+    ran = len(out["losses"])                 # replayed steps included
+    tokens = ran * int(shape[1]) * int(shape[2])
+    res = {"card": card, "restarts": out["restarts"],
+           "faults": out["faults"], "first_loss": out["first_loss"],
+           "final_loss": out["final_loss"], "steps_run": ran,
+           "wall_s": wall_s, "tokens_per_s": tokens / wall_s,
+           "ckpt_leaves": len(leaves_with_paths(saved["tree"])),
+           "step100_bit_identical": True}
+    log(f"[train-example] {ran} steps run (200 + the 50 replayed) in "
+        f"{wall_s:.1f} s, {res['tokens_per_s']:,.0f} train tokens/s "
+        f"(checkpoints and the restart included); the step-100 checkpoint "
+        f"({res['ckpt_leaves']} leaves) restores on the CPU bit for bit "
+        f"({card})")
+    return res
+
+
+def train_cli_phase(dev) -> dict:
+    """Phase 28: `python -m repro_torch.launch.train --arch qwen2-1.5b
+    --smoke --steps 25 --batch 4 --seq 64 --ckpt-every 8 --inject-crash
+    12` in a subprocess on the card: its `done:` line shows 1 restart and
+    a falling loss."""
+    import os
+    import re
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        env = dict(os.environ, PYTHONPATH=str(SRC))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train",
+             *TRAIN_CLI_ARGS, "--ckpt-dir", tmp, "--device", dev.type],
+            capture_output=True, text=True, env=env, timeout=300,
+            check=False)
+        wall_s = time.perf_counter() - t0
+    for line in proc.stdout.splitlines():
+        log(f"[train-cli] {line}")
+    check(proc.returncode == 0, f"launch.train: rc {proc.returncode}\n"
+          f"{proc.stderr[-3000:]}")
+    done = re.fullmatch(r"done: first loss ([\d.]+) -> final ([\d.]+) "
+                        r"\((\d+) restarts\)",
+                        proc.stdout.rstrip().splitlines()[-1])
+    check(done is not None, f"launch.train printed {proc.stdout[-300:]!r}")
+    first, final, restarts = (float(done[1]), float(done[2]),
+                              int(done[3]))
+    check(restarts == 1 and final < first,
+          f"launch.train: {restarts} restarts, loss {first} -> {final}")
+    return {"first_loss": first, "final_loss": final, "restarts": restarts,
+            "wall_s": wall_s}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -2751,7 +3264,28 @@ def main(argv=None) -> int:
     strap_shapes = {record[key]["arch"]: record[key]["strap_timing"]
                     for key in ("pixtral", "olmo")}
 
-    # 24. the kernels line: row_cycle at the sized path's one launch over
+    # 24-28. training: one step of every smoke config on the card against
+    #    the CPU; OLMo-1B (AdamW, then AdamW8bit) and Mamba2-780M at full
+    #    width and depth; the example twin's config with an injected
+    #    crash and its step-100 checkpoint; the training CLI
+    t_train = time.perf_counter()
+    for k in (kernel, rc_kernel, strap_kernel):
+        k.launches = 0
+    record["train_parity"] = train_parity_phase(args, dev)
+    record["train_olmo"] = olmo_train_phase(args, dev, card)
+    record["train_mamba"] = mamba_train_phase(args, dev, card)
+    record["train_example"] = example_train_phase(dev, card)
+    record["train_cli"] = train_cli_phase(dev)
+    record["train_wall_s"] = time.perf_counter() - t_train
+    record["train_kernel_launches"] = {
+        "row_cycle_fused": kernel.launches,
+        "rc_multistep": rc_kernel.launches,
+        "strap_attend": strap_kernel.launches}
+    log(f"[train] phases 24-28 wall time {record['train_wall_s']:.1f} s; "
+        f"ported kernels launched there (none lies on the training path): "
+        f"{record['train_kernel_launches']}")
+
+    # 29. the kernels line: row_cycle at the sized path's one launch over
     #    299,008 rows and at one 2048-row chunk; rc_multistep at the phased
     #    path's ACT call; strap_attend at the full-width path's last
     #    exact-mode (and gated) step

@@ -105,15 +105,17 @@ def device_ms_by_kernel(fn, calls: int) -> dict:
     return by_name
 
 
-def profile(fn) -> dict:
-    """One call of `fn` under torch.profiler, after a warm-up call: host
-    wall time, the device time of its kernels (self CUDA time summed over
-    the trace), the idle share of the card over the call, and the kernels
+def profile(fn, warmup: bool = True) -> dict:
+    """One call of `fn` under torch.profiler, after a warm-up call unless
+    `warmup` is False (a train step that already ran warm): host wall
+    time, the device time of its kernels (self CUDA time summed over the
+    trace), the idle share of the card over the call, and the kernels
     taking most time."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
-    fn()
+    if warmup:
+        fn()
     torch.cuda.synchronize()
     with torch_profile(activities=[ProfilerActivity.CPU,
                                    ProfilerActivity.CUDA]) as prof:

@@ -193,3 +193,14 @@ def lm_logits(cfg, params, h):
     to float32 on every call, as the reference does."""
     table = params["embed"] if cfg.tie_embeddings else params["lm_head"]
     return torch.einsum("bsd,vd->bsv", h.float(), table.float())
+
+
+def cross_entropy(logits, targets, vocab_size: int):
+    """Mean cross entropy over all tokens, in float32: the logsumexp over
+    every column (the padded vocabulary's tail included, as in the
+    reference, which takes `vocab_size` and does not cut on it) minus the
+    gold logit."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    return torch.mean(logz - gold)

@@ -4,12 +4,13 @@ The conv audio frontend is a stub: `enc_embeds` arrive precomputed, as in
 the reference.  Sinusoidal positions, LayerNorm, GELU MLP, MHA (kv == q
 heads).  Decoder layers carry both self-attention (causal, cached at
 decode) and cross-attention over the encoder output (its K/V cached once
-at prefill, never written at decode).  Training (`forward_train`,
-`loss_fn`) is not ported yet (ROADMAP.md).
+at prefill, never written at decode).
 
 Public entry points (functions of (cfg, params, ...)):
   init_params     -> params on the requested device
   encode          -> (B, S_enc, D) encoder output
+  forward_train   -> (logits, aux_loss = 0.0)
+  loss_fn         -> scalar loss
   prefill         -> (last_logits, cache {"k", "v", "xk", "xv"})
   decode_step     -> (logits, cache), "k"/"v" updated in place
   cache_schema    -> Schema of the decode cache (shapes + logical axes)
@@ -20,8 +21,8 @@ from __future__ import annotations
 import torch
 
 from .attention import attn_schema, causal_attention, decode_attention
-from .common import (ParamSpec, Schema, add_norm, apply_norm, embed_schema,
-                     embed_tokens, init_from_schema, lm_logits,
+from .common import (ParamSpec, Schema, add_norm, apply_norm, cross_entropy,
+                     embed_schema, embed_tokens, init_from_schema, lm_logits,
                      sinusoid_pos_emb, torch_dtype)
 from .lm import layer_params
 from .mlp import mlp_apply, mlp_schema
@@ -92,9 +93,10 @@ def _cross_kv(cfg, lp, enc_out):
     return k, v
 
 
-def decode_train(cfg, params, tokens, enc_out):
+def decode_train(cfg, params, tokens, enc_out, collect_cache: bool = False):
     """The decoder over `tokens` (B, S) against `enc_out`: (h after the
-    final norm, cache {"k", "v", "xk", "xv"} stacked over layers)."""
+    final norm, cache {"k", "v", "xk", "xv"} stacked over layers when
+    `collect_cache`, else None)."""
     dtype = torch_dtype(cfg.compute_dtype)
     b, s = tokens.shape
     h = embed_tokens(params, tokens, dtype)
@@ -113,11 +115,29 @@ def decode_train(cfg, params, tokens, enc_out):
                                  kv_override=(xk, xv))[0]
         m_in = apply_norm(cfg, h, lp, "ln2")
         h = h + mlp_apply(cfg, lp, m_in)
-        ys.append((k, v, xk, xv))
+        if collect_cache:
+            ys.append((k, v, xk, xv))
     h = apply_norm(cfg, h, params, "final")
+    if not collect_cache:
+        return h, None
     cache = {name: torch.stack([y[i] for y in ys])
              for i, name in enumerate(("k", "v", "xk", "xv"))}
     return h, cache
+
+
+def forward_train(cfg, params, batch):
+    """((B, S, V) float32 logits of `batch["tokens"]` against the encoded
+    `batch["enc_embeds"]`, aux loss 0.0)."""
+    enc_out = encode(cfg, params, batch["enc_embeds"])
+    h, _ = decode_train(cfg, params, batch["tokens"], enc_out)
+    return (lm_logits(cfg, params, h),
+            torch.zeros((), dtype=torch.float32, device=h.device))
+
+
+def loss_fn(cfg, params, batch, aux_weight: float = 0.0):
+    """Cross entropy against `batch["targets"]` (no aux term)."""
+    logits, _ = forward_train(cfg, params, batch)
+    return cross_entropy(logits, batch["targets"], cfg.padded_vocab)
 
 
 def prefill(cfg, params, batch):
@@ -125,7 +145,8 @@ def prefill(cfg, params, batch):
     `batch["tokens"]` (B, S): (last-token logits (B, V) float32, cache
     {"k", "v": (L, B, S, H, hd), "xk", "xv": (L, B, S_enc, H, hd)})."""
     enc_out = encode(cfg, params, batch["enc_embeds"])
-    h, cache = decode_train(cfg, params, batch["tokens"], enc_out)
+    h, cache = decode_train(cfg, params, batch["tokens"], enc_out,
+                            collect_cache=True)
     return lm_logits(cfg, params, h[:, -1:, :])[:, 0], cache
 
 

@@ -6,11 +6,20 @@ tensors under "layers"); a Python loop over layers takes the place of
 `jax.lax.scan`.  The hybrid (Zamba2) family runs groups of
 `shared_attn_every` Mamba2 layers, each followed by ONE weight-shared
 attention+MLP block ("shared"), then the trailing Mamba2 layers
-("trailing").  Training (`forward_train`, `loss_fn`) is not ported yet
-(ROADMAP.md).
+("trailing").
+
+Training runs the same blocks under autograd: each stacked leaf is
+unbound once per forward (`_unstack`: the backward of one unbind is one
+stack, where a select per layer would write a zero tensor the size of the
+whole stack for every layer), and with `cfg.remat` each layer body (the
+hybrid: each group body, not the trailing layers) is recomputed in the
+backward instead of keeping its activations, where the reference puts
+`jax.checkpoint`.
 
 Public entry points (functions of (cfg, params, ...)):
   init_params     -> params on the requested device
+  forward_train   -> (logits, aux_loss)
+  loss_fn         -> scalar loss
   prefill         -> (last_logits, cache)
   decode_step     -> (logits, cache), the cache updated in place
   cache_schema    -> Schema of the decode cache (shapes + logical axes)
@@ -19,11 +28,13 @@ Public entry points (functions of (cfg, params, ...)):
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .attention import (attn_schema, causal_attention, decode_attention,
                         decode_attention_gated)
-from .common import (ParamSpec, Schema, add_norm, apply_norm, embed_schema,
-                     embed_tokens, init_from_schema, lm_logits, torch_dtype)
+from .common import (ParamSpec, Schema, add_norm, apply_norm, cross_entropy,
+                     embed_schema, embed_tokens, init_from_schema, lm_logits,
+                     torch_dtype)
 from .mlp import mlp_apply, mlp_schema
 from .moe import moe_apply, moe_schema
 from .ssm import ssm_apply, ssm_decode_step, ssm_schema
@@ -111,11 +122,18 @@ def ffn_apply(cfg, lp, m_in):
 
 
 def _tf_block(cfg, lp, h, positions):
+    """An attention layer over the prompt: (h, MoE aux loss (0.0 for the
+    dense MLP), (k, v))."""
     a_in = apply_norm(cfg, h, lp, "ln1")
     attn_out, (k, v) = causal_attention(cfg, lp, a_in, positions)
     h = h + attn_out
     m_in = apply_norm(cfg, h, lp, "ln2")
-    return h + ffn_apply(cfg, lp, m_in), (k, v)
+    if cfg.n_experts:
+        mo, aux = moe_apply(cfg, lp, m_in)
+    else:
+        mo = mlp_apply(cfg, lp, m_in)
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    return h + mo, aux, (k, v)
 
 
 def _ssm_block(cfg, lp, h):
@@ -195,13 +213,94 @@ def prefill(cfg, params, batch):
     else:
         ks, vs = [], []
         for li in range(cfg.n_layers):
-            h, (k, v) = _tf_block(cfg, layer_params(params, li), h, positions)
+            h, _, (k, v) = _tf_block(cfg, layer_params(params, li), h,
+                                     positions)
             ks.append(k)
             vs.append(v)
         cache = dict(k=torch.stack(ks).to(dtype), v=torch.stack(vs).to(dtype))
     logits = lm_logits(cfg, params, apply_norm(cfg, h[:, -1:, :], params,
                                                "final"))
     return logits[:, 0], cache
+
+
+# ---------------------------------------------------------------------------
+# Training
+# ---------------------------------------------------------------------------
+
+def _unstack(stacked: dict) -> list[dict]:
+    """Per-layer dicts of a stacked weight dict, one `unbind(0)` per leaf."""
+    cols = {k: v.unbind(0) for k, v in stacked.items()}
+    n = len(next(iter(cols.values())))
+    return [{k: c[i] for k, c in cols.items()} for i in range(n)]
+
+
+def _maybe_remat(cfg, fn):
+    """`fn` recomputed in the backward when `cfg.remat` (non-reentrant
+    `torch.utils.checkpoint`, the reference's `jax.checkpoint` with
+    nothing saveable)."""
+    if not cfg.remat:
+        return fn
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+
+
+def _ssm_layer(cfg, lp, h):
+    return h + ssm_apply(cfg, lp, apply_norm(cfg, h, lp, "ln1"))
+
+
+def _run_layers(cfg, params, h, positions):
+    """The layer stack for training: (h, aux loss summed over layers)."""
+    zero = torch.zeros((), dtype=torch.float32, device=h.device)
+    if cfg.family == "ssm":
+        body = _maybe_remat(cfg, lambda hh, lp: _ssm_layer(cfg, lp, hh))
+        for lp in _unstack(params["layers"]):
+            h = body(h, lp)
+        return h, zero
+    if cfg.family == "hybrid":
+        shared = params["shared"]
+
+        def group_body(hh, glp):
+            for lp in _unstack(glp):
+                hh = _ssm_layer(cfg, lp, hh)
+            return _shared_block(cfg, shared, hh, positions)[0]
+
+        body = _maybe_remat(cfg, group_body)
+        for glp in _unstack(params["layers"]):
+            h = body(h, glp)
+        if "trailing" in params:
+            for lp in _unstack(params["trailing"]):
+                h = _ssm_layer(cfg, lp, h)
+        return h, zero
+    body = _maybe_remat(cfg, lambda hh, lp: _tf_block(cfg, lp, hh,
+                                                       positions)[:2])
+    auxs = []
+    for lp in _unstack(params["layers"]):
+        h, aux = body(h, lp)
+        auxs.append(aux)
+    return h, torch.stack(auxs).sum()
+
+
+def forward_train(cfg, params, batch):
+    """Forward over `batch["tokens"]` (after `batch["vision_embeds"]` for a
+    VLM): ((B, S, V) float32 logits, the MoE aux loss summed over layers,
+    0.0 for the other families)."""
+    dtype = torch_dtype(cfg.compute_dtype)
+    h, positions = _embed_inputs(cfg, params, batch, dtype)
+    h, aux = _run_layers(cfg, params, h, positions)
+    h = apply_norm(cfg, h, params, "final")
+    return lm_logits(cfg, params, h), aux
+
+
+def loss_fn(cfg, params, batch, aux_weight: float = 0.01):
+    """Next-token cross entropy against `batch["targets"]` plus
+    `aux_weight` times the aux loss.  A VLM's logits are cut to the token
+    rows from `nv - 1` on, nv the vision tokens."""
+    logits, aux = forward_train(cfg, params, batch)
+    if cfg.n_vision_tokens and "vision_embeds" in batch:
+        nv = batch["vision_embeds"].shape[1]
+        t = batch["targets"].shape[1]
+        logits = logits[:, nv - 1: nv - 1 + t]
+    loss = cross_entropy(logits, batch["targets"], cfg.padded_vocab)
+    return loss + aux_weight * aux
 
 
 def cache_schema(cfg, batch: int, seq: int) -> Schema:

@@ -25,6 +25,14 @@ def init_params(cfg, generator: torch.Generator, device="cuda"):
     return _mod(cfg).init_params(cfg, generator, device)
 
 
+def forward_train(cfg, params, batch):
+    return _mod(cfg).forward_train(cfg, params, batch)
+
+
+def loss_fn(cfg, params, batch):
+    return _mod(cfg).loss_fn(cfg, params, batch)
+
+
 def prefill(cfg, params, batch):
     return _mod(cfg).prefill(cfg, params, batch)
 

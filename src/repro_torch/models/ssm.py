@@ -123,7 +123,8 @@ def ssd_chunked(cfg, x, bmat, cmat, dt, a_neg, h0=None):
     dt   : (B, L, nh)       (softplus'd, fp32)
     a_neg: (nh,)            A = -exp(A_log), fp32
     h0   : optional (B, nh, hp, st) initial state
-    Returns (y (B,L,nh,hp) float32, h_final (B,nh,hp,st) float32).
+    Returns (y (B,L,nh,hp) float32, h_final (B,nh,hp,st) float32); float64
+    inputs run in float64 (the gradient check's reference).
 
     Heads are grouped (ng, rep) with rep = nh // ng: head h reads B/C group
     h // rep, as the reference's `repeat` along the head axis.
@@ -133,10 +134,11 @@ def ssd_chunked(cfg, x, bmat, cmat, dt, a_neg, h0=None):
     q = chunk_size(cfg, l)
     nc = l // q
     rep = nh // ng
+    ct = torch.promote_types(x.dtype, torch.float32)   # float64 stays
 
-    xq = x.reshape(b, nc, q, nh, hp).float()
-    bg = bmat.reshape(b, nc, q, ng, st).float().permute(0, 1, 3, 2, 4)
-    cg = cmat.reshape(b, nc, q, ng, st).float().permute(0, 1, 3, 2, 4)
+    xq = x.reshape(b, nc, q, nh, hp).to(ct)
+    bg = bmat.reshape(b, nc, q, ng, st).to(ct).permute(0, 1, 3, 2, 4)
+    cg = cmat.reshape(b, nc, q, ng, st).to(ct).permute(0, 1, 3, 2, 4)
     dtq = dt.reshape(b, nc, q, nh)                    # (B,nc,Q,nh)
     cs = torch.cumsum(dtq * a_neg, dim=2)             # inclusive, negative
     total = cs[:, :, -1, :]                           # (B,nc,nh)
@@ -145,13 +147,26 @@ def ssd_chunked(cfg, x, bmat, cmat, dt, a_neg, h0=None):
     cs_h = cs.transpose(2, 3)                         # (B,nc,nh,Q)
 
     # ---- intra-chunk (dual quadratic form) ------------------------------
-    # decay(q, s) = exp(cs[q] - cs[s]) for q >= s, else 0; built in place
+    # decay(q, s) = exp(cs[q] - cs[s]) for q >= s, else 0.  Under no_grad
+    # it is built in place.  When autograd records it is built out of
+    # place (autograd saves the exp's output), and the upper triangle is
+    # set to -inf before the exp rather than to 0 after it: the same
+    # values, but there cs[q] - cs[s] > 0 overflows exp to inf once a
+    # chunk's decay sums past ~88.7 (Mamba2-780M's chunks of 256 do), and
+    # the backward would turn 0 * inf into NaN, as the reference's does
     decay = cs_h[..., :, None] - cs_h[..., None, :]   # (B,nc,nh,Q,S)
-    decay.exp_()
-    decay.masked_fill_(~torch.ones(q, q, dtype=torch.bool,
-                                   device=x.device).tril(), 0.0)
+    upper = ~torch.ones(q, q, dtype=torch.bool, device=x.device).tril()
     scores = cg @ bg.transpose(-1, -2)                # (B,nc,ng,Q,S)
-    decay.view(b, nc, ng, rep, q, q).mul_(scores[:, :, :, None])
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x, bmat, cmat, dt, a_neg, h0)):
+        decay = torch.exp(decay.masked_fill(upper, float("-inf")))
+        decay = (decay.view(b, nc, ng, rep, q, q)
+                 * scores[:, :, :, None]).reshape(b, nc, nh, q, q)
+    else:
+        decay.exp_()
+        decay.masked_fill_(upper, 0.0)
+        decay.view(b, nc, ng, rep, q, q).mul_(scores[:, :, :, None])
     y = decay @ dtx_h                                 # (B,nc,nh,Q,hp)
     del decay, scores
 
@@ -162,7 +177,7 @@ def ssd_chunked(cfg, x, bmat, cmat, dt, a_neg, h0=None):
                @ bg[:, :, :, None]).reshape(b, nc, nh, hp, st)
 
     # ---- inter-chunk scan -------------------------------------------------
-    h = (torch.zeros(b, nh, hp, st, dtype=torch.float32, device=x.device)
+    h = (torch.zeros(b, nh, hp, st, dtype=ct, device=x.device)
          if h0 is None else h0)
     decay_chunk = torch.exp(total)                    # (B,nc,nh)
     h_prevs = []

@@ -1,8 +1,10 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card: the fused row cycle, the multi-step RC ladder (phased engine) and
 the strap-gated decode attention (LM server), the MoE layer against
-its per-pair plain version, and the SSM scan and the ssm, hybrid and
-enc-dec decode steps on the card.
+its per-pair plain version, the SSM scan and the ssm, hybrid and
+enc-dec decode steps on the card, and training: a train step on the card
+against the CPU, the SSD backward where its decay overflows, and a
+checkpoint of the card's state restored on the CPU.
 
 Marked `gpu`: without a GPU every test here skips (the kernel has no CPU
 mode).  This file imports neither JAX nor the reference package, so it
@@ -801,3 +803,110 @@ def test_elastic_host_drop_on_card(cuda):
     assert rep.resume_overhead_frac == pytest.approx(0.25)
     assert (row_cycle.row_cycle_fused_cuda.launches - before
             == sum(rep.device_history))
+
+
+# --------------------------------------------------------------------------
+# training on the card
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name,microbatch", [
+    ("qwen2-1.5b-smoke", None), ("qwen2-1.5b-smoke", 2),
+    ("phi3.5-moe-42b-a6.6b-smoke", None), ("arctic-480b-smoke", None),
+    ("mamba2-780m-smoke", None), ("zamba2-7b-smoke", None),
+    ("whisper-tiny-smoke", None)])
+def test_train_step_on_card_matches_cpu(cuda, monkeypatch, name,
+                                        microbatch):
+    """One `make_train_step` step (float32, TF32 off) on the card and on
+    the CPU from the same weights and batch: loss and grad_norm within
+    2e-5 relative, every parameter within 2e-5 of max(max|cpu|, lr) (2e-4
+    on the ssm and hybrid configs; Adam's eps 1e-3, as in
+    tests/test_torch_train_step.py)."""
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.step import make_train_step
+    from repro_torch.tree import leaves, tree_map
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = get_arch(name)
+    oc = OptConfig(lr=1e-3, eps=1e-3, warmup_steps=1, total_steps=10)
+    tol = 2e-4 if cfg.family in ("ssm", "hybrid") else 2e-5
+    start = models.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab_size, (4, 65)).astype(np.int32)
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    if cfg.is_encdec:
+        batch["enc_embeds"] = rng.standard_normal((4, 32, cfg.d_model),
+                                                  dtype=np.float32)
+    out = {}
+    for dev in ("cpu", cuda):
+        params = tree_map(lambda t: t.to(dev, copy=True), start)
+        fn, opt = make_train_step(cfg, oc, microbatch)
+        params, _, m = fn(params, opt.init(params),
+                          {k: torch.as_tensor(v, device=dev)
+                           for k, v in batch.items()})
+        out[str(dev)] = (leaves(params), {k: v.item() for k, v in m.items()})
+    (pc, mc), (pg, mg) = out["cpu"], out[str(cuda)]
+    for k in mc:
+        assert abs(mg[k] - mc[k]) <= 2e-5 * abs(mc[k]), (k, mg[k], mc[k])
+    for want, got, old in zip(pc, pg, leaves(start)):
+        got = got.detach().cpu()
+        assert torch.isfinite(got).all() and not torch.equal(got, old)
+        scale = max(want.abs().max().item(), oc.lr)
+        assert (got - want.detach()).abs().max().item() <= tol * scale
+
+
+def test_ssd_backward_on_card_stays_finite_where_the_decay_overflows(cuda):
+    """Mamba2-780M's widths and chunks of 256 with the model's dt and A
+    (decay sums far past float32 exp's range in the masked triangle): the
+    float32 gradients are finite and within 2e-4 of max|float64| of the
+    same function run in float64 on the card."""
+    from repro_torch.models import ssm
+
+    cfg = get_arch("mamba2-780m")
+    rng = np.random.default_rng(0)
+    b, l, nh, hp, st = 1, 512, cfg.ssm_nheads, cfg.ssm_headdim, \
+        cfg.ssm_state
+    inputs = [rng.standard_normal((b, l, nh, hp)),
+              rng.standard_normal((b, l, 1, st)) * 0.5,
+              rng.standard_normal((b, l, 1, st)) * 0.5,
+              np.logaddexp(rng.standard_normal((b, l, nh)), 0.0),
+              -np.exp(0.5 * rng.standard_normal(nh))]
+    inputs = [np.asarray(a, np.float32) for a in inputs]
+    assert float((inputs[3][:, :256] * -inputs[4]).sum(1).max()) > 89
+
+    def grads(dtype):
+        ts = [torch.tensor(a, dtype=dtype, device=cuda, requires_grad=True)
+              for a in inputs]
+        y, _ = ssm.ssd_chunked(cfg, *ts)
+        return torch.autograd.grad(y.sum(), ts)
+
+    for g32, g64 in zip(grads(torch.float32), grads(torch.float64)):
+        assert torch.isfinite(g32).all()
+        err = (g32.double() - g64).abs().max() / g64.abs().max()
+        assert err.item() <= 2e-4
+
+
+def test_checkpoint_of_card_state_restores_on_cpu_bit_for_bit(cuda,
+                                                              tmp_path):
+    """A bf16 / float32 / int8 / int32 tree saved from the card without
+    blocking, then updated in place, restores on the CPU with the saved
+    bits."""
+    from repro_torch.ckpt.manager import CheckpointManager
+    from repro_torch.tree import leaves, tree_map
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    tree = {"p": torch.randn(64, 32, generator=gen, device=cuda)
+            .to(torch.bfloat16),
+            "w": torch.randn(3, 16, generator=gen, device=cuda),
+            "q": torch.randint(-127, 128, (8, 4), generator=gen,
+                               device=cuda, dtype=torch.int8),
+            "count": torch.full((), 5, dtype=torch.int32, device=cuda)}
+    saved = tree_map(lambda t: t.to("cpu", copy=True), tree)
+    ck = CheckpointManager(tmp_path)
+    ck.save(7, tree, blocking=False)
+    tree["p"].mul_(2)
+    tree["w"].add_(1)
+    ck.wait()
+    got, step = ck.restore(like=tree, device="cpu")
+    assert step == 7
+    for a, b_ in zip(leaves(saved), leaves(got)):
+        assert a.dtype == b_.dtype and torch.equal(a, b_)

@@ -25,13 +25,16 @@ from repro_torch.memory.strap_cache import (StrapCacheConfig,  # noqa: E402
 from repro_torch.models import registry as models  # noqa: E402
 from repro_torch.launch import (elastic, mesh, multiproc,  # noqa: E402
                                 serve, shard)
+from repro_torch.launch import train as launch_train  # noqa: E402
+from repro_torch.train import loop  # noqa: E402
 from repro_torch.serving.dse_service import DSEService  # noqa: E402
 from repro_torch.serving.engine import ServeEngine  # noqa: E402
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "src" / "repro_torch"
 PORT_FILES = sorted(PORT.rglob("*.py")) + [
-    REPO / "chip_smoke.py", REPO / "examples" / "dram_codesign_torch.py"]
+    REPO / "chip_smoke.py", REPO / "examples" / "dram_codesign_torch.py",
+    REPO / "examples" / "train_lm_torch.py"]
 
 
 FABRIC_FILES = ("runtime/fault.py", "launch/mesh.py", "launch/shard.py",
@@ -183,6 +186,10 @@ ENTRY_POINTS = {
         space.DesignSpace.paper_targets()),
     "multiproc.run_smoke": lambda: multiproc.run_smoke(),
     "multiproc.main(--smoke)": lambda: multiproc.main(["--smoke"]),
+    "train.loop.train": lambda: loop.train(get_arch("qwen2-1.5b-smoke"),
+                                           loop.TrainConfig(steps=1)),
+    "launch.train.main(--smoke)": lambda: launch_train.main(
+        ["--arch", "qwen2-1.5b", "--smoke"]),
 }
 
 

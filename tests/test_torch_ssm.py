@@ -141,6 +141,116 @@ def test_ssd_state_carries_across_calls(rng):
 
 
 # --------------------------------------------------------------------------
+# the scan's backward
+# --------------------------------------------------------------------------
+
+SSD_GRAD_ARGS = ("x", "bmat", "cmat", "dt", "a_neg", "h0")
+
+
+@pytest.mark.parametrize("with_h0", [False, True], ids=["zero_h0", "h0"])
+@pytest.mark.parametrize("ng", [1, 2])
+def test_ssd_chunked_gradients_match_reference(rng, ng, with_h0):
+    """d/d(x, B, C, dt, A[, h0]) of sum(y * wy) + sum(h * wh) against
+    `jax.grad` of the reference's `ssd_chunked`: 2e-4 of max|ref| per
+    input (the reference's SSD bar)."""
+    cfg, jcfg = cfgs()
+    inputs = list(ssd_inputs(rng, 2, 64, 4, 8, ng, cfg.ssm_state))
+    inputs.append(rng.normal(size=(2, 4, 8, cfg.ssm_state)).astype(
+        np.float32) if with_h0 else None)
+    wy = rng.normal(size=(2, 64, 4, 8)).astype(np.float32)
+    wh = rng.normal(size=(2, 4, 8, cfg.ssm_state)).astype(np.float32)
+    n = len(inputs) if with_h0 else len(inputs) - 1
+
+    def jloss(*args):
+        y, h = jssm.ssd_chunked(jcfg, *args[:5], args[5] if with_h0 else None)
+        return jnp.sum(y * wy) + jnp.sum(h * wh)
+
+    jgrads = jax.grad(jloss, argnums=tuple(range(n)))(
+        *(jnp.asarray(a) for a in inputs[:n]))
+    ts = [torch.tensor(a, requires_grad=True) for a in inputs[:n]]
+    y, h = ssm.ssd_chunked(cfg, *ts[:5], ts[5] if with_h0 else None)
+    loss = (y * torch.as_tensor(wy)).sum() + (h * torch.as_tensor(wh)).sum()
+    grads = torch.autograd.grad(loss, ts)
+    for name, g, jg in zip(SSD_GRAD_ARGS, grads, jgrads):
+        assert g.shape == jg.shape, name
+        close(g, jg, tol=2e-4)
+
+
+def test_ssd_chunked_gradients_match_float64(rng):
+    """The float32 scan's gradients against the same function run in
+    float64 (2e-4 of max|float64| per input)."""
+    cfg, _ = cfgs()
+    inputs = ssd_inputs(rng, 2, 64, 4, 8, 2, cfg.ssm_state)
+    wy = torch.as_tensor(rng.normal(size=(2, 64, 4, 8)))
+
+    def grads(dtype):
+        ts = [torch.tensor(a, dtype=dtype, requires_grad=True)
+              for a in inputs]
+        y, _ = ssm.ssd_chunked(cfg, *ts)
+        assert y.dtype == dtype
+        return torch.autograd.grad((y * wy.to(dtype)).sum(), ts)
+
+    for g32, g64 in zip(grads(torch.float32), grads(torch.float64)):
+        close(g32, g64.numpy(), tol=2e-4)
+
+
+def test_ssd_backward_stays_finite_where_the_decay_overflows(rng):
+    """Chunks of 64 whose decay sums reach ~300: exp(cs[q] - cs[s])
+    overflows float32 in the masked upper triangle.  The port's gradients
+    stay finite and match its float64 run (2e-4 of max|float64|), and its
+    output keeps the no_grad path's bits; the reference's gradient with
+    respect to dt is not finite there (0 * inf in the backward of its
+    masked exp; ROADMAP queue 3), which this pins."""
+    cfg, jcfg = cfgs(ssm_chunk=64)
+    x, bm, cm, _, _ = ssd_inputs(rng, 2, 128, 4, 8, 1, cfg.ssm_state)
+    dt = (np.abs(rng.normal(size=(2, 128, 4))) * 2 + 0.5).astype(np.float32)
+    a_neg = -(np.abs(rng.normal(size=(4,))) + 1).astype(np.float32)
+    inputs = (x, bm, cm, dt, a_neg)
+    assert float((dt[:, :64] * -a_neg).sum(1).max()) > 89   # exp overflows
+
+    def grads(dtype):
+        ts = [torch.tensor(a, dtype=dtype, requires_grad=True)
+              for a in inputs]
+        y, _ = ssm.ssd_chunked(cfg, *ts)
+        return y, torch.autograd.grad(y.sum(), ts)
+
+    y32, g32 = grads(torch.float32)
+    with torch.no_grad():
+        served, _ = ssm.ssd_chunked(cfg, *map(torch.as_tensor, inputs))
+    assert torch.equal(y32.detach(), served)
+    for g, g64 in zip(g32, grads(torch.float64)[1]):
+        assert torch.isfinite(g).all()
+        close(g, g64.numpy(), tol=2e-4)
+    jdt = jax.grad(lambda d: jnp.sum(jssm.ssd_chunked(
+        jcfg, *map(jnp.asarray, (x, bm, cm)), d, jnp.asarray(a_neg))[0]))(
+            jnp.asarray(dt))
+    assert not np.isfinite(np.asarray(jdt)).all()
+
+
+@pytest.mark.parametrize("name", [MAMBA, "zamba2-7b-smoke"])
+def test_prefill_backpropagates_and_no_grad_keeps_its_bits(name):
+    """`M.prefill` with every parameter requiring grad backpropagates
+    (the decay is built out of place under autograd), gives the same
+    logits bit for bit as the in-place path under no_grad, and every
+    parameter of the SSM layers gets a finite gradient."""
+    cfg = registry.get_arch(name)
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    tokens = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 64)))
+    with torch.no_grad():
+        served, _ = M.prefill(cfg, params, {"tokens": tokens})
+    leaves = [v for group in ("layers", "trailing") if group in params
+              for v in params[group].values()]
+    for v in leaves:
+        v.requires_grad_(True)
+    logits, _ = M.prefill(cfg, params, {"tokens": tokens})
+    assert torch.equal(logits.detach(), served)
+    grads = torch.autograd.grad(logits.square().sum(), leaves)
+    assert all(torch.isfinite(g).all() for g in grads)
+    assert all(g.abs().sum() > 0 for g in grads)
+
+
+# --------------------------------------------------------------------------
 # the mixer
 # --------------------------------------------------------------------------
 
