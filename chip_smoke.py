@@ -150,7 +150,32 @@ Phases (any failure exits non-zero and prints no result line):
    subprocess: its `done:` line, 1 restart, the loss falling; the wall
    time of phases 24-28 and the ported kernels' launches there (none of
    them lies on the training path) on a log line;
-29. one JSON line listing the ported kernels (row_cycle at the sweep's
+29. distributed training, NCCL at world size 1, mesh (1, 1, 1): OLMo-1B
+   at full width and depth, 8 x 2048 from `SyntheticSource`, three
+   `make_sharded_train_step` steps against three `make_train_step` steps
+   from the same weights and batches (`OptConfig(lr=3e-4)`, its 100
+   warm-up steps): parameters, AdamW state, losses and grad norms bit for
+   bit; both step times;
+30. two gloo processes sharing the card (`launch.group.run_group`; NCCL
+   refuses two ranks on one GPU), mesh (1, 2, 1), ZeRO over "data":
+   OLMo-1B in full, 8 x 2048 global, 3 AdamW steps on phase 29's weights
+   and batches (losses finite and falling, and beside phase 29's; per
+   rank the step time, the host-clock time of the parameter gather and
+   of the gradient psum, peak memory, optimizer-state bytes);
+   one float32 step of each smoke config (and qwen2-1.5b-smoke with
+   microbatch=2) against the single-process step on the card, phase 24's
+   bars; qwen2-1.5b-smoke's state saved sharded and restored whole and on
+   mesh (1, 1, 2), bit for bit;
+31. expert parallelism, two gloo processes on the card, mesh (1, 1, 2):
+   one Phi-3.5-MoE layer at full width (d 4096, 16 experts, top 2),
+   4 x 512 tokens, `moe_apply_ep` forward and backward in float32 and
+   bf16 against `moe_apply` on each rank's own tokens (2e-5 of max in
+   float32, 3e-2 in bf16), four all-to-alls (no fallback), the pairs
+   dropped and the times; the wall time of phases 29-31 and the ported
+   kernels' launches there, this process's and each member's (its
+   counts zeroed on entry and returned), summed and required to be 0
+   (none lies on the path), on a log line;
+32. one JSON line listing the ported kernels (row_cycle at the sweep's
    one launch over 299,008 rows and at one 2048-row chunk, with the
    cycles of a step; rc_multistep at the phased path's ACT call, with
    cycles a step, its block as the library reports it and, in its
@@ -160,7 +185,9 @@ Phases (any failure exits non-zero and prints no result line):
    `launches_by_path` (each served path's launches, 0 on the ssm,
    hybrid and enc-dec paths) and `by_shape` (the Pixtral and OLMo decode
    shapes); row_cycle's `launches_by_path` counts each path's launches,
-   read around it), then the card line, then the result line
+   read around it; every entry's `launches_by_path` has `dist_train`,
+   its launches in phases 29-31, this process's and the four members'
+   summed), then the card line, then the result line
    {"ok": true, "device": {...}}.
 
 It imports nothing of JAX and nothing of the JAX package.
@@ -2620,11 +2647,11 @@ def load_module(file_name: str):
 
 
 def int_bits(t):
-    """A tensor's raw bits as an integer tensor of its width, on the CPU."""
+    """A tensor's raw bits as an integer tensor of its width, on its
+    device."""
     import torch
 
-    t = t.detach().cpu()
-    return t.view({1: torch.int8, 2: torch.int16, 4: torch.int32}[
+    return t.detach().view({1: torch.int8, 2: torch.int16, 4: torch.int32}[
         t.element_size()])
 
 
@@ -2673,7 +2700,7 @@ def example_train_phase(dev, card) -> dict:
             "/".join(p) for (p, a), (_, b) in zip(
                 leaves_with_paths(saved["tree"]),
                 leaves_with_paths(restored))
-            if a.dtype != b.dtype or not torch.equal(int_bits(a),
+            if a.dtype != b.dtype or not torch.equal(int_bits(a.cpu()),
                                                      int_bits(b))]
         check(step == 100 and not mismatched,
               f"the step-100 checkpoint differs from the card's state: "
@@ -2732,6 +2759,536 @@ def train_cli_phase(dev) -> dict:
           f"launch.train: {restarts} restarts, loss {first} -> {final}")
     return {"first_loss": first, "final_loss": final, "restarts": restarts,
             "wall_s": wall_s}
+
+
+# --------------------------------------------------------------------------
+# distributed training: NCCL at world size 1, two gloo processes sharing the
+# card (ZeRO over "data"; expert parallelism over "model")
+# --------------------------------------------------------------------------
+
+DIST_OLMO = ("olmo-1b", 8, 2048)          # arch, global batch, seq (A, B)
+DIST_A_STEPS, DIST_B_STEPS = 3, 3
+DIST_LR = 3e-4          # OptConfig's defaults: 100 warm-up steps from 0
+DIST_B_MESH, DIST_B_RESTORE_MESH = (1, 2, 1), (1, 1, 2)
+EP_ARCH, EP_MESH = "phi3.5-moe-42b-a6.6b", (1, 1, 2)
+EP_TOKENS = (4, 512)                      # phase 18's shape
+EP_BAR = 2e-5                             # tests/test_torch_moe_ep.py
+EP_BF16_BAR = 3e-2                        # the port's bf16 bar
+DIST_TIMEOUT_S = 600.0
+
+
+def olmo_batches(cfg, b, s, seed, steps, dev) -> list:
+    """`steps` batches of b x s tokens from `SyntheticSource` (phase 25's
+    source), on `dev`."""
+    import torch
+
+    from repro_torch.data.pipeline import (DataLoader, LoaderConfig,
+                                           SyntheticSource)
+
+    loader = DataLoader(SyntheticSource(cfg.vocab_size, seed),
+                        LoaderConfig(batch_size=b, seq_len=s, seed=seed))
+    try:
+        return [{k: torch.as_tensor(v, device=dev)
+                 for k, v in loader.batch_at(i).items()}
+                for i in range(steps)]
+    finally:
+        loader.close()
+
+
+def timed_run(fn, params, state, batches) -> tuple:
+    """The steps of `fn` over `batches`: (params, state, [loss, grad_norm
+    per step], step ms each: host clock around the step and a sync)."""
+    metrics, ms = [], []
+    for batch in batches:
+        dev = next(iter(batch.values())).device
+        sync(dev)
+        t0 = time.perf_counter()
+        params, state, m = fn(params, state, batch)
+        sync(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        metrics += [m["loss"], m["grad_norm"]]
+    return params, state, metrics, ms
+
+
+def dist_world1_phase(args, dev, card) -> dict:
+    """Phase 29 (A): an NCCL group of one rank, mesh (1, 1, 1).  OLMo-1B at
+    full width and depth (bf16, remat), 8 x 2048 from `SyntheticSource`:
+    DIST_A_STEPS `make_sharded_train_step` steps against as many
+    `make_train_step` steps from the same weights and batches
+    (`OptConfig(lr=DIST_LR)`).  The parameters, the AdamW state, the
+    losses and the grad norms must match bit for bit."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.distributed.sharding import shard_tree
+    from repro_torch.launch.mesh import make_train_mesh
+    from repro_torch.models import registry as models
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.step import (make_sharded_train_step,
+                                        make_train_step, train_specs)
+    from repro_torch.tree import leaves, tree_map
+
+    set_precision()
+    arch, b, s = DIST_OLMO
+    cfg = get_arch(arch)
+    oc = OptConfig(lr=DIST_LR)
+    start = models.init_params(
+        cfg, torch.Generator(dev).manual_seed(args.seed), dev)
+    batches = olmo_batches(cfg, b, s, args.seed, DIST_A_STEPS, dev)
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    out = {"arch": cfg.name, "card": card, "mesh": [1, 1, 1],
+           "backend": backend, "batch": [b, s]}
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(backend, init_method=f"file://{tmp}/rdv",
+                                world_size=1, rank=0)
+        try:
+            mesh = make_train_mesh((1, 1, 1), device=dev.type)
+            for name in ("single", "sharded"):
+                params = tree_map(torch.clone, start)
+                if name == "single":
+                    fn, opt = make_train_step(cfg, oc)
+                else:
+                    params = shard_tree(params, train_specs(cfg, mesh)[0],
+                                        mesh)
+                    fn, opt = make_sharded_train_step(cfg, mesh, oc)
+                state = opt.init(params)
+                if dev.type == "cuda":
+                    torch.cuda.reset_peak_memory_stats()
+                params, state, metrics, ms = timed_run(fn, params, state,
+                                                       batches)
+                runs[name] = leaves({"o": state, "p": params}) + metrics
+                out[name] = {"step_ms": ms,
+                             "losses": [m.item() for m in metrics[::2]],
+                             "peak_gb": _peak_gb(dev)}
+                del params, state
+        finally:
+            dist.destroy_process_group()
+    same = [a.dtype == b.dtype and bool(torch.equal(int_bits(a),
+                                                   int_bits(b)))
+            for a, b in zip(runs["single"], runs["sharded"])]
+    del runs, start
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    out["leaves_compared"] = len(same)
+    out["bit_identical"] = all(same)
+    check(out["bit_identical"], f"A: {same.count(False)} of {len(same)} "
+          "leaves / metrics of the sharded step differ from the train step")
+    log(f"[dist-A] {backend} world 1, mesh (1, 1, 1), {cfg.name} {b} x {s}: "
+        f"sharded == make_train_step bit for bit over {len(same)} leaves "
+        f"and metrics; step ms single {out['single']['step_ms']}, sharded "
+        f"{out['sharded']['step_ms']}; losses {out['sharded']['losses']}; "
+        f"peak {out['single']['peak_gb']} / {out['sharded']['peak_gb']} GB "
+        f"({card})")
+    return out
+
+
+def _timing_wrapper(fn, spent: dict, key: str, dev):
+    """`fn` with its host-clock time, between two syncs, added to
+    `spent[key]`."""
+    def wrapper(*a, **k):
+        sync(dev)
+        t0 = time.perf_counter()
+        res = fn(*a, **k)
+        sync(dev)
+        spent[key] += (time.perf_counter() - t0) * 1e3
+        return res
+    return wrapper
+
+
+def _local_batch(batch, mesh) -> dict:
+    from repro_torch.distributed.sharding import batch_specs, local_block
+
+    specs = batch_specs(batch, mesh)
+    return {k: local_block(v, specs[k], mesh).contiguous()
+            for k, v in batch.items()}
+
+
+def _smoke_steps_vs_single(mesh, seed, dev) -> dict:
+    """One float32 sharded step of every smoke config (and of
+    qwen2-1.5b-smoke with microbatch=2) at 4 x 64 against the
+    single-process step on the card: phase 24's bars.  Returns the
+    results and qwen2-1.5b-smoke's state (local blocks) and specs."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.registry import get_arch, list_archs
+    from repro_torch.distributed.sharding import gather_tree, shard_tree
+    from repro_torch.models import registry as models
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.step import (make_sharded_train_step,
+                                        make_train_step, train_specs)
+    from repro_torch.tree import leaves, leaves_with_paths, tree_map
+
+    oc = OptConfig(lr=1e-3, eps=1e-3, warmup_steps=1, total_steps=10)
+    cases = [(n + "-smoke", None) for n in list_archs()]
+    cases.append(("qwen2-1.5b-smoke", 2))
+    out, kept = {}, None
+    for name, microbatch in cases:
+        cfg = get_arch(name)
+        tol = TRAIN_SSD_BAR if cfg.family in ("ssm", "hybrid") else TRAIN_BAR
+        start = models.init_params(cfg, torch.Generator().manual_seed(seed),
+                                   "cpu")
+        batch = train_batch(cfg, np.random.default_rng(seed), TRAIN_B,
+                            TRAIN_S, dev)
+        fn, opt = make_train_step(cfg, oc, microbatch)
+        single = tree_map(lambda t: t.to(dev, copy=True), start)
+        single, _, ms = fn(single, opt.init(single), batch)
+        p_specs, o_specs = train_specs(cfg, mesh)
+        params = tree_map(torch.clone, shard_tree(
+            tree_map(lambda t: t.to(dev), start), p_specs, mesh))
+        sfn, sopt = make_sharded_train_step(cfg, mesh, oc, microbatch)
+        state = sopt.init(params)
+        params, state, m = sfn(params, state, _local_batch(batch, mesh))
+        worst = 0.0
+        for (path, want), got in zip(leaves_with_paths(single),
+                                     leaves(gather_tree(params, p_specs,
+                                                        mesh))):
+            scale = max(want.abs().max().item(), oc.lr)
+            err = (got - want).abs().max().item() / scale
+            worst = max(worst, err)
+            check(err <= tol, f"B: {name}: {path} sharded vs single "
+                  f"{err:.3e} of max(max|single|, lr), bar {tol}")
+        rel_err = {k: rel(m[k].item(), ms[k].item()) for k in ms}
+        check(all(r <= TRAIN_BAR for r in rel_err.values()),
+              f"B: {name}: sharded metrics {m} vs single {ms}")
+        key = name + (f"/microbatch{microbatch}" if microbatch else "")
+        out[key] = {"optimizer": cfg.optimizer, "loss": m["loss"].item(),
+                    "loss_rel_err": rel_err["loss"],
+                    "grad_norm_rel_err": rel_err["grad_norm"],
+                    "param_worst_err": worst, "bar": tol}
+        if name == "qwen2-1.5b-smoke" and microbatch is None:
+            kept = (cfg, {"opt": state, "params": params},
+                    {"opt": o_specs, "params": p_specs})
+    return out, kept
+
+
+def _restore_checks(kept, mesh, ckpt_dir, dev) -> dict:
+    """`kept` saved sharded from `mesh`; restored whole on rank 0 and on
+    mesh DIST_B_RESTORE_MESH, each gathered tree against the saved one,
+    bit for bit."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.ckpt.manager import CheckpointManager
+    from repro_torch.distributed.sharding import gather_tree
+    from repro_torch.launch.mesh import make_train_mesh
+    from repro_torch.train.step import train_specs
+    from repro_torch.tree import leaves
+
+    cfg, tree, specs = kept
+    mgr = CheckpointManager(ckpt_dir)
+    mgr.save(1, tree, mesh=mesh, specs=specs)
+    want = gather_tree(tree, specs, mesh)
+    res = {"arch": cfg.name, "saved_on": list(DIST_B_MESH)}
+    if dist.get_rank() == 0:
+        whole, _ = mgr.restore(1, like=want, device=dev)
+        res["whole_bit_identical"] = all(
+            torch.equal(int_bits(a), int_bits(b))
+            for a, b in zip(leaves(whole), leaves(want)))
+        check(res["whole_bit_identical"], "B: the whole restore differs")
+    mesh_b = make_train_mesh(DIST_B_RESTORE_MESH, device=dev.type)
+    pb, ob = train_specs(cfg, mesh_b)
+    specs_b = {"opt": ob, "params": pb}
+    got, _ = mgr.restore(1, like=want, device=dev, mesh=mesh_b,
+                         specs=specs_b)
+    res["restored_on"] = list(DIST_B_RESTORE_MESH)
+    res["resharded_bit_identical"] = all(
+        torch.equal(int_bits(a), int_bits(b)) for a, b in
+        zip(leaves(gather_tree(got, specs_b, mesh_b)), leaves(want)))
+    check(res["resharded_bit_identical"], "B: the resharded restore differs")
+    return res
+
+
+def _kernel_wrappers() -> dict:
+    """The three ported kernels' wrappers, by name (their `launches`
+    counts are per process)."""
+    from repro_torch.kernels import rc_transient, row_cycle, strap_gather
+
+    return {"row_cycle_fused": row_cycle.row_cycle_fused_cuda,
+            "rc_multistep": rc_transient.rc_multistep_cuda,
+            "strap_attend": strap_gather.strap_attend_cuda}
+
+
+def _zero_launches() -> dict:
+    wrappers = _kernel_wrappers()
+    for k in wrappers.values():
+        k.launches = 0
+    return wrappers
+
+
+def _member_device(device: str):
+    """This member's device: the card (cuda:0, which both members share)
+    or the CPU."""
+    import torch
+
+    if device == "cuda":
+        torch.cuda.set_device(0)
+        return torch.device("cuda", 0)
+    return torch.device(device)
+
+
+def _peak_gb(dev):
+    import torch
+
+    return torch.cuda.max_memory_allocated() / 1e9 \
+        if dev.type == "cuda" else None
+
+
+def dist_member_zero(seed: int, ckpt_dir: str, arch: str, batch: int,
+                     seq: int, steps: int, lr: float, device: str) -> dict:
+    """Phase 30 (B), in each of two gloo processes sharing cuda:0, mesh
+    (1, 2, 1): OLMo-1B at full width, 8 x 2048 global (4 x 2048 a rank),
+    DIST_B_STEPS AdamW steps (losses finite and falling; step time, the
+    host-clock time of the parameter gather and of the gradient psum,
+    peak memory and optimizer-state bytes); one float32 step of each smoke
+    config against the single-process step; qwen2-1.5b-smoke's state saved
+    sharded and restored whole and on (1, 1, 2), bit for bit."""
+    import torch
+    import torch.distributed as dist
+
+    import repro_torch.train.step as step_mod
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.distributed.sharding import shard_tree
+    from repro_torch.launch.mesh import make_train_mesh
+    from repro_torch.models import registry as models
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.tree import tree_map
+
+    wrappers = _zero_launches()
+    set_precision()
+    dev = _member_device(device)
+    mesh = make_train_mesh(DIST_B_MESH, device=device)
+    rank = dist.get_rank()
+    cfg = get_arch(arch)
+    oc = OptConfig(lr=lr)
+    p_specs, _ = step_mod.train_specs(cfg, mesh)
+    full = models.init_params(cfg, torch.Generator(dev).manual_seed(seed),
+                              dev)
+    params = tree_map(torch.clone, shard_tree(full, p_specs, mesh))
+    del full
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    spent = {"gather_ms": 0.0, "psum_ms": 0.0}
+    step_mod.gather_block = _timing_wrapper(step_mod.gather_block, spent,
+                                            "gather_ms", dev)
+    step_mod.hierarchical_psum_tree = _timing_wrapper(
+        step_mod.hierarchical_psum_tree, spent, "psum_ms", dev)
+    fn, opt = step_mod.make_sharded_train_step(cfg, mesh, oc)
+    state = opt.init(params)
+    batches = [_local_batch(b, mesh) for b in
+               olmo_batches(cfg, batch, seq, seed, steps, dev)]
+    params, state, metrics, ms = timed_run(fn, params, state, batches)
+    losses = [m.item() for m in metrics[::2]]
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"B: rank {rank}: losses {losses}")
+    olmo = {"arch": cfg.name, "mesh": list(DIST_B_MESH),
+            "local_batch": list(batches[0]["tokens"].shape),
+            "losses": losses, "step_ms": ms,
+            "gather_ms": spent["gather_ms"] / len(ms),
+            "psum_ms": spent["psum_ms"] / len(ms),
+            "peak_gb": _peak_gb(dev),
+            "param_bytes": tree_bytes(params),
+            "opt_state_bytes": tree_bytes({k: v for k, v in state.items()
+                                           if k != "count"})}
+    del params, state, batches
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    smoke, kept = _smoke_steps_vs_single(mesh, seed, dev)
+    restore = _restore_checks(kept, mesh, ckpt_dir, dev)
+    return {"rank": rank, "olmo": olmo, "smoke": smoke, "restore": restore,
+            "kernel_launches": {n: k.launches for n, k in wrappers.items()}}
+
+
+def _dropped_pairs(cfg, p, xs) -> int:
+    """Pairs beyond the capacity of the tokens `xs` routed alone."""
+    import torch
+
+    from repro_torch.models import moe
+
+    xf = xs.reshape(-1, xs.shape[-1])
+    _, _, idx = moe._route(cfg, p, xf)
+    counts = torch.bincount(idx.reshape(-1), minlength=cfg.n_experts)
+    return int((counts - moe._capacity(cfg, xf.shape[0])).clamp(min=0)
+               .sum().item())
+
+
+def dist_member_ep(seed: int, arch: str, batch: int, seq: int,
+                   device: str) -> dict:
+    """Phase 31 (C), in each of two gloo processes sharing cuda:0, mesh
+    (1, 1, 2): one Phi-3.5-MoE layer at full width (d 4096, 16 experts,
+    top 2), tokens 4 x 512.  `moe_apply_ep` forward and backward, in
+    float32 and bf16, against `moe_apply` on this rank's own sequence
+    slice (no mesh): outputs and the input's gradient within EP_BAR of
+    max|ref| in float32 (EP_BF16_BAR in bf16), the router's gradient and
+    the first expert of each rank's block against the sum over the ranks
+    of the local gradients; four all-to-alls a forward and backward (the
+    EP path ran, no fallback); pairs dropped and times recorded."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed import context as mesh_ctx
+    from repro_torch.launch.mesh import make_train_mesh
+    from repro_torch.models import moe
+    from repro_torch.models.common import init_from_schema
+
+    wrappers = _zero_launches()
+    set_precision()
+    dev = _member_device(device)
+    mesh = make_train_mesh(EP_MESH, device=device)
+    model = mesh.get_group("model")
+    r, ep = mesh_ctx.mesh_coords(mesh)["model"], EP_MESH[2]
+    cfg = get_arch(arch)
+    b, s = batch, seq
+    sl = s // ep
+    p32 = init_from_schema(moe.moe_schema(cfg),
+                           torch.Generator(dev).manual_seed(seed),
+                           torch.float32, dev)
+    gen = torch.Generator(dev).manual_seed(seed + 1)
+    x32 = torch.randn((b, s, cfg.d_model), generator=gen, device=dev)
+    wy = torch.randn((b, s, cfg.d_model), generator=gen, device=dev)
+    keys = sorted(p32)
+    el = cfg.n_experts // ep
+    out = {"arch": cfg.name, "mesh": list(EP_MESH), "tokens": [b, s],
+           "d_model": cfg.d_model, "n_experts": cfg.n_experts,
+           "top_k": cfg.top_k, "rank": dist.get_rank(), "model_coord": r}
+    for dtype, bar in ((torch.float32, EP_BAR), (torch.bfloat16, EP_BF16_BAR)):
+        p = {k: v.to(dtype).requires_grad_() for k, v in p32.items()}
+        x = x32.to(dtype).requires_grad_()
+        before = C.counts["all_to_all"]
+        sync(dev)
+        t0 = time.perf_counter()
+        with mesh_ctx.mesh_scope(mesh):
+            y, aux = moe.moe_apply_ep(cfg, p, x)
+            sync(dev)
+            t1 = time.perf_counter()
+            grads = torch.autograd.grad((y.float() * wy).sum(),
+                                        [x] + [p[k] for k in keys])
+        sync(dev)
+        t2 = time.perf_counter()
+        a2a = C.counts["all_to_all"] - before
+        check(a2a == 4, f"C: {a2a} all-to-alls, expected 4 (EP fell back?)")
+        # the reference semantics: moe_apply on this rank's tokens alone
+        ps = {k: v.detach().requires_grad_() for k, v in p.items()}
+        xs = x.detach()[:, r * sl:(r + 1) * sl].contiguous().requires_grad_()
+        sync(dev)
+        t3 = time.perf_counter()
+        ys, _ = moe.moe_apply(cfg, ps, xs)
+        sync(dev)
+        t4 = time.perf_counter()
+        gs = torch.autograd.grad((ys.float() * wy[:, r * sl:(r + 1) * sl])
+                                 .sum(), [xs] + [ps[k] for k in keys])
+        sync(dev)
+        t5 = time.perf_counter()
+        errs = {"y": (y.detach()[:, r * sl:(r + 1) * sl].float()
+                      - ys.detach().float()).abs().max().item()
+                / ys.detach().float().abs().max().item(),
+                "grad_x": (grads[0][:, r * sl:(r + 1) * sl].float()
+                           - gs[0].float()).abs().max().item()
+                / gs[0].float().abs().max().item()}
+        # the weights' gradients: summed over the "model" ranks' tokens
+        for k, g_ep, g_loc in zip(keys, grads[1:], gs[1:]):
+            if k == "router":
+                want = C.all_reduce(g_loc.float(), model)
+                got = g_ep.float()
+            else:
+                firsts = [j * el for j in range(ep)]
+                want = C.all_reduce(g_loc[firsts].float(), model)
+                got = g_ep[firsts].float()
+            errs["grad_" + k] = ((got - want).abs().max().item()
+                                 / want.abs().max().item())
+        for k, e in errs.items():
+            check(e <= bar, f"C: {dtype}: {k} EP vs local {e:.3e} of "
+                  f"max|local| (bar {bar})")
+        out[str(dtype).removeprefix("torch.")] = {
+            "err_of_max": errs, "bar": bar, "all_to_all": a2a,
+            "aux": aux.item(),
+            "dropped_pairs_local": _dropped_pairs(cfg, p, xs.detach()),
+            "pairs_local": b * sl * cfg.top_k,
+            "capacity_local": moe._capacity(cfg, b * sl),
+            "ep_forward_ms": (t1 - t0) * 1e3,
+            "ep_backward_ms": (t2 - t1) * 1e3,
+            "local_forward_ms": (t4 - t3) * 1e3,
+            "local_backward_ms": (t5 - t4) * 1e3}
+        del p, x, y, grads, ps, xs, ys, gs
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    out["kernel_launches"] = {n: k.launches for n, k in wrappers.items()}
+    return out
+
+
+def dist_gloo_phase(args, dev, target: str, card: str, **kwargs) -> list:
+    """Two gloo processes sharing the card (`dev`) run `target` of this
+    module (`launch.group.run_group`, file rendezvous, its own timeout);
+    their results in rank order.  NCCL refuses two ranks on one GPU."""
+    import torch
+
+    from repro_torch.launch.group import run_group
+
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    results = run_group(f"chip_smoke:{target}", 2,
+                        dict(seed=args.seed, device=dev.type, **kwargs),
+                        timeout_s=DIST_TIMEOUT_S, pythonpath=[ROOT])
+    for res in results:
+        res["card"] = card
+        res["group_wall_s"] = time.perf_counter() - t0
+    return results
+
+
+def dist_zero_phase(args, dev, card, single_losses) -> list:
+    """Phase 30 (B) from the parent; `single_losses`: phase 29's
+    single-process losses on the same weights and batches, which the
+    sharded losses are recorded against."""
+    import tempfile
+
+    arch, b, s = DIST_OLMO
+    with tempfile.TemporaryDirectory() as tmp:
+        results = dist_gloo_phase(args, dev, "dist_member_zero", card,
+                                  ckpt_dir=tmp, arch=arch, batch=b, seq=s,
+                                  steps=DIST_B_STEPS, lr=DIST_LR)
+    for res in results:
+        o = res["olmo"]
+        o["loss_rel_vs_single"] = [rel(x, y) for x, y in
+                                   zip(o["losses"], single_losses)]
+        log(f"[dist-B] rank {res['rank']} of 2 gloo on the card, mesh "
+            f"{tuple(o['mesh'])}, {o['arch']} {o['local_batch']} a rank: "
+            f"losses {[round(x, 4) for x in o['losses']]}, step ms "
+            f"{[round(x, 1) for x in o['step_ms']]} (losses vs phase 29's "
+            f"{[f'{x:.1e}' for x in o['loss_rel_vs_single']]}), gather "
+            f"{o['gather_ms']:.1f} ms + psum {o['psum_ms']:.1f} ms a step "
+            f"(host clock), peak {o['peak_gb']} GB, optimizer state "
+            f"{o['opt_state_bytes'] / 1e9:.3f} GB; smoke configs "
+            f"{len(res['smoke'])} within the bars (worst "
+            f"{max(v['param_worst_err'] for v in res['smoke'].values()):.2e}"
+            f"); restore {res['restore']} ({card})")
+    return results
+
+
+def dist_ep_phase(args, dev, card) -> list:
+    results = dist_gloo_phase(args, dev, "dist_member_ep", card,
+                              arch=EP_ARCH, batch=EP_TOKENS[0],
+                              seq=EP_TOKENS[1])
+    for res in results:
+        for dt in ("float32", "bfloat16"):
+            e = res[dt]
+            log(f"[dist-C] rank {res['rank']} (model {res['model_coord']}) "
+                f"{res['arch']} layer {dt}: EP vs local worst "
+                f"{max(e['err_of_max'].values()):.2e} of max (bar "
+                f"{e['bar']}), {e['all_to_all']} all-to-alls, dropped "
+                f"{e['dropped_pairs_local']} of {e['pairs_local']} pairs "
+                f"(cap {e['capacity_local']}), EP fwd "
+                f"{e['ep_forward_ms']:.1f} / bwd {e['ep_backward_ms']:.1f} "
+                f"ms, local fwd {e['local_forward_ms']:.1f} / bwd "
+                f"{e['local_backward_ms']:.1f} ms ({card})")
+    return results
 
 
 def main(argv=None) -> int:
@@ -3285,7 +3842,34 @@ def main(argv=None) -> int:
         f"ported kernels launched there (none lies on the training path): "
         f"{record['train_kernel_launches']}")
 
-    # 29. the kernels line: row_cycle at the sized path's one launch over
+    # 29-31. distributed training: NCCL at world size 1 (bit for bit the
+    #    train step), two gloo processes sharing the card (ZeRO over
+    #    "data"; expert parallelism over "model")
+    t_dist = time.perf_counter()
+    for k in (kernel, rc_kernel, strap_kernel):
+        k.launches = 0
+    record["dist_world1"] = dist_world1_phase(args, dev, card)
+    record["dist_zero"] = dist_zero_phase(
+        args, dev, card, record["dist_world1"]["single"]["losses"])
+    record["dist_ep"] = dist_ep_phase(args, dev, card)
+    record["dist_wall_s"] = time.perf_counter() - t_dist
+    # phase 29 ran here; phases 30 and 31 ran in two processes each,
+    # whose counts come back in their results
+    dist_launches = {"row_cycle_fused": kernel.launches,
+                     "rc_multistep": rc_kernel.launches,
+                     "strap_attend": strap_kernel.launches}
+    for res in record["dist_zero"] + record["dist_ep"]:
+        for n, c in res["kernel_launches"].items():
+            dist_launches[n] += c
+    record["dist_kernel_launches"] = dist_launches
+    check(not any(dist_launches.values()),
+          f"phases 29-31 launched a ported kernel: {dist_launches}")
+    log(f"[dist] phases 29-31 wall time {record['dist_wall_s']:.1f} s; "
+        f"ported kernels launched there, this process and the four "
+        f"members summed (none lies on the distributed training path): "
+        f"{dist_launches}")
+
+    # 32. the kernels line: row_cycle at the sized path's one launch over
     #    299,008 rows and at one 2048-row chunk; rc_multistep at the phased
     #    path's ACT call; strap_attend at the full-width path's last
     #    exact-mode (and gated) step
@@ -3345,6 +3929,9 @@ def main(argv=None) -> int:
         strap_line(strap_kernel, ops, strap_calls,
                    record["serve"]["backends"]["strap_exact"]["launches"],
                    strap_err, registers, strap_paths, strap_shapes)]}
+    for entry in line["kernels"]:
+        entry.setdefault("launches_by_path", {})["dist_train"] = \
+            dist_launches[entry["name"]]
     log("[kernels] row_cycle_fused: " + json.dumps(line["kernels"][0]))
     log("[kernels] rc_multistep: " + json.dumps(line["kernels"][1]))
     log("[kernels] strap_attend: " + json.dumps(line["kernels"][2]))

@@ -5,9 +5,11 @@ sweep in PyTorch and runs its hot loops in hand-written CUDA kernels
 (`kernels/csrc/`): the fused row-cycle transient of the sweep, the
 RC-ladder steps of the phased engine, and the strap-gated decode attention
 of the LM server (`serving.engine.ServeEngine` over `memory.strap_cache`).
-Its models also train in one process (`train.step`, `train.loop`,
-`data.pipeline`, `ckpt.manager`), in plain PyTorch: no Pallas kernel
-lies on the reference's training path.  It imports neither JAX nor
+Its models also train, in one process (`train.step`, `train.loop`,
+`data.pipeline`, `ckpt.manager`) and across processes on
+`torch.distributed` (`distributed`, `train.step.make_sharded_train_step`),
+in plain PyTorch: no Pallas kernel lies on the reference's training
+path.  It imports neither JAX nor
 `repro`: the calibration registries and the model configs are kept as
 copies here and held equal to the reference by the `tests/test_torch_*`
 parity tests.

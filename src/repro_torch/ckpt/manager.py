@@ -12,9 +12,14 @@ checkpoint written by either package restores in the other:
 bfloat16 leaves travel as uint16 views.  `save` copies every leaf to the
 host before it returns, synchronously and as a copy even of a CPU tensor,
 so an update in place after a non-blocking save cannot reach the files.
-The reference's `restore(mesh=, specs=)` (resharding on load) is not
-ported (ROADMAP.md): `restore(..., device=)` puts every leaf on one
-device.
+
+A sharded tree (each rank's blocks under a spec tree on a mesh) is saved
+whole: every rank gathers every leaf, and the mesh's first rank writes
+the files, the same files an unsharded save writes.  `restore(mesh=,
+specs=)` reshards on load, as the reference's does: each rank takes its
+blocks of the full leaves under the target mesh's specs, so a checkpoint
+written on one mesh restores onto any other whose specs divide the
+shapes.
 """
 
 from __future__ import annotations
@@ -28,8 +33,10 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..device import resolve_device
+from ..distributed.sharding import gather_tree, shard_tree
 from ..tree import leaves_with_paths, unflatten
 
 
@@ -57,7 +64,20 @@ class CheckpointManager:
         self._thread: threading.Thread | None = None
 
     # -- save -------------------------------------------------------------
-    def save(self, step: int, tree, blocking: bool = True):
+    def save(self, step: int, tree, blocking: bool = True, mesh=None,
+             specs=None):
+        """Write `tree` as checkpoint `step`.  With `mesh` and `specs`,
+        `tree` is this rank's blocks: every rank of the mesh calls save,
+        the leaves are gathered, and only the mesh's first rank writes
+        (blocking: every rank of the process group waits at a barrier
+        until the files are published; the mesh spans the group)."""
+        if mesh is not None:
+            tree = gather_tree(tree, specs, mesh)
+            if dist.get_rank() == int(mesh.mesh.flatten()[0]):
+                self.save(step, tree, blocking)
+            if blocking:
+                dist.barrier()
+            return step
         flat = leaves_with_paths(tree)
         host = [_host(x) for _, x in flat]
         host_leaves = [arr for arr, _ in host]
@@ -111,11 +131,14 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int | None = None, like=None, device="cuda"):
+    def restore(self, step: int | None = None, like=None, device="cuda",
+                mesh=None, specs=None):
         """Restore a tree: (tree, step).  `like` (a tree of tensors) fixes
         the structure and each leaf's dtype; every leaf lands on `device`
         (default "cuda"; raises without a GPU unless `device="cpu"`).
-        `step=None` takes the latest."""
+        `step=None` takes the latest.  With `mesh` and `specs` each leaf is
+        this rank's block of it under its spec (`sharding.local_block`),
+        a tensor of its own."""
         dev = resolve_device(device)
         if step is None:
             step = self.latest_step()
@@ -132,4 +155,9 @@ class CheckpointManager:
         out = [_tensor(np.load(d / f"leaf_{i:05d}.npy"), want)
                .to(device=dev, dtype=ref.dtype)
                for i, (ref, want) in enumerate(zip(refs, meta["dtypes"]))]
-        return unflatten(like, out), step
+        tree = unflatten(like, out)
+        if mesh is not None:
+            tree = shard_tree(tree, specs, mesh)
+            tree = unflatten(like, [x.clone() for _, x in
+                                    leaves_with_paths(tree)])
+        return tree, step

@@ -13,7 +13,9 @@ Meshes are made by FUNCTIONS (never module-level constants), so importing
 this module touches no device and no process group.  Port of
 `repro.launch.mesh`; `make_production_mesh` builds the training
 topology (a 16 x 16 grid, or 2 x 16 x 16 with the "pod" axis outermost)
-as a `torch.distributed` `DeviceMesh`.
+as a `torch.distributed` `DeviceMesh`, and `make_train_mesh` a
+("pod", "data", "model") `DeviceMesh` of any shape over the process
+group (gloo on the CPU or sharing a card, NCCL one rank a card).
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ import torch
 from ..device import resolve_device
 
 __all__ = ["SweepMesh", "make_sweep_mesh", "make_test_mesh",
-           "make_local_mesh", "make_production_mesh"]
+           "make_local_mesh", "make_production_mesh", "make_train_mesh"]
 
 
 @dataclass(frozen=True)
@@ -150,3 +152,31 @@ def make_production_mesh(*, multi_pod: bool = False):
         return init_device_mesh("cuda", shape, mesh_dim_names=axes)
     return DeviceMesh("cuda", torch.arange(n).reshape(shape),
                       mesh_dim_names=axes)
+
+
+def make_train_mesh(shape=(1, 1, 1), device="cuda"):
+    """The ("pod", "data", "model") training mesh of `shape` as a
+    `DeviceMesh` over the initialized default process group, one rank a
+    position in rank order.  `device` is where the training tensors live
+    (default "cuda"; raises without a GPU unless `device="cpu"`).  Under
+    NCCL the tensors must be on the rank's card; under gloo they may be
+    on the CPU or on a card (gloo stages them through the host), and the
+    mesh's groups are gloo groups."""
+    dev = resolve_device(device)
+    import torch.distributed as dist
+    if not dist.is_initialized():
+        raise RuntimeError("initialize a process group first "
+                           "(torch.distributed.init_process_group)")
+    n = math.prod(shape)
+    if dist.get_world_size() != n:
+        raise RuntimeError(f"mesh {tuple(shape)} needs {n} ranks, the "
+                           f"group has {dist.get_world_size()}")
+    nccl = dist.get_backend() == "nccl"
+    if nccl and dev.type != "cuda":
+        raise ValueError("an NCCL group moves CUDA tensors: pass a CUDA "
+                         "device")
+    from torch.distributed.device_mesh import init_device_mesh
+    if nccl:
+        torch.cuda.set_device(dist.get_rank() % torch.cuda.device_count())
+    return init_device_mesh("cuda" if nccl else "cpu", tuple(shape),
+                            mesh_dim_names=("pod", "data", "model"))

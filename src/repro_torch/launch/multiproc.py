@@ -13,10 +13,10 @@ has three load-bearing claims:
      single-process sweep — which is what makes the union over
      processes THE sweep.
 
-This module proves all three under a real process group: the
-`run_smoke` parent spawns the children, which meet through a `file://`
-store in a fresh temporary directory (no port to pick and race for) and
-`init_process_group("gloo", ...)`.  Each child asserts claim 2 with an
+This module proves all three under a real process group: `run_smoke`
+spawns the members through `launch.group.run_group` (a gloo group met
+through a `file://` store in a fresh temporary directory, no port to
+pick and race for).  Each member asserts claim 2 with an
 `all_gather` of its operand slabs against its own lowering, claim 3 with
 its point slab against the single-process oracle, and then runs the
 cross-process dispatch itself, which gloo can do on the CPU:
@@ -24,7 +24,7 @@ cross-process dispatch itself, which gloo can do on the CPU:
 columns back by `all_gather`) and the sharded Pareto mask (`all_reduce`
 MAX), both bit-identical to the oracle on every rank.
 
-With `--device cuda` both children share the card (`cuda:0`; NCCL
+With `--device cuda` both members share the card (`cuda:0`; NCCL
 refuses two ranks on one GPU, so the group stays gloo and its
 collectives take host copies of finished results), and their spaces add
 the 299,008-row Monte-Carlo grid.
@@ -36,20 +36,13 @@ CLI:  python -m repro_torch.launch.multiproc --smoke [--device cpu]
 from __future__ import annotations
 
 import argparse
-import json
-import os
-import subprocess
 import sys
-import tempfile
 import time
-from datetime import timedelta
-from pathlib import Path
 
 from ..device import resolve_device
 
 __all__ = ["run_smoke"]
 
-_SRC_DIR = Path(__file__).resolve().parents[2]
 MC_FULL = 4096      # the 299,008-row grid of the card's run
 
 
@@ -71,31 +64,22 @@ def _bits(x):
     return x.view(torch.int32) if x.dtype == torch.float32 else x
 
 
-def _child_main(init_file: str, num_processes: int, process_id: int,
-                mc: int, local_devices: int, device: str,
-                timeout_s: float) -> None:
-    """One group member: join the gloo group, verify the sharded-sweep
-    multi-process contract and emit one JSON line."""
-    import torch
+def _member(num_processes: int, mc: int, local_devices: int,
+            device: str) -> dict:
+    """One group member (run by `launch.group.run_group` once it has
+    joined the gloo group): verify the sharded-sweep multi-process
+    contract -> this rank's JSON-able record."""
     import torch.distributed as dist
 
     dev = resolve_device(device)
-    dist.init_process_group("gloo", init_method=f"file://{init_file}",
-                            world_size=num_processes, rank=process_id,
-                            timeout=timedelta(seconds=timeout_s))
-    try:
-        checks = _child_checks(dev, num_processes, process_id, mc,
-                               local_devices)
-    finally:
-        dist.destroy_process_group()
-    print(json.dumps({"process": process_id, "ok": True,
-                      "world": num_processes, "device": str(dev),
-                      "global_slots": num_processes * local_devices,
-                      "local_slots": local_devices, "checks": checks}),
-          flush=True)
+    rank = dist.get_rank()
+    checks = _checks(dev, num_processes, rank, mc, local_devices)
+    return {"process": rank, "ok": True, "world": num_processes,
+            "device": str(dev), "global_slots": num_processes * local_devices,
+            "local_slots": local_devices, "checks": checks}
 
 
-def _child_checks(dev, num_processes: int, process_id: int, mc: int,
+def _checks(dev, num_processes: int, process_id: int, mc: int,
                   local_devices: int) -> dict:
     import torch
     import torch.distributed as dist
@@ -176,46 +160,17 @@ def _child_checks(dev, num_processes: int, process_id: int, mc: int,
 
 def run_smoke(num_processes: int = 2, mc: int = 8, local_devices: int = 2,
               device="cuda", timeout_s: float = 600.0) -> list[dict]:
-    """Launch the group's children and verify their reports -> the
-    children's JSON records."""
+    """Launch the group's members (`launch.group.run_group`) and verify
+    their reports -> the members' JSON records."""
+    from .group import run_group
+
     dev = resolve_device(device)
-    env = dict(os.environ)
-    env["PYTHONPATH"] = os.pathsep.join(
-        p for p in (str(_SRC_DIR), env.get("PYTHONPATH")) if p)
-    results, failures = [], []
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory(prefix="multiproc-") as tmp:
-        init_file = str(Path(tmp) / "rendezvous")
-        procs = [subprocess.Popen(
-            [sys.executable, "-m", "repro_torch.launch.multiproc", "--child",
-             "--init-file", init_file, "--num-processes", str(num_processes),
-             "--process-id", str(i), "--mc", str(mc), "--local-devices",
-             str(local_devices), "--device", dev.type, "--timeout",
-             str(timeout_s)],
-            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-            text=True) for i in range(num_processes)]
-        try:
-            for i, p in enumerate(procs):
-                try:
-                    out, err = p.communicate(
-                        timeout=max(1.0, timeout_s - (time.perf_counter() - t0)))
-                except subprocess.TimeoutExpired:
-                    raise SystemExit(f"multiproc smoke: process {i} timed "
-                                     f"out after {timeout_s:.0f}s") from None
-                if p.returncode != 0:
-                    failures.append(f"process {i} rc={p.returncode}:\n"
-                                    f"{out.strip()}\n{err.strip()[-2000:]}")
-                    continue
-                lines = [ln for ln in out.splitlines() if ln.strip()]
-                results.append(json.loads(lines[-1]))
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
+    results = run_group("repro_torch.launch.multiproc:_member", num_processes,
+                        dict(num_processes=num_processes, mc=mc,
+                             local_devices=local_devices, device=dev.type),
+                        timeout_s=timeout_s)
     wall_s = time.perf_counter() - t0
-    if failures:
-        raise SystemExit("multiproc smoke FAILED:\n" + "\n---\n".join(failures))
 
     for r in results:
         if not r.get("ok"):
@@ -246,12 +201,7 @@ def main(argv=None) -> int:
         description="two-process torch.distributed smoke of the sweep fabric")
     parser.add_argument("--smoke", action="store_true",
                         help="run the 2-process integration smoke (parent)")
-    parser.add_argument("--child", action="store_true",
-                        help=argparse.SUPPRESS)
-    parser.add_argument("--init-file", default=None, help=argparse.SUPPRESS)
     parser.add_argument("--num-processes", type=int, default=2)
-    parser.add_argument("--process-id", type=int, default=0,
-                        help=argparse.SUPPRESS)
     parser.add_argument("--mc", type=int, default=8,
                         help="MC samples for the with_mc spaces")
     parser.add_argument("--local-devices", type=int, default=2,
@@ -261,10 +211,7 @@ def main(argv=None) -> int:
                              "processes share the card; cpu)")
     parser.add_argument("--timeout", type=float, default=600.0)
     args = parser.parse_args(argv)
-    if args.child:
-        _child_main(args.init_file, args.num_processes, args.process_id,
-                    args.mc, args.local_devices, args.device, args.timeout)
-    elif args.smoke:
+    if args.smoke:
         run_smoke(num_processes=args.num_processes, mc=args.mc,
                   local_devices=args.local_devices, device=args.device,
                   timeout_s=args.timeout)

@@ -3,8 +3,9 @@
 Port of `repro.models.common`.  Parameter trees are nested dicts of
 tensors derived from a *schema* (dict name -> ParamSpec), the reference's
 own tree: layer-stacked weights carry a leading "layers" axis and are read
-one layer at a time (`{k: v[li]}`) by a Python loop over layers.  The
-reference's sharding annotations (`constrain`) have no counterpart here.
+one layer at a time (`{k: v[li]}`) by a Python loop over layers.
+`axes_from_schema` / `abstract_from_schema` give the tree's logical axes
+and its shapes (on the `meta` device) for the sharding rules.
 """
 
 from __future__ import annotations
@@ -12,8 +13,10 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
+import torch.nn.functional as F
 
 from ..device import resolve_device
+from ..distributed import context as mesh_ctx
 
 # ---------------------------------------------------------------------------
 # Schema
@@ -84,6 +87,62 @@ def init_from_schema(schema: Schema, generator: torch.Generator, dtype,
             node = node.setdefault(k, {})
         node[path[-1]] = x
     return out
+
+
+def _schema_map(fn, schema: Schema) -> dict:
+    return {k: fn(v) if isinstance(v, ParamSpec) else _schema_map(fn, v)
+            for k, v in schema.items()}
+
+
+def axes_from_schema(schema: Schema) -> dict:
+    return _schema_map(lambda s: s.axes, schema)
+
+
+def abstract_from_schema(schema: Schema, dtype) -> dict:
+    """The tree's shapes and dtype as tensors on the `meta` device (no
+    storage): the reference's `jax.ShapeDtypeStruct` tree."""
+    return _schema_map(lambda s: torch.empty(s.shape, dtype=dtype,
+                                             device="meta"), schema)
+
+
+# ---------------------------------------------------------------------------
+# Activation sharding annotations
+# ---------------------------------------------------------------------------
+
+def constrain_spec(cfg, shape: tuple, logical, force: bool = False):
+    """The spec the reference's `constrain` pins on an activation of
+    `shape`: `logical` names one of {"dp", "model", None} per dim;
+    indivisible dims degrade to None.  None when the annotation is off
+    (neither `cfg.shard_acts` nor `force`) or no mesh is registered."""
+    if not (getattr(cfg, "shard_acts", False) or force):
+        return None
+    sizes = mesh_ctx.axis_sizes()
+    if not sizes:
+        return None
+    entries = []
+    for dim, a in zip(shape, logical):
+        if a == "dp":
+            chosen, prod = [], 1
+            for m in ("pod", "data"):
+                if m in sizes and dim % (prod * sizes[m]) == 0:
+                    chosen.append(m)
+                    prod *= sizes[m]
+            entries.append(chosen[0] if len(chosen) == 1
+                           else tuple(chosen) if chosen else None)
+        elif a == "model" and "model" in sizes and dim % sizes["model"] == 0:
+            entries.append("model")
+        else:
+            entries.append(None)
+    return tuple(entries)
+
+
+def constrain(cfg, x, logical, force: bool = False):
+    """The reference pins an activation's sharding here
+    (`constrain_spec`); each rank of the port holds its own local tensor,
+    so there is nothing to pin and `x` is returned as it is, with or
+    without a mesh.  The model code therefore has no call to it where the
+    reference has one."""
+    return x
 
 
 # ---------------------------------------------------------------------------
@@ -185,7 +244,12 @@ def embed_schema(cfg) -> Schema:
 
 
 def embed_tokens(params, tokens, dtype):
-    return params["embed"][tokens].to(dtype)
+    """The tokens' rows of the embedding table, cast to `dtype`.  Through
+    `F.embedding`, whose backward sums a repeated token's gradients in a
+    fixed order; an indexing gather's backward accumulates them in
+    whatever order its threads (or the card's atomics) take, and a train
+    step would not repeat bit for bit."""
+    return F.embedding(tokens, params["embed"]).to(dtype)
 
 
 def lm_logits(cfg, params, h):

@@ -21,7 +21,8 @@ from __future__ import annotations
 import torch
 
 from .attention import attn_schema, causal_attention, decode_attention
-from .common import (ParamSpec, Schema, add_norm, apply_norm, cross_entropy,
+from .common import (ParamSpec, Schema, abstract_from_schema, add_norm,
+                     apply_norm, axes_from_schema, cross_entropy,
                      embed_schema, embed_tokens, init_from_schema, lm_logits,
                      sinusoid_pos_emb, torch_dtype)
 from .lm import layer_params
@@ -61,6 +62,15 @@ def init_params(cfg, generator: torch.Generator, device="cuda") -> dict:
     config's `param_dtype`."""
     return init_from_schema(encdec_schema(cfg), generator,
                             torch_dtype(cfg.param_dtype), device)
+
+
+def param_axes(cfg):
+    return axes_from_schema(encdec_schema(cfg))
+
+
+def abstract_params(cfg):
+    return abstract_from_schema(encdec_schema(cfg),
+                                torch_dtype(cfg.param_dtype))
 
 
 # ---------------------------------------------------------------------------

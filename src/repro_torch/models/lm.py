@@ -18,6 +18,7 @@ backward instead of keeping its activations, where the reference puts
 
 Public entry points (functions of (cfg, params, ...)):
   init_params     -> params on the requested device
+  param_axes / abstract_params -> logical axes / meta-device shapes
   forward_train   -> (logits, aux_loss)
   loss_fn         -> scalar loss
   prefill         -> (last_logits, cache)
@@ -32,11 +33,12 @@ from torch.utils.checkpoint import checkpoint
 
 from .attention import (attn_schema, causal_attention, decode_attention,
                         decode_attention_gated)
-from .common import (ParamSpec, Schema, add_norm, apply_norm, cross_entropy,
+from .common import (ParamSpec, Schema, abstract_from_schema, add_norm,
+                     apply_norm, axes_from_schema, cross_entropy,
                      embed_schema, embed_tokens, init_from_schema, lm_logits,
                      torch_dtype)
 from .mlp import mlp_apply, mlp_schema
-from .moe import moe_apply, moe_schema
+from .moe import moe_apply, moe_apply_ep, moe_schema
 from .ssm import ssm_apply, ssm_decode_step, ssm_schema
 
 ATTENTION_FAMILIES = ("dense", "moe", "vlm")
@@ -106,6 +108,14 @@ def init_params(cfg, generator: torch.Generator, device="cuda") -> dict:
                             torch_dtype(cfg.param_dtype), device)
 
 
+def param_axes(cfg):
+    return axes_from_schema(lm_schema(cfg))
+
+
+def abstract_params(cfg):
+    return abstract_from_schema(lm_schema(cfg), torch_dtype(cfg.param_dtype))
+
+
 def layer_params(params, *idx, key: str = "layers") -> dict:
     """One layer's slice of the stacked weights under `key` (views, no
     copy): `layer_params(params, li)`, or `(params, g, i)` for layer i of
@@ -129,7 +139,8 @@ def _tf_block(cfg, lp, h, positions):
     h = h + attn_out
     m_in = apply_norm(cfg, h, lp, "ln2")
     if cfg.n_experts:
-        mo, aux = moe_apply(cfg, lp, m_in)
+        moe_fn = moe_apply_ep if cfg.moe_ep else moe_apply
+        mo, aux = moe_fn(cfg, lp, m_in)
     else:
         mo = mlp_apply(cfg, lp, m_in)
         aux = torch.zeros((), dtype=torch.float32, device=h.device)

@@ -8,7 +8,7 @@ import torch
 
 from ..device import resolve_device
 from . import encdec, lm
-from .common import torch_dtype
+from .common import axes_from_schema, torch_dtype
 
 
 def _mod(cfg):
@@ -23,6 +23,15 @@ def init_params(cfg, generator: torch.Generator, device="cuda"):
     """Parameters drawn from `generator` on `device` (default "cuda";
     raises without a GPU unless `device="cpu"`)."""
     return _mod(cfg).init_params(cfg, generator, device)
+
+
+def param_axes(cfg):
+    return _mod(cfg).param_axes(cfg)
+
+
+def abstract_params(cfg):
+    """The parameter tree's shapes and dtype on the `meta` device."""
+    return _mod(cfg).abstract_params(cfg)
 
 
 def forward_train(cfg, params, batch):
@@ -47,11 +56,21 @@ def cache_schema(cfg, batch: int, seq: int):
     return lm.cache_schema(cfg, batch, seq)
 
 
+def cache_axes(cfg, batch: int, seq: int):
+    return axes_from_schema(cache_schema(cfg, batch, seq))
+
+
 def _cache_dtype(cfg, key):
     # SSM states and strap key-sums are carried in fp32
     if "ssm" in key or key == "ksum":
         return torch.float32
     return torch_dtype(cfg.compute_dtype)
+
+
+def abstract_cache(cfg, batch: int, seq: int):
+    """The decode cache's shapes and dtypes on the `meta` device."""
+    return {k: torch.empty(v.shape, dtype=_cache_dtype(cfg, k), device="meta")
+            for k, v in cache_schema(cfg, batch, seq).items()}
 
 
 def init_cache(cfg, batch: int, seq: int, device="cuda"):

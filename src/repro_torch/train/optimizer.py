@@ -13,8 +13,11 @@ of the reference's donated buffers) and returns the same trees with a new
 count.  The schedule, the bias corrections and every division run on
 float32 tensors on the parameters' device, as the reference computes
 them, never in Python floats: a scalar divisor of a CUDA tensor would
-become a reciprocal multiply.  The distributed slice's
-`opt_state_axes` / `abstract_opt_state` are not ported (ROADMAP.md).
+become a reciprocal multiply.  `opt_state_axes` / `abstract_opt_state`
+give the state's logical axes (those of the parameters: co-located
+shards) and shapes for the sharding rules.  Under a sharded step each
+rank updates its own blocks; AdamW8bit's row max then spans the ranks
+that share a row (`row_groups`).
 """
 
 from __future__ import annotations
@@ -24,7 +27,9 @@ from dataclasses import dataclass
 from typing import Callable, NamedTuple
 
 import torch
+import torch.distributed as dist
 
+from ..distributed.collectives import all_reduce
 from ..tree import leaves, tree_map
 
 
@@ -102,11 +107,15 @@ def adamw_update(oc: OptConfig, grads, state, params):
 # AdamW8bit (int8 moments, per-row scales)
 # ---------------------------------------------------------------------------
 
-def _q8(x: torch.Tensor):
+def _q8(x: torch.Tensor, groups=()):
     """Quantize along the last dim: (int8, float32 scale[..., 1]); round
-    half to even, as `jnp.round`."""
-    s = (torch.amax(torch.abs(x), dim=-1, keepdim=True) / _f32(127.0, x)
-         + 1e-12)
+    half to even, as `jnp.round`.  `groups`: the process groups over which
+    the last dim is split (a block of a sharded row), whose row max is
+    reduced over them so every block takes the whole row's scale."""
+    amax = torch.amax(torch.abs(x), dim=-1, keepdim=True)
+    for g in groups:
+        amax = all_reduce(amax, g, dist.ReduceOp.MAX)
+    s = amax / _f32(127.0, x) + 1e-12
     q = torch.clamp(torch.round(x / s), -127, 127).to(torch.int8)
     return q, s.float()
 
@@ -124,22 +133,26 @@ def adamw8_init(params) -> dict:
 
 
 @torch.no_grad()
-def adamw8_update(oc: OptConfig, grads, state, params):
+def adamw8_update(oc: OptConfig, grads, state, params, row_groups=None):
+    """`row_groups`: a tree of `params`' structure, each leaf the process
+    groups its last dim is split over (see `_q8`); None: whole rows."""
     count = state["count"] + 1
     lr, bc1, bc2 = _step_scalars(oc, count)
+    if row_groups is None:
+        row_groups = tree_map(lambda p: (), params)
 
-    def upd(g, mq, vq, p):
+    def upd(g, mq, vq, p, groups):
         g32 = g.float()
         m = oc.b1 * _dq8(mq["q"], mq["s"]) + (1 - oc.b1) * g32
         v = oc.b2 * _dq8(vq["q"], vq["s"]) + (1 - oc.b2) * g32 * g32
         v = torch.clamp_min(v, 0.0)
         p.copy_(_new_param(oc, lr, bc1, bc2, m, v, p))
         for moment, x in ((mq, m), (vq, v)):
-            q, s = _q8(x)
+            q, s = _q8(x, groups)
             moment["q"].copy_(q)
             moment["s"].copy_(s)
 
-    tree_map(upd, grads, state["m"], state["v"], params)
+    tree_map(upd, grads, state["m"], state["v"], params, row_groups)
     return params, dict(m=state["m"], v=state["v"], count=count)
 
 
@@ -150,12 +163,46 @@ class Optimizer(NamedTuple):
     update: Callable
 
 
-def make_optimizer(name: str, oc: OptConfig | None = None) -> Optimizer:
+def make_optimizer(name: str, oc: OptConfig | None = None,
+                   row_groups=None) -> Optimizer:
+    """`row_groups` (AdamW8bit under a sharded step): see
+    `adamw8_update`."""
     oc = oc or OptConfig()
     if name == "adamw":
         return Optimizer(adamw_init,
                          lambda g, s, p: adamw_update(oc, g, s, p))
     if name == "adamw8bit":
         return Optimizer(adamw8_init,
-                         lambda g, s, p: adamw8_update(oc, g, s, p))
+                         lambda g, s, p: adamw8_update(oc, g, s, p,
+                                                       row_groups))
+    raise ValueError(name)
+
+
+def opt_state_axes(name: str, param_axes_tree):
+    """Optimizer-state logical axes mirror the parameter axes (co-location)."""
+    if name == "adamw":
+        return dict(m=param_axes_tree, v=param_axes_tree, count=())
+    if name == "adamw8bit":
+        mapped = tree_map(lambda ax: dict(q=ax, s=ax[:-1] + (None,)),
+                          param_axes_tree)
+        return dict(m=mapped, v=mapped, count=())
+    raise ValueError(name)
+
+
+def abstract_opt_state(name: str, abstract_params):
+    """The state's shapes and dtypes on the `meta` device."""
+    def meta(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    count = meta((), torch.int32)
+    if name == "adamw":
+        f32 = lambda p: meta(p.shape, torch.float32)
+        return dict(m=tree_map(f32, abstract_params),
+                    v=tree_map(f32, abstract_params), count=count)
+    if name == "adamw8bit":
+        def q8(p):
+            return dict(q=meta(p.shape, torch.int8),
+                        s=meta(tuple(p.shape[:-1]) + (1,), torch.float32))
+        return dict(m=tree_map(q8, abstract_params),
+                    v=tree_map(q8, abstract_params), count=count)
     raise ValueError(name)

@@ -3,8 +3,9 @@ card: the fused row cycle, the multi-step RC ladder (phased engine) and
 the strap-gated decode attention (LM server), the MoE layer against
 its per-pair plain version, the SSM scan and the ssm, hybrid and
 enc-dec decode steps on the card, and training: a train step on the card
-against the CPU, the SSD backward where its decay overflows, and a
-checkpoint of the card's state restored on the CPU.
+against the CPU, the SSD backward where its decay overflows, a
+checkpoint of the card's state restored on the CPU, and the sharded
+train step on a one-rank NCCL mesh, bit for bit the train step.
 
 Marked `gpu`: without a GPU every test here skips (the kernel has no CPU
 mode).  This file imports neither JAX nor the reference package, so it
@@ -910,3 +911,72 @@ def test_checkpoint_of_card_state_restores_on_cpu_bit_for_bit(cuda,
     assert step == 7
     for a, b_ in zip(leaves(saved), leaves(got)):
         assert a.dtype == b_.dtype and torch.equal(a, b_)
+
+
+# --------------------------------------------------------------------------
+# distributed training on the card: NCCL at world size 1
+# --------------------------------------------------------------------------
+
+@pytest.fixture()
+def nccl_world1(cuda, tmp_path):
+    """A one-rank NCCL group on the card (file rendezvous) and its (1, 1,
+    1) ("pod", "data", "model") mesh; the group is destroyed after the
+    test."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_train_mesh
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/rdv",
+                            world_size=1, rank=0)
+    try:
+        yield make_train_mesh((1, 1, 1), device="cuda")
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("name,microbatch", [
+    ("qwen2-1.5b-smoke", None), ("qwen2-1.5b-smoke", 2),
+    ("phi3.5-moe-42b-a6.6b-smoke", None), ("arctic-480b-smoke", None)])
+def test_sharded_step_at_world_size_one_is_the_train_step_bit_for_bit(
+        cuda, nccl_world1, monkeypatch, name, microbatch):
+    """Two `make_sharded_train_step` steps on the (1, 1, 1) NCCL mesh and
+    two `make_train_step` steps from the same weights and batch: losses,
+    grad norms, every parameter and every optimizer-state leaf equal bit
+    for bit (int32 views of float32)."""
+    from repro_torch.distributed.sharding import shard_tree
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.step import (make_sharded_train_step,
+                                        make_train_step, train_specs)
+    from repro_torch.tree import leaves, tree_map
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = get_arch(name)
+    oc = OptConfig(lr=1e-3, eps=1e-3, warmup_steps=1, total_steps=10)
+    start = models.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab_size, (4, 65)).astype(np.int32)
+    batch = {"tokens": torch.as_tensor(toks[:, :-1], device=cuda),
+             "targets": torch.as_tensor(toks[:, 1:], device=cuda)}
+    p_specs, _ = train_specs(cfg, nccl_world1)
+    runs = []
+    for factory in ("single", "sharded"):
+        params = tree_map(lambda t: t.to(cuda, copy=True), start)
+        if factory == "single":
+            fn, opt = make_train_step(cfg, oc, microbatch)
+        else:
+            params = shard_tree(params, p_specs, nccl_world1)
+            fn, opt = make_sharded_train_step(cfg, nccl_world1, oc,
+                                              microbatch)
+        state = opt.init(params)
+        metrics = []
+        for _ in range(2):
+            params, state, m = fn(params, state, batch)
+            metrics += [m["loss"], m["grad_norm"]]
+        runs.append(leaves({"o": state, "p": params}) + metrics)
+
+    def bits(t):
+        t = t.detach()
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+    for a, b in zip(*runs):
+        assert a.dtype == b.dtype and torch.equal(bits(a), bits(b))

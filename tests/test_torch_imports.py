@@ -25,6 +25,9 @@ from repro_torch.memory.strap_cache import (StrapCacheConfig,  # noqa: E402
 from repro_torch.models import registry as models  # noqa: E402
 from repro_torch.launch import (elastic, mesh, multiproc,  # noqa: E402
                                 serve, shard)
+from repro_torch.distributed import (collectives, context,  # noqa: E402, F401
+                                     sharding)
+from repro_torch.launch import group, optlevels  # noqa: E402, F401
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.train import loop  # noqa: E402
 from repro_torch.serving.dse_service import DSEService  # noqa: E402
@@ -39,6 +42,9 @@ PORT_FILES = sorted(PORT.rglob("*.py")) + [
 
 FABRIC_FILES = ("runtime/fault.py", "launch/mesh.py", "launch/shard.py",
                 "launch/elastic.py", "launch/multiproc.py")
+DIST_TRAIN_FILES = ("distributed/context.py", "distributed/sharding.py",
+                    "distributed/collectives.py", "launch/group.py",
+                    "launch/optlevels.py")
 
 
 def test_fabric_modules_are_scanned():
@@ -50,6 +56,19 @@ def test_fabric_modules_are_scanned():
     assert {"repro_torch.runtime.fault", "repro_torch.launch.mesh",
             "repro_torch.launch.shard", "repro_torch.launch.elastic",
             "repro_torch.launch.multiproc"} <= set(_module_names())
+
+
+def test_distributed_training_modules_are_scanned():
+    """The distributed-training slice's modules are among the files the
+    AST scan reads and the import test loads."""
+    scanned = {p.relative_to(PORT).as_posix() for p in PORT_FILES
+               if PORT in p.parents}
+    assert set(DIST_TRAIN_FILES) <= scanned
+    assert {"repro_torch.distributed.context",
+            "repro_torch.distributed.sharding",
+            "repro_torch.distributed.collectives",
+            "repro_torch.launch.group",
+            "repro_torch.launch.optlevels"} <= set(_module_names())
 
 
 def _module_names():
@@ -178,6 +197,7 @@ ENTRY_POINTS = {
     "mesh.make_sweep_mesh": lambda: mesh.make_sweep_mesh(),
     "mesh.make_test_mesh": lambda: mesh.make_test_mesh(),
     "mesh.make_local_mesh": lambda: mesh.make_local_mesh(),
+    "mesh.make_train_mesh": lambda: mesh.make_train_mesh(),
     "shard.sweep_sharding": lambda: shard.sweep_sharding(),
     "shard.sharded_sweep": lambda: shard.sharded_sweep(
         space.DesignSpace.paper_targets()),
