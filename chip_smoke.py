@@ -175,7 +175,20 @@ Phases (any failure exits non-zero and prints no result line):
    kernels' launches there, this process's and each member's (its
    counts zeroed on entry and returned), summed and required to be 0
    (none lies on the path), on a log line;
-32. one JSON line listing the ported kernels (row_cycle at the sweep's
+32. the dry run held against the card: OLMo-1B in full, 8 x 2048 with
+   AdamW (phase 25's run) on a mesh of one rank, dry-run on a fake
+   group (`launch.dryrun.run`) and then run for real on an NCCL group of
+   one rank: the dry run's counted FLOPs equal `FlopCounterMode` around
+   the real step exactly, its fake peak lies within 15% of the real
+   step's `max_memory_allocated`, and the H100 roofline's
+   `step_time_est` does not exceed the measured step; then `python -m
+   repro_torch.launch.dryrun --arch olmo-1b --cell train_4k --mesh
+   single` in a subprocess (`ok: true`; its FLOPs, collective bytes and
+   peak a rank logged); none of the ported kernels launched;
+33. `examples/quickstart_torch.py` and `examples/serve_lm_torch.py` in
+   subprocesses on the card: `quickstart OK` and `strap-exact == dense:
+   True`;
+34. one JSON line listing the ported kernels (row_cycle at the sweep's
    one launch over 299,008 rows and at one 2048-row chunk, with the
    cycles of a step; rc_multistep at the phased path's ACT call, with
    cycles a step, its block as the library reports it and, in its
@@ -3291,6 +3304,170 @@ def dist_ep_phase(args, dev, card) -> list:
     return results
 
 
+# --------------------------------------------------------------------------
+# the dry run held against the card; the example twins on the card
+# --------------------------------------------------------------------------
+
+DRY_OLMO = ("olmo-1b", 8, 2048)     # phase 25's run: arch, batch, seq
+DRY_PEAK_BAR = 0.15                 # fake peak vs max_memory_allocated
+DRY_CLI_ARGS = ["--arch", "olmo-1b", "--cell", "train_4k", "--mesh",
+                "single"]
+TWIN_TIMEOUT_S = 600
+
+
+def dryrun_phase(args, dev, card) -> dict:
+    """Phase 32: the dry run held against the card.  OLMo-1B in full, 8 x
+    2048 with AdamW (phase 25's run) on a mesh of one rank (1, 1, 1): the
+    dry run on a fake group of one rank in this process, then the same
+    `make_sharded_train_step` step for real on an NCCL group of one rank
+    (phase 29's).  The dry run's counted FLOPs must equal
+    `FlopCounterMode` around the real step exactly; its peak must lie
+    within DRY_PEAK_BAR of the real step's `max_memory_allocated` (both
+    over what was allocated before the arguments were made); the H100
+    roofline's `step_time_est` of the dry run's record must not exceed
+    the measured step (the second step, host clock + sync).  Beside all
+    that (it needs only the host's CPU), `python -m
+    repro_torch.launch.dryrun --arch olmo-1b --cell train_4k --mesh
+    single` in a subprocess: `ok: true`, its FLOPs, collective bytes and
+    peak logged."""
+    import os
+
+    set_precision()
+    t0 = time.perf_counter()
+    cli_proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", *DRY_CLI_ARGS],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, PYTHONPATH=str(SRC)), cwd=str(ROOT))
+    try:
+        out = _dryrun_vs_card(args, dev, card)
+        stdout, stderr = cli_proc.communicate(timeout=TWIN_TIMEOUT_S)
+    finally:
+        if cli_proc.poll() is None:
+            cli_proc.kill()
+            cli_proc.communicate()
+    check(cli_proc.returncode == 0, f"launch.dryrun: rc "
+          f"{cli_proc.returncode}\n{stderr[-3000:]}")
+    cli = json.loads(stdout.strip().splitlines()[-1])
+    check(cli.get("ok") is True, f"launch.dryrun printed {cli}")
+    out["cli"] = dict(cli, wall_s=time.perf_counter() - t0)
+    log(f"[dryrun] launch.dryrun {' '.join(DRY_CLI_ARGS)}: ok, "
+        f"{cli['flops_per_device']:.6e} FLOPs, "
+        f"{cli['collective_bytes']:.6e} collective bytes, peak "
+        f"{cli['peak_memory_in_bytes'] / 1e9:.3f} GB a rank "
+        f"({out['cli']['wall_s']:.1f} s, beside the rest of the phase)")
+    return out
+
+
+def _dryrun_vs_card(args, dev, card) -> dict:
+    """Phase 32's comparison: the one-rank dry run against the same step
+    on the card (see `dryrun_phase`)."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.distributed.sharding import shard_tree
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_train_mesh
+    from repro_torch.models import registry as models
+    from repro_torch.roofline.analyze import H100_SXM, analyze_one
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.step import make_sharded_train_step, train_specs
+
+    arch, b, s = DRY_OLMO
+    cfg = get_arch(arch)
+    fake = dryrun.run(cfg, "train_4k", "one-rank", (1, 1, 1), b=b, s=s)
+    roof = analyze_one(fake)
+    out = {"arch": cfg.name, "card": card, "batch": [b, s],
+           "mesh": [1, 1, 1], "target": H100_SXM.name,
+           "dry": {k: fake[k] for k in ("flops_per_device", "memory",
+                                        "collectives", "t_run_s")},
+           "roofline": roof.row()}
+    with tempfile.TemporaryDirectory() as tmp:
+        backend = "nccl" if dev.type == "cuda" else "gloo"
+        dist.init_process_group(backend, init_method=f"file://{tmp}/rdv",
+                                world_size=1, rank=0)
+        try:
+            mesh = make_train_mesh((1, 1, 1), device=dev.type)
+            sync(dev)
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated() if dev.type == "cuda" \
+                else 0
+            params = models.init_params(
+                cfg, torch.Generator(dev).manual_seed(args.seed), dev)
+            params = shard_tree(params, train_specs(cfg, mesh)[0], mesh)
+            fn, opt = make_sharded_train_step(cfg, mesh,
+                                              OptConfig(lr=DIST_LR))
+            state = opt.init(params)
+            batches = olmo_batches(cfg, b, s, args.seed, 2, dev)
+            sync(dev)
+            if dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            with FlopCounterMode(display=False) as flops:
+                params, state, _ = fn(params, state, batches[0])
+            sync(dev)
+            real_peak = (torch.cuda.max_memory_allocated() - base
+                         if dev.type == "cuda" else None)
+            params, state, _, ms = timed_run(fn, params, state, batches[1:])
+            del params, state, batches
+        finally:
+            dist.destroy_process_group()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    real_flops = float(flops.get_total_flops())
+    fake_peak = fake["memory"]["peak_memory_in_bytes"]
+    out.update(real_flops=real_flops, real_peak_bytes=real_peak,
+               step_ms=ms[0], step_time_est_ms=roof.step_time_est * 1e3,
+               est_over_measured=roof.step_time_est * 1e3 / ms[0])
+    check(real_flops == fake["flops_per_device"],
+          f"dry run: {fake['flops_per_device']} FLOPs counted, the card's "
+          f"step {real_flops}")
+    if real_peak is not None:
+        out["peak_rel_err"] = abs(fake_peak - real_peak) / real_peak
+        check(out["peak_rel_err"] <= DRY_PEAK_BAR,
+              f"dry run: fake peak {fake_peak} B against the card's "
+              f"{real_peak} B ({out['peak_rel_err']:.3f} > {DRY_PEAK_BAR})")
+    check(roof.step_time_est * 1e3 <= ms[0],
+          f"dry run: the roofline's {roof.step_time_est * 1e3:.1f} ms "
+          f"exceeds the measured step {ms[0]:.1f} ms")
+    log(f"[dryrun] {cfg.name} {b} x {s}, mesh (1, 1, 1): FLOPs dry "
+        f"{fake['flops_per_device']:.6e} == card {real_flops:.6e}; peak "
+        f"dry {fake_peak / 1e9:.3f} GB, card {(real_peak or 0) / 1e9:.3f} "
+        f"GB (rel {out.get('peak_rel_err')}); roofline "
+        f"{roof.step_time_est * 1e3:.1f} ms ({roof.dominant}) vs measured "
+        f"{ms[0]:.1f} ms (ratio {out['est_over_measured']:.4f}; {card})")
+    return out
+
+
+def twins_phase(dev) -> dict:
+    """Phase 33: `examples/quickstart_torch.py` and
+    `examples/serve_lm_torch.py` in subprocesses on the card: the first
+    must print `quickstart OK`, the second `strap-exact == dense: True`."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = {}
+    for name, want in (("quickstart_torch.py", "quickstart OK"),
+                       ("serve_lm_torch.py", "strap-exact == dense: True")):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, str(ROOT / "examples" / name), "--device",
+             dev.type], capture_output=True, text=True, env=env,
+            cwd=str(ROOT), timeout=TWIN_TIMEOUT_S, check=False)
+        wall_s = time.perf_counter() - t0
+        for line in proc.stdout.splitlines():
+            log(f"[twins] {name}: {line}")
+        check(proc.returncode == 0, f"{name}: rc {proc.returncode}\n"
+              f"{proc.stderr[-3000:]}")
+        lines = [ln for ln in proc.stdout.splitlines() if ln.startswith(want)]
+        check(bool(lines), f"{name} printed no {want!r} line")
+        out[name] = {"line": lines[0], "wall_s": wall_s}
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -3869,7 +4046,29 @@ def main(argv=None) -> int:
         f"members summed (none lies on the distributed training path): "
         f"{dist_launches}")
 
-    # 32. the kernels line: row_cycle at the sized path's one launch over
+    # 32. the dry run held against the card: FLOPs, peak and the H100
+    #    roofline of OLMo-1B's one-rank step; the dry-run CLI at the
+    #    production "single" mesh (none of the ported kernels lies on it)
+    t_dry = time.perf_counter()
+    for k in (kernel, rc_kernel, strap_kernel):
+        k.launches = 0
+    record["dryrun"] = dryrun_phase(args, dev, card)
+    dry_launches = {"row_cycle_fused": kernel.launches,
+                    "rc_multistep": rc_kernel.launches,
+                    "strap_attend": strap_kernel.launches}
+    record["dryrun"]["kernel_launches"] = dry_launches
+    check(not any(dry_launches.values()),
+          f"phase 32 launched a ported kernel: {dry_launches}")
+    log(f"[dryrun] ported kernels launched in phase 32 (none lies on the "
+        f"dry run's path or the step it is held against): {dry_launches}")
+
+    # 33. the example twins on the card, in subprocesses
+    record["twins"] = twins_phase(dev)
+    record["dryrun_twins_wall_s"] = time.perf_counter() - t_dry
+    log(f"[twins] phases 32-33 wall time "
+        f"{record['dryrun_twins_wall_s']:.1f} s")
+
+    # 34. the kernels line: row_cycle at the sized path's one launch over
     #    299,008 rows and at one 2048-row chunk; rc_multistep at the phased
     #    path's ACT call; strap_attend at the full-width path's last
     #    exact-mode (and gated) step

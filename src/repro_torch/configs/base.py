@@ -210,7 +210,13 @@ def input_specs(cfg: ArchConfig, cell: str) -> dict:
     embeddings; vlm (pixtral) supplies precomputed patch embeddings.
     """
     spec = SHAPE_CELLS[cell] if cell in SHAPE_CELLS else SMOKE_SHAPE
-    s, b, kind = spec["seq_len"], spec["global_batch"], spec["kind"]
+    return shape_inputs(cfg, spec["kind"], spec["global_batch"],
+                        spec["seq_len"])
+
+
+def shape_inputs(cfg: ArchConfig, kind: str, b: int, s: int) -> dict:
+    """`input_specs` of a global batch b x s of `kind` ("train",
+    "prefill" or "decode")."""
     emb_dt = (torch.bfloat16 if cfg.compute_dtype == "bfloat16"
               else torch.float32)
 

@@ -42,17 +42,23 @@ def attn_schema(cfg, layers: int | None = None, prefix: str = "") -> Schema:
     return s
 
 
+def _project_q(cfg, p, x, prefix: str = ""):
+    b, s, _ = x.shape
+    q = x @ p[prefix + "wq"]
+    if cfg.qkv_bias:
+        q = q + p[prefix + "bq"].to(q.dtype)
+    return q.reshape(b, s, cfg.n_heads, cfg.head_dim_)
+
+
 def _project_qkv(cfg, p, x, prefix: str = ""):
     b, s, _ = x.shape
-    hd, hq, hkv = cfg.head_dim_, cfg.n_heads, cfg.n_kv_heads
-    q = x @ p[prefix + "wq"]
+    hd, hkv = cfg.head_dim_, cfg.n_kv_heads
     k = x @ p[prefix + "wk"]
     v = x @ p[prefix + "wv"]
     if cfg.qkv_bias:
-        q = q + p[prefix + "bq"].to(q.dtype)
         k = k + p[prefix + "bk"].to(k.dtype)
         v = v + p[prefix + "bv"].to(v.dtype)
-    return (q.reshape(b, s, hq, hd), k.reshape(b, s, hkv, hd),
+    return (_project_q(cfg, p, x, prefix), k.reshape(b, s, hkv, hd),
             v.reshape(b, s, hkv, hd))
 
 
@@ -94,9 +100,12 @@ def causal_attention(cfg, p, x, positions=None, prefix: str = "",
     b, s, _ = x.shape
     hd = cfg.head_dim_
     scale = hd ** -0.5
-    q, k, v = _project_qkv(cfg, p, x, prefix)
     if kv_override is not None:                 # cross-attention path
-        k, v = kv_override
+        # only the query is projected: the reference's K/V projections of
+        # x here are dead code that XLA drops
+        q, (k, v) = _project_q(cfg, p, x, prefix), kv_override
+    else:
+        q, k, v = _project_qkv(cfg, p, x, prefix)
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
     if cfg.rope_theta > 0 and kv_override is None:
@@ -131,11 +140,12 @@ def decode_attention(cfg, p, x, k_cache, v_cache, pos, prefix: str = "",
     b = x.shape[0]
     hd = cfg.head_dim_
     scale = hd ** -0.5
-    q, k_new, v_new = _project_qkv(cfg, p, x, prefix)
     s_cache = k_cache.shape[1]
-    if cross:
+    if cross:                   # the encoder's K/V: only q is projected
+        q = _project_q(cfg, p, x, prefix)
         valid = torch.ones((b, s_cache), dtype=torch.bool, device=x.device)
     else:
+        q, k_new, v_new = _project_qkv(cfg, p, x, prefix)
         if cfg.rope_theta > 0:
             q = apply_rope(q, pos[:, None], cfg.rope_theta)
             k_new = apply_rope(k_new, pos[:, None], cfg.rope_theta)

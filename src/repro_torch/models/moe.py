@@ -100,19 +100,24 @@ def _dispatch(cfg, p, xf):
     flat_token = torch.arange(t, device=dev).repeat_interleave(k)
     order = torch.argsort(flat_expert, stable=True)   # jnp.argsort is stable
     se, st, sg = flat_expert[order], flat_token[order], flat_gate[order]
-    # position of each slot within its expert
-    counts = torch.bincount(se, minlength=e)
+    # position of each slot within its expert.  Every shape here is fixed
+    # by (T, E, cap), never by the routing, and nothing is read back to
+    # the host: the dry run traces this under fake tensors.
+    counts = torch.zeros(e, dtype=se.dtype, device=dev).index_add_(
+        0, se, torch.ones_like(se))
     starts = torch.cumsum(counts, 0) - counts
     pos_in_e = torch.arange(t * k, device=dev) - starts[se]
     keep = pos_in_e < cap
 
     # slot table: (E*cap,) -> source token (or T = dummy).  Kept slots are
-    # distinct, so these writes have no duplicate index.
-    slot = se * cap + pos_in_e
-    slot_token = torch.full((e * cap,), t, dtype=torch.int64, device=dev)
-    slot_token[slot[keep]] = st[keep]
-    slot_gate = torch.zeros((e * cap,), dtype=torch.float32, device=dev)
-    slot_gate[slot[keep]] = sg[keep]
+    # distinct; dropped pairs write into one extra slot E*cap, cut off.
+    slot = torch.where(keep, se * cap + pos_in_e, e * cap)
+    slot_token = torch.full((e * cap + 1,), t, dtype=torch.int64, device=dev)
+    slot_token[slot] = st
+    slot_token = slot_token[:-1]
+    slot_gate = torch.zeros((e * cap + 1,), dtype=torch.float32, device=dev)
+    slot_gate[slot] = sg
+    slot_gate = slot_gate[:-1]
     # the reference's dropped-pair writes: every dropped pair writes gate
     # 0.0 at slot 0 after expert 0's first pair (sorted order), and the
     # dummy token at slot E*cap - 1, after the last expert's last kept

@@ -37,7 +37,9 @@ REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "src" / "repro_torch"
 PORT_FILES = sorted(PORT.rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "examples" / "dram_codesign_torch.py",
-    REPO / "examples" / "train_lm_torch.py"]
+    REPO / "examples" / "train_lm_torch.py",
+    REPO / "examples" / "quickstart_torch.py",
+    REPO / "examples" / "serve_lm_torch.py"]
 
 
 FABRIC_FILES = ("runtime/fault.py", "launch/mesh.py", "launch/shard.py",
@@ -45,6 +47,9 @@ FABRIC_FILES = ("runtime/fault.py", "launch/mesh.py", "launch/shard.py",
 DIST_TRAIN_FILES = ("distributed/context.py", "distributed/sharding.py",
                     "distributed/collectives.py", "launch/group.py",
                     "launch/optlevels.py")
+DRYRUN_FILES = ("launch/dryrun.py", "roofline/__init__.py",
+                "roofline/analytic.py", "roofline/analyze.py",
+                "roofline/counts.py")
 
 
 def test_fabric_modules_are_scanned():
@@ -69,6 +74,19 @@ def test_distributed_training_modules_are_scanned():
             "repro_torch.distributed.collectives",
             "repro_torch.launch.group",
             "repro_torch.launch.optlevels"} <= set(_module_names())
+
+
+def test_dryrun_and_roofline_modules_are_scanned():
+    """The dry run's and the roofline's modules, and the example twins,
+    are among the files the AST scan reads (and the import test loads)."""
+    scanned = {p.relative_to(PORT).as_posix() for p in PORT_FILES
+               if PORT in p.parents}
+    assert set(DRYRUN_FILES) <= scanned
+    assert {"quickstart_torch.py", "serve_lm_torch.py"} <= \
+        {p.name for p in PORT_FILES}
+    assert {"repro_torch.launch.dryrun", "repro_torch.roofline",
+            "repro_torch.roofline.analytic", "repro_torch.roofline.analyze",
+            "repro_torch.roofline.counts"} <= set(_module_names())
 
 
 def _module_names():
