@@ -188,7 +188,27 @@ Phases (any failure exits non-zero and prints no result line):
 33. `examples/quickstart_torch.py` and `examples/serve_lm_torch.py` in
    subprocesses on the card: `quickstart OK` and `strap-exact == dense:
    True`;
-34. one JSON line listing the ported kernels (row_cycle at the sweep's
+34. the "model" axis: two gloo processes sharing the card, mesh
+   (1, 1, 2), each computing on its "model" blocks
+   (`distributed.tensor_parallel`): OLMo-1B at full width and depth
+   from phase 29's weights, the first 2 x 2048 rows of its first two
+   batches, twice: in float32 (the weights cast; the train bars'
+   optimizer, eps 1e-3) and in bf16 (the config's dtype; phase 29's
+   optimizer).  Each: two AdamW steps of `make_sharded_train_step`
+   against `make_train_step` on rank 0, each rank's `FlopCounterMode`
+   FLOPs exactly half of the world-1 step's, its step times and peak;
+   the sharded prefill of 2 x 512 prompts and 8 greedy decode steps
+   (`make_sharded_serve_prefill` / `_decode`) against the model
+   functions on rank 0.  Float32 at the PR 22 bars: loss and grad norm
+   2e-5 relative, every parameter 2e-5 of max(max |want|, lr), the same
+   tokens, logits within 2e-5 of max |logits|.  Bf16 against world 1 in
+   bf16 at bars set from the readings and a float32 control (world 1
+   in bf16 against float32): loss 1e-3, grad norm 1e-2, parameters one
+   bf16 step (2^-7), logits 3e-2 of max, the decode teacher-forced with
+   world 1's tokens and a differing token allowed only at a near-tie
+   (world 1's top-2 margin within twice the logit bar); no ported
+   kernel launched;
+35. one JSON line listing the ported kernels (row_cycle at the sweep's
    one launch over 299,008 rows and at one 2048-row chunk, with the
    cycles of a step; rc_multistep at the phased path's ACT call, with
    cycles a step, its block as the library reports it and, in its
@@ -199,8 +219,8 @@ Phases (any failure exits non-zero and prints no result line):
    hybrid and enc-dec paths) and `by_shape` (the Pixtral and OLMo decode
    shapes); row_cycle's `launches_by_path` counts each path's launches,
    read around it; every entry's `launches_by_path` has `dist_train`,
-   its launches in phases 29-31, this process's and the four members'
-   summed), then the card line, then the result line
+   its launches in phases 29-31 and 34, this process's and the six
+   members' summed), then the card line, then the result line
    {"ok": true, "device": {...}}.
 
 It imports nothing of JAX and nothing of the JAX package.
@@ -3468,6 +3488,400 @@ def twins_phase(dev) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# the "model" axis: each rank computes on its blocks
+# --------------------------------------------------------------------------
+
+TP_OLMO = ("olmo-1b", 2, 2048)     # arch, global batch, seq (phase 29's rows)
+TP_MESH = (1, 1, 2)
+TP_STEPS = 2
+# the float32 run's optimizer: the train bars' (tests/test_torch_train_step.py:
+# Adam's eps 1e-3, so that a rounding of a near-zero gradient cannot flip a
+# step); the bf16 run's: phase 29's
+TP_OC = dict(lr=1e-3, eps=1e-3, warmup_steps=1, total_steps=10)
+TP_BF16_OC = dict(lr=DIST_LR)
+TP_SERVE = (2, 512, 8)             # prompts, prompt length, greedy steps
+TP_BAR = 2e-5                      # TRAIN_BAR; logits: of max |logits|
+# the bf16 run against world 1 in bf16, bars set from the readings of sound
+# runs and of the float32 control (world 1 in bf16 against world 1 in
+# float32) on the H100 and the CPU (PERF.md, PR 24; tests/test_torch_tp.py):
+# loss and grad norm relative, every parameter of max(max |want|, lr) (one
+# bf16 step at the top of a binade), logits of max |logits| (the port's
+# bf16 bar, EP_BF16_BAR)
+TP_BF16_LOSS_BAR, TP_BF16_GNORM_BAR = 1e-3, 1e-2
+TP_BF16_PARAM_BAR = 2.0 ** -7
+TP_BF16_LOGIT_BAR = 3e-2
+
+
+def _tp_train(cfg, mesh, oc, start, batches, dev) -> tuple:
+    """TP_STEPS sharded steps from `start` on `batches` (every rank the
+    whole batch: no dp axis): the rank's FLOPs of the first step
+    (`FlopCounterMode`), step times, peak, metrics and the gathered
+    parameters."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.distributed.sharding import gather_tree, shard_tree
+    from repro_torch.train.step import make_sharded_train_step, train_specs
+    from repro_torch.tree import tree_map
+
+    p_specs, _ = train_specs(cfg, mesh)
+    params = tree_map(torch.clone, shard_tree(start, p_specs, mesh))
+    fn, opt = make_sharded_train_step(cfg, mesh, oc)
+    state = opt.init(params)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    with FlopCounterMode(display=False) as flops:
+        params, state, metrics, ms = timed_run(fn, params, state,
+                                               batches[:1])
+    params, state, more, ms2 = timed_run(fn, params, state, batches[1:])
+    out = {"flops": float(flops.get_total_flops()), "step_ms": ms + ms2,
+           "metrics": [m.item() for m in metrics + more],
+           "peak_gb": _peak_gb(dev)}
+    return out, gather_tree(params, p_specs, mesh)
+
+
+def _world1_train(cfg, oc, start, batches, dev) -> tuple:
+    """The same steps through `make_train_step` on this process alone:
+    (FLOPs of the first step, step times, metrics, peak; the
+    parameters)."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.train.step import make_train_step
+    from repro_torch.tree import tree_map
+
+    want = tree_map(torch.clone, start)
+    fn, opt = make_train_step(cfg, oc)
+    state = opt.init(want)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    with FlopCounterMode(display=False) as flops:
+        want, state, metrics, ms = timed_run(fn, want, state, batches[:1])
+    want, state, more, ms2 = timed_run(fn, want, state, batches[1:])
+    return ({"flops": float(flops.get_total_flops()), "step_ms": ms + ms2,
+             "metrics": [m.item() for m in metrics + more],
+             "peak_gb": _peak_gb(dev)}, want)
+
+
+def _param_errs(got, want, lr: float) -> dict:
+    """{leaf: max |got - want| / max(max |want|, lr)}."""
+    from repro_torch.tree import leaves, leaves_with_paths
+
+    out = {}
+    for (path, w), g in zip(leaves_with_paths(want), leaves(got)):
+        w, g = w.float(), g.float()
+        out["/".join(path)] = ((g - w).abs().max().item()
+                               / max(w.abs().max().item(), lr))
+    return out
+
+
+def _logit_errs(got, want) -> list:
+    """Each step's max |got - want| / max |want|."""
+    return [((g.float() - w.float()).abs().max()
+             / w.float().abs().max()).item() for g, w in zip(got, want)]
+
+
+def _tp_serve(cfg, mesh, params, prompts, steps, dev, feed=None) -> tuple:
+    """The sharded prefill of `prompts` and `steps` greedy steps: (logits
+    (steps + 1, B, V), tokens (B, steps + 1), ms of the prefill and each
+    step).  With `feed` (B, steps + 1) step i decodes `feed[:, i]` in
+    place of its own last token (teacher forcing); the tokens returned
+    are still the run's own argmax."""
+    import torch
+
+    from repro_torch.distributed.sharding import shard_tree
+    from repro_torch.train.step import (make_sharded_serve_decode,
+                                        make_sharded_serve_prefill,
+                                        train_specs)
+
+    b, s = prompts.shape
+    blocks = shard_tree(params, train_specs(cfg, mesh)[0], mesh)
+    pre = make_sharded_serve_prefill(cfg, mesh, b, s + steps)
+    dec = make_sharded_serve_decode(cfg, mesh, b, s + steps)
+    sync(dev)
+    t0 = time.perf_counter()
+    logits, cache = pre(blocks, {"tokens": prompts})
+    sync(dev)
+    ms = [(time.perf_counter() - t0) * 1e3]
+    token = torch.argmax(logits, -1).to(torch.int32)[:, None]
+    lg, tk = [logits], [token]
+    for i in range(steps):
+        pos = torch.full((b,), s + i, dtype=torch.int32, device=dev)
+        if feed is not None:
+            token = feed[:, i:i + 1]
+        t0 = time.perf_counter()
+        token, logits, cache = dec(blocks, cache, token, pos)
+        sync(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        lg.append(logits)
+        tk.append(token)
+    return torch.stack(lg), torch.cat(tk, 1), ms
+
+
+def _world1_serve(cfg, params, prompts, steps) -> tuple:
+    """The same greedy run through the model functions on one process."""
+    import torch
+
+    from repro_torch.distributed.tensor_parallel import pad_seq
+    from repro_torch.models import registry as models
+
+    b, s = prompts.shape
+    with torch.no_grad():
+        logits, cache = models.prefill(cfg, params, {"tokens": prompts})
+        cache = {k: pad_seq(v, s + steps, dim=2) for k, v in cache.items()}
+        token = torch.argmax(logits, -1).to(torch.int32)[:, None]
+        lg, tk = [logits], [token]
+        for i in range(steps):
+            pos = torch.full((b,), s + i, dtype=torch.int32,
+                             device=prompts.device)
+            logits, cache = models.decode_step(cfg, params, cache, token, pos)
+            token = torch.argmax(logits, -1).to(torch.int32)[:, None]
+            lg.append(logits)
+            tk.append(token)
+    return torch.stack(lg), torch.cat(tk, 1)
+
+
+def _world1_feed(cfg, params, prompts, steps, rank: int, dev) -> tuple:
+    """World 1's greedy run on rank 0 and its tokens broadcast to every
+    rank, the split decode's teacher-forced inputs: (tokens (B, steps +
+    1) on `dev`, rank 0's logits (None elsewhere))."""
+    import torch
+    import torch.distributed as dist
+
+    lg = None
+    tk = torch.zeros((prompts.shape[0], steps + 1), dtype=torch.int32)
+    if rank == 0:
+        lg, wt = _world1_serve(cfg, params, prompts, steps)
+        tk = wt.cpu()
+    dist.broadcast(tk, src=0)
+    return tk.to(dev), lg
+
+
+def _top2_margins(logits) -> list:
+    """(steps + 1, B): (top-1 - top-2 logit) / max |logits| of the step."""
+    import torch
+
+    lg = logits.float()
+    top = torch.topk(lg, 2, dim=-1).values
+    scale = lg.abs().amax(dim=(1, 2))[:, None]
+    return ((top[..., 0] - top[..., 1]) / scale).tolist()
+
+
+def tp_member(seed: int, device: str, arch: str, batch: int, seq: int,
+              serve: list) -> dict:
+    """Phase 34, in each of two gloo processes sharing cuda:0, mesh
+    (1, 1, 2): every rank computes on its "model" blocks.  Two runs from
+    phase 29's weights on the first 2 x 2048 rows of its first two
+    batches: "float32" (the weights cast, TP_OC) and "bfloat16" (the
+    config as it is, phase 29's optimizer TP_BF16_OC).  Each:
+
+    (a) TP_STEPS AdamW steps of `make_sharded_train_step`; the rank's
+    `FlopCounterMode` FLOPs of the first step, step times and peak;
+    (b) the sharded prefill of 2 x 512 random prompts and 8 greedy
+    decode steps (`make_sharded_serve_prefill` / `_decode`); in bf16
+    teacher-forced with world 1's tokens (`_world1_feed`), so that a
+    near-tie that rounding turns the other way does not part the runs.
+
+    Then rank 0 alone runs the world-1 references of each:
+    `make_train_step` from the same weights and batches (loss and grad
+    norm relative, every parameter of max(max |want|, lr), its FLOPs for
+    the parent to hold against twice each rank's) and the model
+    functions' prefill and greedy decode (tokens and their top-2
+    margins; logits of max |logits|); and the float32 control of the bf16 readings: world 1 in
+    float32 under the bf16 run's optimizer, held against world 1 in
+    bf16 (the distance that bf16 itself puts between the two)."""
+    import dataclasses as dc
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.mesh import make_train_mesh
+    from repro_torch.models import registry as models
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.tree import tree_map
+
+    wrappers = _zero_launches()
+    set_precision()
+    dev = _member_device(device)
+    mesh = make_train_mesh(TP_MESH, device=device)
+    rank = dist.get_rank()
+    b, s = batch, seq
+    bf16 = get_arch(arch)
+    f32 = dc.replace(bf16, param_dtype="float32", compute_dtype="float32")
+    start = models.init_params(bf16, torch.Generator(dev).manual_seed(seed),
+                               dev)
+    start32 = tree_map(lambda t: t.float(), start)
+    batches = [{k: v[:b] for k, v in batch.items()} for batch in
+               olmo_batches(bf16, 8, s, seed, TP_STEPS, dev)]
+    gen = torch.Generator(dev).manual_seed(seed + 34)
+    prompts = torch.randint(0, bf16.vocab_size, tuple(serve[:2]),
+                            generator=gen, device=dev, dtype=torch.int32)
+    runs = {"float32": (f32, OptConfig(**TP_OC), start32),
+            "bfloat16": (bf16, OptConfig(**TP_BF16_OC), start)}
+    out = {"rank": rank, "mesh": list(TP_MESH), "arch": bf16.name,
+           "batch": [b, s]}
+    got, logits, w1_logits, feed = {}, {}, {}, None
+    for name, (cfg, oc, p0) in runs.items():
+        t0 = time.perf_counter()
+        train, got[name] = _tp_train(cfg, mesh, oc, p0, batches, dev)
+        train["wall_s"] = time.perf_counter() - t0
+        if name == "bfloat16":
+            feed, w1_logits[name] = _world1_feed(cfg, p0, prompts, serve[2],
+                                                 rank, dev)
+        t0 = time.perf_counter()
+        logits[name], tk, serve_ms = _tp_serve(cfg, mesh, p0, prompts,
+                                               serve[2], dev, feed)
+        out[name] = {"train": train,
+                     "serve": {"prefill_ms": serve_ms[0],
+                               "step_ms": serve_ms[1:],
+                               "wall_s": time.perf_counter() - t0,
+                               "tokens": tk.tolist()}}
+    out["kernel_launches"] = {n: k.launches for n, k in wrappers.items()}
+    if rank != 0:
+        return out
+    # ---- rank 0: the world-1 references ------------------------------------
+    for name, (cfg, oc, p0) in runs.items():
+        r = out[name]
+        r["world1"], want = _world1_train(cfg, oc, p0, batches, dev)
+        r["metric_rel"] = [rel(x, y) for x, y in zip(r["train"]["metrics"],
+                                                      r["world1"]["metrics"])]
+        errs = _param_errs(got.pop(name), want, oc.lr)
+        r["param_worst"] = max(errs.values())
+        r["param_worst_leaf"] = max(errs, key=errs.get)
+        if name == "bfloat16":
+            want_bf16 = want
+        del want
+        if name == "bfloat16":
+            wt = feed
+        else:
+            w1_logits[name], wt = _world1_serve(cfg, p0, prompts, serve[2])
+        r["serve"]["world1_tokens"] = wt.tolist()
+        r["serve"]["world1_margins"] = _top2_margins(w1_logits[name])
+        r["serve"]["logit_err"] = _logit_errs(logits.pop(name),
+                                              w1_logits[name])
+    # ---- the float32 control of the bf16 readings ---------------------------
+    oc = OptConfig(**TP_BF16_OC)
+    control, want32 = _world1_train(f32, oc, start32, batches, dev)
+    errs = _param_errs(want_bf16, want32, oc.lr)
+    del want_bf16, want32
+    r = out["bfloat16"]
+    wt16 = torch.tensor(r["serve"]["world1_tokens"])
+    wt32 = torch.tensor(out["float32"]["serve"]["world1_tokens"])
+    differ = (wt16 != wt32).any(0).nonzero()
+    same = int(differ[0]) if len(differ) else wt16.shape[1]
+    r["control"] = {
+        "metric_rel": [rel(x, y) for x, y in zip(r["world1"]["metrics"],
+                                                 control["metrics"])],
+        "param_worst": max(errs.values()),
+        "param_worst_leaf": max(errs, key=errs.get),
+        # the greedy runs part where a token differs: logits compared up to
+        # and including the first step whose tokens differ
+        "logit_err": _logit_errs(w1_logits["bfloat16"][:same + 1],
+                                 w1_logits["float32"][:same + 1]),
+        "tokens_equal": int((wt16 == wt32).sum()), "tokens": wt16.numel()}
+    return out
+
+
+def _tokens_differ(res, r0) -> list:
+    """(row, step, world 1's top-2 margin there) where the rank's bf16
+    tokens differ from world 1's."""
+    want = r0["bfloat16"]["serve"]["world1_tokens"]
+    margin = r0["bfloat16"]["serve"]["world1_margins"]
+    return [(row, i, margin[i][row]) for row, (got, w) in
+            enumerate(zip(res["bfloat16"]["serve"]["tokens"], want))
+            for i, (g, t) in enumerate(zip(got, w)) if g != t]
+
+
+def _bf16_bars(r0, results) -> list[str]:
+    """What fails of the bf16 run's readings against TP_BF16_*: loss,
+    grad norm, parameters, logits, and a rank's token that differs from
+    world 1's other than at a near-tie (world 1's top-2 margin within
+    twice the logit bar)."""
+    r = r0["bfloat16"]
+    bad = []
+    for i, e in enumerate(r["metric_rel"]):
+        what, bar = (("loss", TP_BF16_LOSS_BAR) if i % 2 == 0
+                     else ("grad norm", TP_BF16_GNORM_BAR))
+        if e > bar:
+            bad.append(f"{what} of step {i // 2} rel {e:.3e}")
+    if r["param_worst"] > TP_BF16_PARAM_BAR:
+        bad.append(f"{r['param_worst_leaf']} {r['param_worst']:.3e}")
+    bad += [f"logits of step {i} {e:.3e}" for i, e in
+            enumerate(r["serve"]["logit_err"]) if e > TP_BF16_LOGIT_BAR]
+    bad += [f"rank {res['rank']} token ({row}, {i}) at margin {m:.3e}"
+            for res in results for row, i, m in _tokens_differ(res, r0)
+            if m > 2 * TP_BF16_LOGIT_BAR]
+    return bad
+
+
+def tp_phase(args, dev, card) -> list:
+    """Phase 34 from the parent (see `tp_member`): the bars, each rank's
+    FLOPs exactly half the world-1 step's in both runs, the log lines."""
+    arch, b, s = TP_OLMO
+    results = dist_gloo_phase(args, dev, "tp_member", card, arch=arch,
+                              batch=b, seq=s, serve=list(TP_SERVE))
+    r0 = results[0]
+    for name in ("float32", "bfloat16"):
+        w1 = r0[name]
+        for res in results:
+            t = res[name]
+            check(2 * t["train"]["flops"] == w1["world1"]["flops"],
+                  f"TP {name}: rank {res['rank']} counted "
+                  f"{t['train']['flops']} FLOPs, the world-1 step "
+                  f"{w1['world1']['flops']}")
+            check(name == "bfloat16"      # held at near-ties, below
+                  or t["serve"]["tokens"] == w1["serve"]["world1_tokens"],
+                  f"TP {name}: rank {res['rank']} greedy tokens differ "
+                  "from world 1's")
+            check(t["train"]["metrics"] == w1["train"]["metrics"],
+                  f"TP {name}: rank {res['rank']} reports other metrics "
+                  "than rank 0")
+    r = r0["float32"]
+    check(all(e <= TP_BAR for e in r["metric_rel"]),
+          f"TP: loss / grad norm vs world 1 {r['metric_rel']} (bar {TP_BAR})")
+    check(r["param_worst"] <= TP_BAR,
+          f"TP: {r['param_worst_leaf']} {r['param_worst']:.3e} of "
+          f"max(max|want|, lr) (bar {TP_BAR})")
+    check(all(e <= TP_BAR for e in r["serve"]["logit_err"]),
+          f"TP: logits vs world 1 {r['serve']['logit_err']} of max (bar "
+          f"{TP_BAR})")
+    bad = _bf16_bars(r0, results)
+    check(not bad, f"TP bf16 vs world 1 in bf16: {bad}")
+    for name in ("float32", "bfloat16"):
+        w1 = r0[name]
+        for res in results:
+            t = res[name]["train"]
+            log(f"[tp] {name}: rank {res['rank']} of 2 gloo on the card, mesh "
+                f"{tuple(res['mesh'])}, {res['arch']} {res['batch']}: "
+                f"{t['flops']:.6e} FLOPs a step (world 1 "
+                f"{w1['world1']['flops']:.6e}), step ms "
+                f"{[round(x, 1) for x in t['step_ms']]}, peak "
+                f"{t['peak_gb']} GB; prefill "
+                f"{res[name]['serve']['prefill_ms']:.1f} ms, decode ms "
+                f"{[round(x, 1) for x in res[name]['serve']['step_ms']]} "
+                f"({card})")
+        log(f"[tp] {name}: world 1 step ms "
+            f"{[round(x, 1) for x in w1['world1']['step_ms']]} (rank 0 "
+            f"alone, its TP copies kept beside it: peak "
+            f"{w1['world1']['peak_gb']} GB); loss / grad norm rel "
+            f"{[f'{x:.2e}' for x in w1['metric_rel']]}; worst parameter "
+            f"{w1['param_worst']:.2e} ({w1['param_worst_leaf']}); "
+            + ("greedy tokens equal" if name == "float32" else
+               "teacher-forced tokens differing (row, step, world 1's top-2 "
+               f"margin) {[_tokens_differ(res, r0) for res in results]}")
+            + f", logits {max(w1['serve']['logit_err']):.2e} of max ({card})")
+    c = r0["bfloat16"]["control"]
+    log(f"[tp] bfloat16's float32 control (world 1 bf16 vs float32): loss / "
+        f"grad norm rel {[f'{x:.2e}' for x in c['metric_rel']]}; worst "
+        f"parameter {c['param_worst']:.2e} ({c['param_worst_leaf']}); "
+        f"logits {[f'{x:.2e}' for x in c['logit_err']]} of max; greedy "
+        f"tokens equal {c['tokens_equal']} of {c['tokens']}"
+        f" ({card})")
+    return results
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -4068,7 +4482,23 @@ def main(argv=None) -> int:
     log(f"[twins] phases 32-33 wall time "
         f"{record['dryrun_twins_wall_s']:.1f} s")
 
-    # 34. the kernels line: row_cycle at the sized path's one launch over
+    # 34. the "model" axis: two gloo processes on the card, mesh (1, 1, 2),
+    #    each computing on its blocks: OLMo-1B's train step and serving
+    #    against world 1 (none of the ported kernels lies on the path)
+    t_tp = time.perf_counter()
+    record["tp"] = tp_phase(args, dev, card)
+    record["tp_wall_s"] = time.perf_counter() - t_tp
+    tp_launches = {n: sum(r["kernel_launches"][n] for r in record["tp"])
+                   for n in dist_launches}
+    check(not any(tp_launches.values()),
+          f"phase 34 launched a ported kernel: {tp_launches}")
+    for n, c in tp_launches.items():
+        dist_launches[n] += c
+    log(f"[tp] phase 34 wall time {record['tp_wall_s']:.1f} s; ported "
+        f"kernels launched there, the two members summed (none lies on the "
+        f"path): {tp_launches}")
+
+    # 35. the kernels line: row_cycle at the sized path's one launch over
     #    299,008 rows and at one 2048-row chunk; rc_multistep at the phased
     #    path's ACT call; strap_attend at the full-width path's last
     #    exact-mode (and gated) step

@@ -1,7 +1,8 @@
 """Distributed training of the port on `torch.distributed`: the ambient
 mesh (`distributed.context`), the sharding rules and per-rank blocks
-(`distributed.sharding`) and the strapped hierarchical collectives
-(`distributed.collectives`).
+(`distributed.sharding`), the strapped hierarchical collectives
+(`distributed.collectives`) and the "model" axis
+(`distributed.tensor_parallel`).
 
 The reference jits its train step under a ("pod", "data", "model") mesh
 and lets GSPMD keep the numbers of the sharded step equal to a
@@ -11,12 +12,15 @@ explicit:
 - storage follows the reference's specs: each rank holds, of every
   parameter and optimizer-state leaf, the block that
   `NamedSharding(mesh, spec)` places on the device at its coordinate;
-- compute is data-parallel over ("pod", "data"): each rank all-gathers
-  the full parameters, runs forward and backward on its batch shard,
-  reduces the gradients with `hierarchical_psum_tree` and updates only
-  its own blocks (`train.step.make_sharded_train_step`);
-- the "model" axis computes only where the reference names it
-  explicitly, the expert-parallel MoE (`models.moe.moe_apply_ep`);
-  elsewhere the "model" ranks run the dense layers redundantly, which is
-  correct but not fast.
+- each rank computes on its "model" blocks, as GSPMD partitions the
+  reference's program (`distributed.tensor_parallel`: the attention's
+  heads, the MLP's "ff" columns, the head's vocab rows, the experts,
+  the decode cache's positions, and the residual stream's sequence
+  under `seq_parallel`); the other leaves are gathered whole
+  (`tensor_parallel.model_split` is the rule); the batch is split over
+  ("pod", "data"), the gradients reduced with `hierarchical_psum_tree`
+  and each rank updates only its own blocks
+  (`train.step.make_sharded_train_step`);
+- the expert-parallel MoE (`models.moe.moe_apply_ep`, `cfg.moe_ep`)
+  splits its experts over "model" itself.
 """

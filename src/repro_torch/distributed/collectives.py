@@ -109,8 +109,11 @@ def all_gather_cat(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     return out
 
 
-def reduce_scatter(t: torch.Tensor, group) -> torch.Tensor:
-    """Sum of every rank's `t` over `group`, this rank's 1/n of dim 0."""
+def reduce_scatter(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """Sum of every rank's `t` over `group`, this rank's 1/n of `dim`."""
+    if dim:
+        moved = reduce_scatter(t.movedim(dim, 0).contiguous(), group)
+        return moved.movedim(0, dim).contiguous()
     if _alone(t, group):
         return t.detach().clone()
     src = _src(t, group)
@@ -137,18 +140,33 @@ def all_to_all(t: torch.Tensor, group) -> torch.Tensor:
 # Differentiable collectives for the model's distributed paths
 # ---------------------------------------------------------------------------
 
-class _GatherRows(torch.autograd.Function):
-    """Forward: all-gather along dim 0.  Backward: reduce-scatter (every
-    rank's loss reads the gathered rows)."""
+class _GatherDim(torch.autograd.Function):
+    """Forward: all-gather along `dim`.  Backward: every rank's gradient
+    summed, this rank's block (each rank's downstream computes a part:
+    its loss reads the gathered rows, or it attends its own heads)."""
 
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return all_gather_cat(x, group, 0)
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return all_gather_cat(x, group, dim)
 
     @staticmethod
     def backward(ctx, g):
-        return reduce_scatter(g.contiguous(), ctx.group), None
+        return reduce_scatter(g.contiguous(), ctx.group, ctx.dim), None, None
+
+
+class _ScatterDim(torch.autograd.Function):
+    """Forward: reduce-scatter along `dim` (partial sums to the rank's
+    block of their total).  Backward: all-gather along `dim`."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return reduce_scatter(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather_cat(g.contiguous(), ctx.group, ctx.dim), None, None
 
 
 class _SumReplicated(torch.autograd.Function):
@@ -245,8 +263,16 @@ def gather_rows(x, groups):
     """All-gather dim 0 over `groups` (minor axis first), differentiably:
     the rows of a batch sharded over their product, major-first."""
     for g in groups:
-        x = _GatherRows.apply(x, g)
+        x = gather_dim(x, g, 0)
     return x
+
+
+def gather_dim(x, group, dim: int):
+    return _GatherDim.apply(x, group, dim % x.dim())
+
+
+def scatter_dim(x, group, dim: int):
+    return _ScatterDim.apply(x, group, dim % x.dim())
 
 
 def sum_replicated(x, group):

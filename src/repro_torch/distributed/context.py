@@ -1,10 +1,11 @@
 """Ambient mesh context for model-internal distributed code (port of
 `repro.distributed.context`).
 
-The sharded train step registers its mesh here while it runs; model code
-(the MoE's dp gather, the expert-parallel dispatch) then finds the mesh
-without threading it through every call.  With no mesh registered, model
-code runs on the process's own tensors alone.
+The sharded steps register their mesh here while they run; model code
+(the "model" axis's collectives, the MoE's dp gather, the
+expert-parallel dispatch) then finds the mesh without threading it
+through every call.  With no mesh registered, model code runs on the
+process's own tensors alone.
 
 A mesh is a `torch.distributed.device_mesh.DeviceMesh` with
 `mesh_dim_names` (per-axis groups from `mesh.get_group(name)`, this

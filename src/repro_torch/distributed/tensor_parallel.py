@@ -1,0 +1,299 @@
+"""Tensor parallelism over the "model" axis: each rank computes on its own
+blocks of the layers' weights, as the reference's GSPMD program does
+with the blocks its `param_axes` place on a device.
+
+The reference jits its steps with `in_shardings` from `param_axes`;
+GSPMD then multiplies on each device only its "model" block of the
+attention projections ("qkv"), the MLP ("ff"), the head ("vocab") and
+the experts ("experts"), and attends only its "seq" block of a decode
+cache.  Here each rank runs that schedule explicitly.  A region of a
+layer whose ranks each compute a part is entered and left through the
+conjugate pairs of collectives (Megatron's f / g, all in
+`distributed.collectives`):
+
+  * `reduce_grad` (identity forward, sum over "model" backward) in, and
+    `sum_replicated` (sum forward, identity backward) out, when the
+    residual stream is replicated over "model";
+  * `gather_dim` (all-gather along the sequence forward, the rank's
+    block of the summed gradient backward) in, and `scatter_dim`
+    (reduce-scatter along the sequence forward, all-gather backward)
+    out, when the stream holds the rank's sequence block
+    (`cfg.seq_parallel`, opt level 6: the Megatron-SP pattern of the
+    reference's `src/repro/models/lm.py`);
+  * `gather_replicated` / `own_block` between a block and a tensor that
+    every rank then uses whole.
+
+`model_split(cfg, mesh)` and `cache_split(cfg, mesh, batch, seq)` are
+the rules, and live only here.  `model_split` says, for each parameter
+leaf, whether the layer computes on its "model" block (`True`: the step
+gathers the leaf over "data" only) or on the whole leaf (`False`:
+gathered over every axis, computed redundantly by the "model" ranks).
+The layers read what they are given (`block_group`): a module whose
+weights are the rank's blocks runs split, one given whole runs whole.
+Out of scope, and so gathered whole: the SSM and hybrid mixers, the
+encoder-decoder family, the gated strap decode, the router, the
+expert-parallel MoE (`cfg.moe_ep`, which splits its experts itself), and
+any module whose "model" dims do not divide the axis.  `cache_split`
+says whether the serve steps' decode cache holds the rank's block of
+positions; they pass its answer to `prefill` and `decode_step`.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+import torch.distributed as dist
+
+from ..tree import leaves_with_paths, unflatten
+from . import context as mesh_ctx
+from .collectives import (all_gather_cat, all_to_all, gather_dim,
+                          gather_replicated, own_block, reduce_grad,
+                          scatter_dim, sum_replicated)
+
+ATTENTION_FAMILIES = ("dense", "moe", "vlm")
+
+
+# ---------------------------------------------------------------------------
+# The rule
+# ---------------------------------------------------------------------------
+
+def _model_size(sizes: dict) -> int:
+    return sizes.get("model", 1)
+
+
+def module_split(cfg, sizes: dict) -> dict[str, bool]:
+    """{module: True where its ranks compute on their "model" blocks}
+    for a mesh of axis `sizes`: "vocab" (embedding and head), "attn"
+    (wq / wk / wv / wo and the biases), "mlp" (the dense MLP), "experts"
+    (`we_*`) and "res" (Arctic's dense residual MLP)."""
+    m = _model_size(sizes)
+    off = dict(vocab=False, attn=False, mlp=False, experts=False, res=False)
+    if m <= 1 or cfg.family not in ATTENTION_FAMILIES:
+        return off
+    hd = cfg.head_dim_
+    return dict(
+        vocab=cfg.padded_vocab % m == 0,
+        attn=(not cfg.strap_decode and (cfg.n_heads * hd) % m == 0
+              and (cfg.n_kv_heads * hd) % m == 0),
+        mlp=not cfg.n_experts and cfg.d_ff % m == 0,
+        experts=(bool(cfg.n_experts) and not cfg.moe_ep
+                 and cfg.n_experts % m == 0),
+        res=(cfg.moe_dense_residual and not cfg.moe_ep
+             and cfg.d_ff % m == 0))
+
+
+_LEAF_MODULE = {
+    "embed": "vocab", "lm_head": "vocab",
+    **{k: "attn" for k in ("wq", "wk", "wv", "wo", "bq", "bk", "bv")},
+    **{k: "mlp" for k in ("w_gate", "w_up", "w_down", "w_in", "b_in",
+                          "w_out")},
+    **{k: "experts" for k in ("we_gate", "we_up", "we_down")},
+    **{"res_" + k: "res" for k in ("w_gate", "w_up", "w_down")},
+}
+
+
+def _split_specs(cfg, mesh) -> tuple[list, list]:
+    """([(path, spec)] of every parameter leaf, [True where the layer
+    computes on the leaf's "model" block]), in flattening order."""
+    from ..models import registry as M
+    from .sharding import tree_specs
+
+    split = module_split(cfg, mesh_ctx.mesh_axis_sizes(mesh))
+    specs = leaves_with_paths(tree_specs(M.param_axes(cfg),
+                                         M.abstract_params(cfg), mesh))
+    on = [split.get(_LEAF_MODULE.get(path[-1]), False) for path, _ in specs]
+    for (path, spec), o in zip(specs, on):
+        if o and not _on_model(spec):
+            raise ValueError(f"{cfg.name}: {'/'.join(path)} is computed on "
+                             f"its model block but stored as {spec}")
+    return specs, on
+
+
+def _on_model(spec) -> bool:
+    from .sharding import entry_axes
+    return any("model" in entry_axes(e) for e in spec)
+
+
+def model_split(cfg, mesh) -> dict:
+    """A tree of `param_axes(cfg)`'s structure: for each leaf True where
+    the layer computes on the rank's "model" block of it (the step then
+    gathers it over "data" only), False where it is gathered whole.  A
+    leaf marked True is split over "model" by its spec (checked, so that
+    this rule and the sharding rules cannot drift apart)."""
+    from ..models import registry as M
+
+    return unflatten(M.param_axes(cfg), _split_specs(cfg, mesh)[1])
+
+
+def model_gathered(cfg, mesh) -> list[str]:
+    """The leaves stored split over "model" that the step gathers whole
+    (the dry-run record's `model_gathered`)."""
+    specs, on = _split_specs(cfg, mesh)
+    return ["/".join(path) for (path, spec), o in zip(specs, on)
+            if not o and _on_model(spec)]
+
+
+def block_group(t, whole: int, dim: int):
+    """The registered mesh's "model" group when `t` is the rank's block of
+    a leaf `whole` wide along `dim` (the step gathered it as its "model"
+    block, `model_split`), else None (no mesh, or the whole leaf: the
+    layer then computes on it whole, as every "model" rank does)."""
+    if t.shape[dim] == whole:
+        return None
+    mesh = mesh_ctx.get_mesh()
+    if mesh is None or t.shape[dim] * _model_size(
+            mesh_ctx.mesh_axis_sizes(mesh)) != whole:
+        raise ValueError(f"a weight {tuple(t.shape)} is neither whole "
+                         f"({whole} along dim {dim}) nor a block of it over "
+                         "the registered mesh's \"model\" axis")
+    return mesh.get_group("model")
+
+
+# ---------------------------------------------------------------------------
+# The residual stream and the regions of a layer
+# ---------------------------------------------------------------------------
+
+class Stream(NamedTuple):
+    """How a layer holds its residual stream: `group`, the "model" group
+    (None: one rank or no mesh); `seq`, the stream is the rank's block
+    of dim 1 over `group` (`seq_parallel`)."""
+    group: object = None
+    seq: bool = False
+
+
+WHOLE = Stream()
+
+
+def stream(cfg, seq: bool = True) -> Stream:
+    """The stream of `cfg` under the registered mesh.  `seq=False` for
+    prefill and decode: `seq_parallel` applies to the train step, as the
+    reference's opt level 6 sets it for the train cell only."""
+    mesh = mesh_ctx.get_mesh()
+    if mesh is None or _model_size(mesh_ctx.mesh_axis_sizes(mesh)) <= 1:
+        return WHOLE
+    sp = bool(seq and cfg.seq_parallel and cfg.family in ATTENTION_FAMILIES)
+    return Stream(mesh.get_group("model"), sp)
+
+
+def enter(x, group, st: Stream):
+    """The stream -> the whole input of a region whose ranks (`group`,
+    the "model" group) each compute a part, their gradients summed on
+    the way back."""
+    return gather_dim(x, group, 1) if st.seq else reduce_grad(x, group)
+
+
+def leave(y, group, st: Stream):
+    """A region's partial sums over `group` -> the stream."""
+    return scatter_dim(y, group, 1) if st.seq else sum_replicated(y, group)
+
+
+def enter_whole(x, st: Stream):
+    """The stream -> the whole input of a computation every rank runs in
+    full (each holding the whole gradient)."""
+    return gather_replicated(x, st.group, 1) if st.seq else x
+
+
+def leave_whole(y, st: Stream):
+    """A computation every rank ran in full -> the stream."""
+    return own_block(y, st.group, 1) if st.seq else y
+
+
+def seq_param(w, st: Stream):
+    """A whole parameter applied to the rank's sequence block: its
+    gradient is the block's share, summed over "model" on the way back."""
+    return reduce_grad(w, st.group) if st.seq else w
+
+
+def check_seq(cfg, st: Stream, s: int) -> None:
+    if st.seq and s % dist.get_world_size(st.group):
+        raise ValueError(f"{cfg.name}: seq_parallel needs the sequence "
+                         f"({s}) to split over the "
+                         f"{dist.get_world_size(st.group)} model ranks")
+
+
+# ---------------------------------------------------------------------------
+# Decode caches split along the sequence
+# ---------------------------------------------------------------------------
+
+class CacheSplit(NamedTuple):
+    """How the serve steps lay the decode cache's sequence dim: `axes`,
+    the mesh axes (major first) whose ranks each hold a block of the
+    positions (() : every rank the whole sequence); `length`, the
+    cache's length, to which prefill pads each layer's K/V (None: the
+    prompt's)."""
+    axes: tuple = ()
+    length: int | None = None
+
+
+NO_SPLIT = CacheSplit()
+
+
+def cache_split(cfg, mesh, batch: int, seq: int) -> CacheSplit:
+    """The rule for the serve steps' cache of `batch` x `seq` positions:
+    split along the sequence over the axes that `cache_specs` puts on
+    its "seq" dim, where the attention families (not the gated decode)
+    run under more than one "model" rank and the cache's other dims,
+    the batch aside, stay whole on each rank; else whole."""
+    from ..models import registry as M
+    from .sharding import cache_specs, entry_axes
+
+    if (cfg.family not in ATTENTION_FAMILIES or cfg.strap_decode
+            or _model_size(mesh_ctx.mesh_axis_sizes(mesh)) <= 1):
+        return CacheSplit((), seq)
+    axes = M.cache_axes(cfg, batch, seq)["k"]
+    spec = cache_specs(cfg, {"k": axes},
+                       {"k": M.abstract_cache(cfg, batch, seq)["k"]},
+                       mesh)["k"]
+    if any(e for e, a in zip(spec, axes) if a not in ("seq", "batch")):
+        return CacheSplit((), seq)
+    return CacheSplit(entry_axes(spec[axes.index("seq")]), seq)
+
+
+def cache_blocks(split: CacheSplit) -> tuple[list, int, int]:
+    """(groups of `split`'s axes that hold more than one rank of the
+    registered mesh, major first; this rank's block index over their
+    product; the product)."""
+    mesh = mesh_ctx.get_mesh()
+    if mesh is None or not split.axes:
+        return [], 0, 1
+    sizes, coords = mesh_ctx.mesh_axis_sizes(mesh), mesh_ctx.mesh_coords(mesh)
+    idx, n = 0, 1
+    for a in split.axes:
+        idx = idx * sizes[a] + coords[a]
+        n *= sizes[a]
+    return [mesh.get_group(a) for a in split.axes if sizes[a] > 1], idx, n
+
+
+def pad_seq(t, length: int | None, dim: int = 1):
+    """`t` padded with zeros along `dim` to `length` positions."""
+    if length is None or t.shape[dim] == length:
+        return t
+    shape = list(t.shape)
+    shape[dim] = length - shape[dim]
+    return torch.cat([t, t.new_zeros(shape)], dim=dim)
+
+
+def to_cache_block(t, n_heads: int, split: CacheSplit = NO_SPLIT):
+    """A layer's prefill K or V (B, S, H, hd) -> the rank's block of the
+    cache laid out by `split`: H is all `n_heads` or the rank's block of
+    them over "model" (split at head boundaries).  With no sequence
+    split the heads are gathered whole."""
+    groups, idx, n = cache_blocks(split)
+    t = pad_seq(t, split.length)
+    mesh = mesh_ctx.get_mesh()
+    split_heads = t.shape[2] != n_heads
+    if split_heads and split.axes == ("model",):
+        # one all-to-all: sequence chunks out, head blocks in
+        model = mesh.get_group("model")
+        m = dist.get_world_size(model)
+        b, s, h, d = t.shape
+        x = t.reshape(b, m, s // m, h, d).permute(1, 0, 2, 3, 4).contiguous()
+        x = all_to_all(x, model)                   # (m: head block, ...)
+        return x.permute(1, 2, 0, 3, 4).reshape(b, s // m, m * h, d)
+    if split_heads:
+        t = all_gather_cat(t, mesh.get_group("model"), 2)
+    if n == 1:
+        return t
+    step = t.shape[1] // n
+    return t.narrow(1, idx * step, step).contiguous()

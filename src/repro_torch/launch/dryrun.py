@@ -15,17 +15,27 @@ part, its collectives return at once, and every tensor is a
 The dry run is the port's one entry point that touches no device: it
 allocates nothing, needs no card and never initializes CUDA.
 
-What each cell runs is the port's design, not GSPMD's:
-  * train_4k: `make_sharded_train_step` on the rank's blocks of the
-    parameters and optimizer state (`train_specs`) and its shard of the
-    batch (`batch_specs`): every parameter gathered whole, the gradients
-    summed by `hierarchical_psum_tree`, the rank's blocks updated;
-  * prefill_32k: the parameters gathered whole from the rank's blocks
-    (`gather_block`), `make_serve_prefill` on the rank's rows of the
-    batch, the cache kept as the rank's blocks (`cache_specs`);
-  * decode_32k, long_500k: the same parameters, the cache stored as the
-    rank's blocks and gathered for its rows, `make_serve_decode`, the
-    updated cache kept as the rank's blocks.
+What each cell runs is the placement of the reference's GSPMD program:
+each rank holds its blocks of the parameters (`train_specs`) and
+computes on its "model" blocks (`distributed.tensor_parallel`): the
+attention's heads, the MLP's "ff" columns, the head's vocab rows, the
+experts.  The rule `tensor_parallel.model_split` gathers those over
+"data" only, and gathers whole the leaves of the paths it leaves out
+(the record's `model_gathered`: the router, the SSM and hybrid mixers,
+the enc-dec family, the gated decode's attention, the expert-parallel
+MoE):
+  * train_4k: `make_sharded_train_step` on those blocks, the
+    optimizer state's (`train_specs`) and the rank's shard of the batch
+    (`batch_specs`); the gradients summed over ("pod", "data") leaf by
+    leaf, the rank's blocks clipped and updated;
+  * prefill_32k: `make_sharded_serve_prefill` on the rank's rows, its
+    K/V written as its blocks of the cache (`cache_specs`: the sequence
+    over "model");
+  * decode_32k, long_500k: `make_sharded_serve_decode`, each rank
+    attending its block of the cache's positions and combining the
+    softmax statistics over "model" (and "data" at long_500k's one
+    sequence); the gated decode and the SSM / hybrid / enc-dec caches
+    are gathered for the rank's rows, as before.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch deepseek-67b --cell train_4k --mesh single
@@ -43,6 +53,7 @@ import sys
 import time
 import traceback
 from pathlib import Path
+from types import SimpleNamespace
 
 ROOT = Path(__file__).resolve().parents[3]
 RESULTS = ROOT / "results" / "dryrun_torch"
@@ -69,12 +80,6 @@ def _block(abstract, spec, mesh, coords):
     return torch.empty([s.stop - s.start for s in sl], dtype=abstract.dtype)
 
 
-def _rows_spec(spec: tuple, axes: tuple) -> tuple:
-    """The spec of a tensor that holds only the rank's rows: its batch dim
-    is already the rank's dp block."""
-    return tuple(None if ax == "batch" else e for e, ax in zip(spec, axes))
-
-
 def _step(cfg, kind, mesh, b, s, counts):
     """Build the rank's arguments inside `counts`, mark them, run the
     step; returns what the rank keeps (for a serve cell, its blocks of
@@ -83,9 +88,10 @@ def _step(cfg, kind, mesh, b, s, counts):
     from ..distributed import sharding as shard
     from ..distributed.context import mesh_coords
     from ..models import registry as M
-    from ..train.step import (make_serve_decode, make_serve_prefill,
+    from ..train.step import (make_sharded_serve_decode,
+                              make_sharded_serve_prefill,
                               make_sharded_train_step, train_specs)
-    from ..tree import leaves, tree_map, unflatten
+    from ..tree import tree_map
 
     coords = mesh_coords(mesh)
     blocks = lambda abst, specs: tree_map(
@@ -99,26 +105,15 @@ def _step(cfg, kind, mesh, b, s, counts):
         state = opt.init(params)
         counts.mark_arguments()
         return step(params, state, batch)
-
-    c_axes = M.cache_axes(cfg, b, s)
-    c_specs = shard.cache_specs(cfg, c_axes, M.abstract_cache(cfg, b, s),
-                                mesh)
-    rows = tree_map(_rows_spec, c_specs, c_axes)
-    cache = None
-    if kind == "decode":
-        cache = blocks(M.abstract_cache(cfg, b, s), c_specs)
-    counts.mark_arguments()
-    full = unflatten(params, [shard.gather_block(x, sp, mesh) for x, sp in
-                              zip(leaves(params), leaves(p_specs))])
     if kind == "prefill":
-        _, out = make_serve_prefill(cfg)(full, batch)
-    else:
-        cache = shard.gather_tree(cache, rows, mesh)
-        _, _, out = make_serve_decode(cfg)(full, cache, batch["token"],
-                                           batch["pos"])
-    del full
-    return tree_map(lambda x, sp: shard.local_block(x, sp, mesh).clone(),
-                    out, {k: rows[k] for k in out})
+        counts.mark_arguments()
+        return make_sharded_serve_prefill(cfg, mesh, b, s)(params, batch)[1]
+    c_specs = shard.cache_specs(cfg, M.cache_axes(cfg, b, s),
+                                M.abstract_cache(cfg, b, s), mesh)
+    cache = blocks(M.abstract_cache(cfg, b, s), c_specs)
+    counts.mark_arguments()
+    return make_sharded_serve_decode(cfg, mesh, b, s)(
+        params, cache, batch["token"], batch["pos"])[2]
 
 
 def dry_run(cfg, kind: str, shape: tuple, b: int, s: int) -> dict:
@@ -154,6 +149,7 @@ def run(cfg, cell: str, mesh_name: str, shape: tuple, opt_level: int = 0,
     `cell`'s kind, at the cell's global batch and sequence unless `b` /
     `s` are given, on a fake mesh of `shape` named `mesh_name`."""
     from ..configs.base import SHAPE_CELLS
+    from ..distributed.tensor_parallel import model_gathered
     from ..roofline.analytic import hbm_bytes
     from ..roofline.analyze import model_flops_for
 
@@ -183,7 +179,72 @@ def run(cfg, cell: str, mesh_name: str, shape: tuple, opt_level: int = 0,
         counts={k: v for k, v in counts.items() if k != "t_run_s"},
         t_run_s=counts["t_run_s"])
     result["model_flops"] = float(model_flops_for(result))
+    mesh = SimpleNamespace(axis_names=AXES[-len(shape):],
+                           devices=SimpleNamespace(shape=tuple(shape)))
+    result["model_gathered"] = model_gathered(cfg, mesh)
+    result["memory_reckoned"] = memory_reckoned(cfg, kind, mesh, b, s)
     return result
+
+
+def memory_reckoned(cfg, kind: str, mesh, b: int, s: int) -> dict:
+    """What rank 0 holds in a step, reckoned from the block shapes (bytes;
+    the peak the fake run counts is the measurement, this its parts):
+    the stored parameter blocks; the parameters as the step gathers them
+    (`model_split`: "model" blocks gathered over "data", other leaves
+    whole); for a train step, the optimizer-state blocks, the gradients
+    of the gathered parameters (their dtype), the largest of their
+    float32 copies (the sum over ("pod", "data") runs leaf by leaf), the
+    remat inputs (one stream a layer: the rank's rows, its sequence block
+    under `seq_parallel`) and the float32 logits of the rank's rows (its
+    vocab block where the head is split)."""
+    from ..distributed import tensor_parallel as tp
+    from ..distributed.context import mesh_axis_sizes
+    from ..distributed.sharding import block_slices, dp_axes, entry_axes
+    from ..models import registry as M
+    from ..models.common import torch_dtype
+    from ..train.optimizer import abstract_opt_state
+    from ..train.step import train_specs
+    from ..tree import leaves
+
+    sizes = mesh_axis_sizes(mesh)
+    m = sizes.get("model", 1)
+    rank0 = {a: 0 for a in sizes}
+
+    def block_bytes(t, spec):
+        sl = block_slices(tuple(t.shape), spec, mesh, rank0)
+        return math.prod(x.stop - x.start for x in sl) * t.element_size()
+
+    def model_only(spec):
+        return tuple("model" if "model" in entry_axes(e) else None
+                     for e in spec)
+
+    abstract = leaves(M.abstract_params(cfg))
+    p_specs, o_specs = train_specs(cfg, mesh)
+    split = leaves(tp.model_split(cfg, mesh))
+    gathered = [block_bytes(t, model_only(sp) if on else ())
+                for t, sp, on in zip(abstract, leaves(p_specs), split)]
+    out = {"stored_params": sum(block_bytes(t, sp) for t, sp in
+                                zip(abstract, leaves(p_specs))),
+           "gathered_params": sum(gathered)}
+    if kind != "train":
+        return out
+    state = abstract_opt_state(cfg.optimizer, M.abstract_params(cfg))
+    rows = b // math.prod(sizes[a] for a in dp_axes(mesh, b))
+    seq = s // m if cfg.seq_parallel and cfg.family in \
+        tp.ATTENTION_FAMILIES else s
+    item = torch_dtype(cfg.compute_dtype).itemsize
+    vocab = cfg.padded_vocab // m if tp.module_split(cfg, sizes)["vocab"] \
+        else cfg.padded_vocab
+    out.update(
+        optimizer_state=sum(block_bytes(t, sp) for t, sp in
+                            zip(leaves(state), leaves(o_specs))),
+        gradients=out["gathered_params"],
+        largest_gradient_f32=max(g // abstract[i].element_size() * 4
+                                 for i, g in enumerate(gathered)),
+        remat_inputs=(cfg.n_layers * rows * seq * cfg.d_model * item
+                      if cfg.remat else 0),
+        logits_f32=rows * s * vocab * 4)
+    return out
 
 
 def run_cell(arch: str, cell: str, mesh_kind: str, opt_level: int = 0

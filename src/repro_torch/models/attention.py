@@ -14,7 +14,12 @@ with `causal=False` and `kv_override=` (the encoder's K/V), and
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
+from ..distributed import tensor_parallel as tp
+from ..distributed.collectives import (all_gather_cat, all_reduce,
+                                       gather_dim, gather_replicated,
+                                       own_block)
 from .common import ParamSpec, Schema, apply_rope
 
 NEG_INF = -1e30
@@ -42,24 +47,30 @@ def attn_schema(cfg, layers: int | None = None, prefix: str = "") -> Schema:
     return s
 
 
+def _project(cfg, p, x, prefix: str = "", names: str = "qkv") -> list:
+    """x (B, S, D) projected by w<n> for each n of `names`, plus b<n> where
+    `cfg.qkv_bias`: flat (B, S, C), C the rank's columns when `p` holds
+    its "model" blocks."""
+    out = []
+    for n in names:
+        t = x @ p[prefix + "w" + n]
+        if cfg.qkv_bias:
+            t = t + p[prefix + "b" + n].to(t.dtype)
+        out.append(t)
+    return out
+
+
+def _heads(t, hd: int):
+    b, s, c = t.shape
+    return t.reshape(b, s, c // hd, hd)
+
+
 def _project_q(cfg, p, x, prefix: str = ""):
-    b, s, _ = x.shape
-    q = x @ p[prefix + "wq"]
-    if cfg.qkv_bias:
-        q = q + p[prefix + "bq"].to(q.dtype)
-    return q.reshape(b, s, cfg.n_heads, cfg.head_dim_)
+    return _heads(_project(cfg, p, x, prefix, "q")[0], cfg.head_dim_)
 
 
 def _project_qkv(cfg, p, x, prefix: str = ""):
-    b, s, _ = x.shape
-    hd, hkv = cfg.head_dim_, cfg.n_kv_heads
-    k = x @ p[prefix + "wk"]
-    v = x @ p[prefix + "wv"]
-    if cfg.qkv_bias:
-        k = k + p[prefix + "bk"].to(k.dtype)
-        v = v + p[prefix + "bv"].to(v.dtype)
-    return (_project_q(cfg, p, x, prefix), k.reshape(b, s, hkv, hd),
-            v.reshape(b, s, hkv, hd))
+    return tuple(_heads(t, cfg.head_dim_) for t in _project(cfg, p, x, prefix))
 
 
 def _gqa_scores(q, k, scale):
@@ -87,19 +98,44 @@ def _attend_block(q, k, v, scale, q_pos, k_pos, out_dtype, causal):
     return _gqa_out(torch.softmax(logits, dim=-1), v, out_dtype)
 
 
+def _attend_chunks(cfg, q, k, v, positions, out_dtype, causal):
+    """Query blocks of `cfg.attn_chunk` against the whole K/V: (B, S,
+    Hq * hd).  A length that is not a multiple of the chunk is attended
+    in one block, as in the reference."""
+    b, s = q.shape[:2]
+    scale = cfg.head_dim_ ** -0.5
+    chunk = min(cfg.attn_chunk, s)
+    if s % chunk:
+        chunk = s                     # non-divisible (odd test lengths): full
+    k_pos = torch.arange(k.shape[1], device=q.device)
+    q_pos = positions[0]
+    out = torch.cat([
+        _attend_block(q[:, i:i + chunk], k, v, scale, q_pos[i:i + chunk],
+                      k_pos, out_dtype, causal)
+        for i in range(0, s, chunk)], dim=1)
+    return out.reshape(b, s, -1)
+
+
 def causal_attention(cfg, p, x, positions=None, prefix: str = "",
-                     causal: bool = True, kv_override=None):
+                     causal: bool = True, kv_override=None,
+                     st: tp.Stream = tp.WHOLE):
     """Chunked (causal) attention for prefill.
 
-    x: (B, S, D).  Returns (out (B,S,D), (k, v)) — the cache material.
-    Query blocks of `cfg.attn_chunk`; a length that is not a multiple of
-    the chunk is attended in one block, as in the reference.  With
-    `kv_override=(k, v)` (cross-attention) the projected K/V are replaced
-    and no RoPE is applied; `causal=False` drops the mask.
+    x: (B, S, D), the residual stream as `st` holds it.  Returns (out,
+    (k, v)): out as `st` holds the stream; (k, v) the cache material,
+    (B, S, Hkv, hd), or the rank's block of the heads when the heads
+    split over "model" (`_attention_split`).  Query blocks of
+    `cfg.attn_chunk`.  With `kv_override=(k, v)` (cross-attention) the
+    projected K/V are replaced and no RoPE is applied; `causal=False`
+    drops the mask.
     """
-    b, s, _ = x.shape
-    hd = cfg.head_dim_
-    scale = hd ** -0.5
+    group = None if kv_override is not None else tp.block_group(
+        p[prefix + "wq"], cfg.n_heads * cfg.head_dim_, -1)
+    if group is not None:
+        return _attention_split(cfg, p, x, positions, prefix, causal, st,
+                                group)
+    x = tp.enter_whole(x, st)
+    s = x.shape[1]
     if kv_override is not None:                 # cross-attention path
         # only the query is projected: the reference's K/V projections of
         # x here are dead code that XLA drops
@@ -111,22 +147,67 @@ def causal_attention(cfg, p, x, positions=None, prefix: str = "",
     if cfg.rope_theta > 0 and kv_override is None:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+    o = _attend_chunks(cfg, q, k, v, positions, x.dtype, causal)
+    return tp.leave_whole(o @ p[prefix + "wo"], st), (k, v)
 
-    chunk = min(cfg.attn_chunk, s)
-    if s % chunk:
-        chunk = s                     # non-divisible (odd test lengths): full
-    k_pos = torch.arange(k.shape[1], device=x.device)
-    q_pos = positions[0]
-    out = torch.cat([
-        _attend_block(q[:, i:i + chunk], k, v, scale, q_pos[i:i + chunk],
-                      k_pos, x.dtype, causal)
-        for i in range(0, s, chunk)], dim=1)
-    o = out.reshape(b, s, -1)
-    return o @ p[prefix + "wo"], (k, v)
+
+def _attention_split(cfg, p, x, positions, prefix, causal, st, group):
+    """`causal_attention` on the rank's "model" blocks: the columns of
+    wq / wk / wv (and their biases) and the rows of wo.
+
+    A projection whose heads split over "model" at head boundaries stays
+    the rank's heads; one that does not (K/V at 16 ranks for 8 KV heads,
+    Qwen2-1.5B's 12 query heads) is all-gathered over "model" before
+    attending, where the reference's `constrain` gives up on the split
+    too.  With the query heads split the rank attends them against the
+    K/V heads they read (a gathered K/V is used in part, so its gradient
+    comes back summed, `gather_dim`); with the query gathered every rank
+    attends every head and keeps its block of the output columns.  wo's
+    partial products are summed over "model" (`tp.leave`)."""
+    hd, hq, hkv = cfg.head_dim_, cfg.n_heads, cfg.n_kv_heads
+    m, r = dist.get_world_size(group), dist.get_rank(group)
+    x = tp.enter(x, group, st)
+    s = x.shape[1]
+    q, k, v = _project(cfg, p, x, prefix)
+    if positions is None:
+        positions = torch.arange(s, device=x.device)[None, :]
+    q_split, kv_split = hq % m == 0, hkv % m == 0
+    if q_split:
+        q = _heads(q, hd)
+        if not kv_split:
+            k, v = gather_dim(k, group, -1), gather_dim(v, group, -1)
+    else:
+        q = _heads(gather_replicated(q, group, -1), hd)
+        k, v = gather_replicated(k, group, -1), gather_replicated(v, group, -1)
+    k, v = _heads(k, hd), _heads(v, hd)
+    if cfg.rope_theta > 0:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    ka, va = k, v
+    if q_split and not kv_split:
+        ka, va = _kv_for_heads(k, r * (hq // m), hq // m, hq // hkv), \
+            _kv_for_heads(v, r * (hq // m), hq // m, hq // hkv)
+    o = _attend_chunks(cfg, q, ka, va, positions, x.dtype, causal)
+    if not q_split:
+        o = own_block(o, group, -1)
+    return tp.leave(o @ p[prefix + "wo"], group, st), (k, v)
+
+
+def _kv_for_heads(kv, q0: int, nq: int, grp: int):
+    """The K or V heads (B, S, Hkv, hd) that query heads q0 .. q0 + nq - 1
+    read (query head h reads KV head h // grp), laid out so that
+    `_gqa_scores` pairs them: a contiguous range where the rank's query
+    heads cover whole groups or sit in one, else one per query head."""
+    if nq % grp == 0:
+        return kv[:, :, q0 // grp: q0 // grp + nq // grp]
+    if grp % nq == 0:
+        return kv[:, :, q0 // grp: q0 // grp + 1]
+    idx = torch.arange(q0, q0 + nq, device=kv.device) // grp
+    return kv.index_select(2, idx)
 
 
 def decode_attention(cfg, p, x, k_cache, v_cache, pos, prefix: str = "",
-                     cross: bool = False):
+                     cross: bool = False, split: tp.CacheSplit = tp.NO_SPLIT):
     """One-token attention against the cache.
 
     x: (B, 1, D); k_cache/v_cache: (B, S, Hkv, hd); pos: (B,) current index.
@@ -136,35 +217,88 @@ def decode_attention(cfg, p, x, k_cache, v_cache, pos, prefix: str = "",
     returns new arrays; for finite values both give the same numbers).
     With `cross=True` (the encoder's K/V) every cached position is valid,
     the cache is not written and the return is (out, None, None).
+
+    Under a mesh (inference only: these collectives carry no gradient):
+    with the attention's "model" blocks (`tp.block_group`) the rank
+    projects its columns, gathers q and the new K/V over "model", and
+    sums wo's partial products; with the cache's sequence split
+    (`split`, `tensor_parallel.cache_split`) the cache is the rank's
+    block of positions, the new token is written by the rank that owns
+    `pos`, and the partial softmax of each rank (its max, its sum of
+    exponentials, its weighted V) is combined over the split axes
+    (flash-decoding).
     """
     b = x.shape[0]
     hd = cfg.head_dim_
     scale = hd ** -0.5
     s_cache = k_cache.shape[1]
+    group = None if cross else tp.block_group(
+        p[prefix + "wq"], cfg.n_heads * hd, -1)
     if cross:                   # the encoder's K/V: only q is projected
         q = _project_q(cfg, p, x, prefix)
         valid = torch.ones((b, s_cache), dtype=torch.bool, device=x.device)
+        seq_groups = []
     else:
-        q, k_new, v_new = _project_qkv(cfg, p, x, prefix)
+        if group is None:
+            q, k_new, v_new = _project_qkv(cfg, p, x, prefix)
+        else:                   # every head: the rank's columns gathered
+            q, k_new, v_new = (_heads(all_gather_cat(t, group, -1), hd)
+                               for t in _project(cfg, p, x, prefix))
         if cfg.rope_theta > 0:
             q = apply_rope(q, pos[:, None], cfg.rope_theta)
             k_new = apply_rope(k_new, pos[:, None], cfg.rope_theta)
+        seq_groups, blk, _ = tp.cache_blocks(split)
+        s0 = blk * s_cache
         rows = torch.arange(b, device=x.device)
-        idx = pos.long()
-        k_cache[rows, idx] = k_new[:, 0].to(k_cache.dtype)
-        v_cache[rows, idx] = v_new[:, 0].to(v_cache.dtype)
-        valid = (torch.arange(s_cache, device=x.device)[None, :]
+        idx = pos.long() - s0
+        k_new, v_new = k_new[:, 0].to(k_cache.dtype), v_new[:, 0].to(
+            v_cache.dtype)
+        if seq_groups:          # only the rank that owns `pos` writes
+            own = ((idx >= 0) & (idx < s_cache))[:, None, None]
+            idx = idx.clamp(0, s_cache - 1)
+            k_new = torch.where(own, k_new, k_cache[rows, idx])
+            v_new = torch.where(own, v_new, v_cache[rows, idx])
+        k_cache[rows, idx] = k_new
+        v_cache[rows, idx] = v_new
+        valid = (s0 + torch.arange(s_cache, device=x.device)[None, :]
                  <= pos[:, None])
 
     logits = _gqa_scores(q, k_cache, scale)[..., 0, :]      # (B,Hkv,grp,S)
     logits = torch.where(valid[:, None, None, :], logits, NEG_INF)
-    w = torch.softmax(logits, dim=-1)
-    o = torch.einsum("bhgk,bkhd->bhgd", w, v_cache.float())
+    if seq_groups:
+        o = _combined_softmax_v(logits, v_cache, seq_groups)
+    else:
+        w = torch.softmax(logits, dim=-1)
+        o = torch.einsum("bhgk,bkhd->bhgd", w, v_cache.float())
     o = o.reshape(b, 1, -1).to(x.dtype)
-    out = o @ p[prefix + "wo"]
+    if group is None:
+        out = o @ p[prefix + "wo"]
+    else:                       # wo's rows: the rank's block of o's columns
+        rows_wo = p[prefix + "wo"].shape[0]
+        o = o[..., dist.get_rank(group) * rows_wo:][..., :rows_wo]
+        out = all_reduce(o @ p[prefix + "wo"], group)
     if cross:
         return out, None, None
     return out, k_cache, v_cache
+
+
+def _combined_softmax_v(logits, v, groups):
+    """softmax(logits) @ V over positions split across `groups`: each
+    rank's max, sum of exponentials and exp-weighted V over its block,
+    rescaled to the global max and summed.  logits (B, Hkv, grp, S_rank)
+    float32 (masked positions at NEG_INF; position 0 is valid on the
+    first block, so the global max is finite), v (B, S_rank, Hkv, hd).
+    -> (B, Hkv, grp, hd) float32."""
+    top = torch.amax(logits, dim=-1, keepdim=True)
+    for g in groups:
+        top = all_reduce(top, g, dist.ReduceOp.MAX)
+    e = torch.exp(logits - top)
+    den = torch.sum(e, dim=-1, keepdim=True)
+    num = torch.einsum("bhgk,bkhd->bhgd", e, v.float())
+    both = torch.cat([num, den], dim=-1)
+    for g in groups:
+        both = all_reduce(both, g)
+    return both[..., :-1] / both[..., -1:]
 
 
 def decode_attention_gated(cfg, p, x, k_cache, v_cache, ksum, pos):

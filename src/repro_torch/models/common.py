@@ -13,10 +13,12 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..device import resolve_device
 from ..distributed import context as mesh_ctx
+from ..distributed.collectives import all_reduce, sum_replicated
 
 # ---------------------------------------------------------------------------
 # Schema
@@ -138,10 +140,13 @@ def constrain_spec(cfg, shape: tuple, logical, force: bool = False):
 
 def constrain(cfg, x, logical, force: bool = False):
     """The reference pins an activation's sharding here
-    (`constrain_spec`); each rank of the port holds its own local tensor,
-    so there is nothing to pin and `x` is returned as it is, with or
-    without a mesh.  The model code therefore has no call to it where the
-    reference has one."""
+    (`constrain_spec`) so that GSPMD keeps it split.  The port's schedule
+    is explicit: each rank holds its own local tensor, and where the
+    reference pins the residual stream over "model" (`shard_acts`, opt
+    level 4, and `seq_parallel`, level 6) the port's layers already hold
+    it so (`distributed.tensor_parallel.Stream`).  Level 4 therefore has
+    nothing left to pin, `x` is returned as it is, and the model code has
+    no call to it where the reference has one."""
     return x
 
 
@@ -243,28 +248,59 @@ def embed_schema(cfg) -> Schema:
     return s
 
 
-def embed_tokens(params, tokens, dtype):
+def embed_tokens(params, tokens, dtype, group=None):
     """The tokens' rows of the embedding table, cast to `dtype`.  Through
     `F.embedding`, whose backward sums a repeated token's gradients in a
     fixed order; an indexing gather's backward accumulates them in
     whatever order its threads (or the card's atomics) take, and a train
-    step would not repeat bit for bit."""
-    return F.embedding(tokens, params["embed"]).to(dtype)
+    step would not repeat bit for bit.
+
+    With `group` (vocab-parallel: the table is this rank's block of rows
+    over "model") each rank looks up the tokens that fall inside its
+    rows, zeros the rest, and the result is summed over `group` (exact:
+    one rank contributes each row)."""
+    table = params["embed"]
+    if group is None:
+        return F.embedding(tokens, table).to(dtype)
+    rows = table.shape[0]
+    local = tokens.long() - dist.get_rank(group) * rows
+    inside = (local >= 0) & (local < rows)
+    part = F.embedding(torch.where(inside, local, 0), table)
+    part = part.masked_fill(~inside[..., None], 0)
+    return sum_replicated(part, group).to(dtype)
 
 
 def lm_logits(cfg, params, h):
     """(B, S, D) -> (B, S, V) logits in float32: the (tied) table is cast
-    to float32 on every call, as the reference does."""
+    to float32 on every call, as the reference does.  When the table is
+    the rank's vocab block (`distributed.tensor_parallel`), so are the
+    logits: (B, S, V / model)."""
     table = params["embed"] if cfg.tie_embeddings else params["lm_head"]
     return torch.einsum("bsd,vd->bsv", h.float(), table.float())
 
 
-def cross_entropy(logits, targets, vocab_size: int):
+def cross_entropy(logits, targets, vocab_size: int, group=None):
     """Mean cross entropy over all tokens, in float32: the logsumexp over
     every column (the padded vocabulary's tail included, as in the
     reference, which takes `vocab_size` and does not cut on it) minus the
-    gold logit."""
+    gold logit.
+
+    With `group` the logits are this rank's vocab block (vocab-parallel):
+    the max and the sum of exponentials are all-reduced over `group`, the
+    gold logit comes from the rank whose block holds it, and every rank
+    returns the same loss."""
     logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    if group is None:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+        return torch.mean(logz - gold)
+    cols = logits.shape[-1]
+    with torch.no_grad():
+        top = all_reduce(torch.amax(logits, dim=-1), group, dist.ReduceOp.MAX)
+    sumexp = torch.sum(torch.exp(logits - top[..., None]), dim=-1)
+    logz = torch.log(sum_replicated(sumexp, group)) + top
+    local = targets.long() - dist.get_rank(group) * cols
+    inside = (local >= 0) & (local < cols)
+    gold = torch.gather(logits, -1, torch.where(inside, local, 0)[..., None])
+    gold = sum_replicated(gold[..., 0].masked_fill(~inside, 0.0), group)
     return torch.mean(logz - gold)

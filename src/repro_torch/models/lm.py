@@ -16,6 +16,14 @@ hybrid: each group body, not the trailing layers) is recomputed in the
 backward instead of keeping its activations, where the reference puts
 `jax.checkpoint`.
 
+Under a registered mesh (the sharded steps of `train.step`) the layers
+compute on the "model" blocks they are given (`distributed.
+tensor_parallel`): the vocab-parallel embedding, head and loss, the
+attention's heads, the MLP's "ff" columns, the experts; with
+`cfg.seq_parallel` (train) the residual stream between the regions is
+the rank's sequence block; prefill writes each layer's K/V as the
+rank's cache blocks.
+
 Public entry points (functions of (cfg, params, ...)):
   init_params     -> params on the requested device
   param_axes / abstract_params -> logical axes / meta-device shapes
@@ -31,6 +39,7 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..distributed import tensor_parallel as tp
 from .attention import (attn_schema, causal_attention, decode_attention,
                         decode_attention_gated)
 from .common import (ParamSpec, Schema, abstract_from_schema, add_norm,
@@ -41,7 +50,7 @@ from .mlp import mlp_apply, mlp_schema
 from .moe import moe_apply, moe_apply_ep, moe_schema
 from .ssm import ssm_apply, ssm_decode_step, ssm_schema
 
-ATTENTION_FAMILIES = ("dense", "moe", "vlm")
+ATTENTION_FAMILIES = tp.ATTENTION_FAMILIES
 
 
 def _tf_layer_schema(cfg, layers: int) -> Schema:
@@ -131,18 +140,34 @@ def ffn_apply(cfg, lp, m_in):
     return mlp_apply(cfg, lp, m_in)
 
 
-def _tf_block(cfg, lp, h, positions):
+def _seq_norms(params, st: tp.Stream, prefixes=("ln1", "ln2")) -> dict:
+    """`params` with its norm weights applied to the rank's sequence block
+    under `seq_parallel` (their gradients summed over "model")."""
+    if not st.seq:
+        return params
+    keys = [p + s for p in prefixes for s in ("_w", "_b")]
+    return {**params, **{k: tp.seq_param(params[k], st) for k in keys
+                         if k in params}}
+
+
+def _tf_block(cfg, lp, h, positions, st: tp.Stream = tp.WHOLE):
     """An attention layer over the prompt: (h, MoE aux loss (0.0 for the
-    dense MLP), (k, v))."""
+    dense MLP), (k, v)).  `h` is the residual stream as `st` holds it:
+    whole on every "model" rank, or its sequence block (`seq_parallel`:
+    all-gathered over "model" before attention and the MLP,
+    reduce-scattered after them, the Megatron-SP pattern of the
+    reference's comment here)."""
+    lp = _seq_norms(lp, st)
     a_in = apply_norm(cfg, h, lp, "ln1")
-    attn_out, (k, v) = causal_attention(cfg, lp, a_in, positions)
+    attn_out, (k, v) = causal_attention(cfg, lp, a_in, positions, st=st)
     h = h + attn_out
     m_in = apply_norm(cfg, h, lp, "ln2")
     if cfg.n_experts:
         moe_fn = moe_apply_ep if cfg.moe_ep else moe_apply
-        mo, aux = moe_fn(cfg, lp, m_in)
+        mo, aux = moe_fn(cfg, lp, tp.enter_whole(m_in, st))
+        mo = tp.leave_whole(mo, st)
     else:
-        mo = mlp_apply(cfg, lp, m_in)
+        mo = mlp_apply(cfg, lp, m_in, st=st)
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
     return h + mo, aux, (k, v)
 
@@ -154,14 +179,34 @@ def _ssm_block(cfg, lp, h):
     return h + out, (hf, convf)
 
 
-def _embed_inputs(cfg, params, batch, dtype):
+def _embed_inputs(cfg, params, batch, dtype, st: tp.Stream = tp.WHOLE):
     """Token (+ vision-stub) embedding -> (B, S, D), positions (1, S): the
-    vision embeddings come first and the positions run over both."""
-    h = embed_tokens(params, batch["tokens"], dtype)
+    vision embeddings come first and the positions run over both.  The
+    lookup is vocab-parallel where the mesh splits the table; under
+    `seq_parallel` the stream is the rank's sequence block, the positions
+    still the whole sequence's."""
+    h = embed_tokens(params, batch["tokens"], dtype,
+                     _vocab_group(cfg, params))
     if cfg.n_vision_tokens and "vision_embeds" in batch:
         h = torch.cat([batch["vision_embeds"].to(dtype), h], dim=1)
     positions = torch.arange(h.shape[1], device=h.device)[None, :]
-    return h, positions
+    tp.check_seq(cfg, st, h.shape[1])
+    return tp.leave_whole(h, st), positions
+
+
+def _vocab_group(cfg, params):
+    """The "model" group where the embedding (and head) are the rank's
+    vocab blocks, else None."""
+    return tp.block_group(params["embed"], cfg.padded_vocab, 0)
+
+
+def _head(cfg, params, h, st: tp.Stream = tp.WHOLE):
+    """The logits of the final-normed stream `h`: float32, the rank's
+    vocab block where the head is split (the whole sequence's under
+    `seq_parallel`)."""
+    group = _vocab_group(cfg, params)
+    h = tp.enter(h, group, st) if group is not None else tp.enter_whole(h, st)
+    return lm_logits(cfg, params, h)
 
 
 def _ssm_stack(cfg, params, h, *lead, key="layers"):
@@ -209,28 +254,31 @@ def _shared_block(cfg, shared, h, positions):
     return h + mlp_apply(cfg, shared, m_in), kv
 
 
-def prefill(cfg, params, batch):
+def prefill(cfg, params, batch, cache_split: tp.CacheSplit = tp.NO_SPLIT):
     """Forward over the prompt `batch["tokens"]` (B, S), after
     `batch["vision_embeds"]` (B, Nv, D) for a VLM; returns (last-token
     logits (B, V) float32, cache).  The attention families' cache is
     {"k", "v"}: (L, B, Nv + S, Hkv, hd); a gated config (`strap_decode`)
     gets the same cache: as in the reference, the caller adds the
     per-strap key sums `ksum`.  The ssm and hybrid caches are as
-    `cache_schema` gives them (the SSM state in float32)."""
+    `cache_schema` gives them (the SSM state in float32).  Under a mesh
+    the K/V are the rank's blocks of a cache laid out by `cache_split`
+    (`tensor_parallel.cache_split`)."""
     dtype = torch_dtype(cfg.compute_dtype)
     h, positions = _embed_inputs(cfg, params, batch, dtype)
     if cfg.family in ("ssm", "hybrid"):
         h, cache = _prefill_ssm_like(cfg, params, h, positions)
     else:
+        # under a mesh each layer's K/V leave as the rank's cache blocks
         ks, vs = [], []
         for li in range(cfg.n_layers):
             h, _, (k, v) = _tf_block(cfg, layer_params(params, li), h,
                                      positions)
-            ks.append(k)
-            vs.append(v)
+            ks.append(tp.to_cache_block(k, cfg.n_kv_heads, cache_split))
+            vs.append(tp.to_cache_block(v, cfg.n_kv_heads, cache_split))
         cache = dict(k=torch.stack(ks).to(dtype), v=torch.stack(vs).to(dtype))
-    logits = lm_logits(cfg, params, apply_norm(cfg, h[:, -1:, :], params,
-                                               "final"))
+    logits = _head(cfg, params, apply_norm(cfg, h[:, -1:, :], params,
+                                           "final"))
     return logits[:, 0], cache
 
 
@@ -258,8 +306,10 @@ def _ssm_layer(cfg, lp, h):
     return h + ssm_apply(cfg, lp, apply_norm(cfg, h, lp, "ln1"))
 
 
-def _run_layers(cfg, params, h, positions):
-    """The layer stack for training: (h, aux loss summed over layers)."""
+def _run_layers(cfg, params, h, positions, st: tp.Stream = tp.WHOLE):
+    """The layer stack for training: (h, aux loss summed over layers).
+    With `cfg.remat` and `seq_parallel` the saved input of each layer is
+    the rank's sequence block."""
     zero = torch.zeros((), dtype=torch.float32, device=h.device)
     if cfg.family == "ssm":
         body = _maybe_remat(cfg, lambda hh, lp: _ssm_layer(cfg, lp, hh))
@@ -282,7 +332,7 @@ def _run_layers(cfg, params, h, positions):
                 h = _ssm_layer(cfg, lp, h)
         return h, zero
     body = _maybe_remat(cfg, lambda hh, lp: _tf_block(cfg, lp, hh,
-                                                       positions)[:2])
+                                                       positions, st)[:2])
     auxs = []
     for lp in _unstack(params["layers"]):
         h, aux = body(h, lp)
@@ -293,12 +343,14 @@ def _run_layers(cfg, params, h, positions):
 def forward_train(cfg, params, batch):
     """Forward over `batch["tokens"]` (after `batch["vision_embeds"]` for a
     VLM): ((B, S, V) float32 logits, the MoE aux loss summed over layers,
-    0.0 for the other families)."""
+    0.0 for the other families).  Under a mesh that splits the head over
+    "model" the logits are the rank's vocab block (B, S, V / model)."""
     dtype = torch_dtype(cfg.compute_dtype)
-    h, positions = _embed_inputs(cfg, params, batch, dtype)
-    h, aux = _run_layers(cfg, params, h, positions)
-    h = apply_norm(cfg, h, params, "final")
-    return lm_logits(cfg, params, h), aux
+    st = tp.stream(cfg)
+    h, positions = _embed_inputs(cfg, params, batch, dtype, st)
+    h, aux = _run_layers(cfg, params, h, positions, st)
+    h = apply_norm(cfg, h, _seq_norms(params, st, ("final",)), "final")
+    return _head(cfg, params, h, st), aux
 
 
 def loss_fn(cfg, params, batch, aux_weight: float = 0.01):
@@ -310,7 +362,8 @@ def loss_fn(cfg, params, batch, aux_weight: float = 0.01):
         nv = batch["vision_embeds"].shape[1]
         t = batch["targets"].shape[1]
         logits = logits[:, nv - 1: nv - 1 + t]
-    loss = cross_entropy(logits, batch["targets"], cfg.padded_vocab)
+    loss = cross_entropy(logits, batch["targets"], cfg.padded_vocab,
+                         _vocab_group(cfg, params))
     return loss + aux_weight * aux
 
 
@@ -381,13 +434,16 @@ def _ssm_decode_stack(cfg, params, h, ssm, conv, *lead, key="layers"):
     return h
 
 
-def decode_step(cfg, params, cache, token, pos):
+def decode_step(cfg, params, cache, token, pos,
+                cache_split: tp.CacheSplit = tp.NO_SPLIT):
     """One decode step: (B,1) token ids at positions `pos` (B,) -> ((B, V)
     float32 logits, cache).  The token's K/V (gated: and its key sum) or
     the SSM and conv states are written into `cache` in place; the same
-    dict is returned."""
+    dict is returned.  `cache_split`: how a sharded serve step laid the
+    attention cache (the rank's block of positions, or whole)."""
     dtype = torch_dtype(cfg.compute_dtype)
-    h = embed_tokens(params, token, dtype)                   # (B,1,D)
+    h = embed_tokens(params, token, dtype,
+                     _vocab_group(cfg, params))              # (B,1,D)
     if cfg.family == "ssm":
         h = _ssm_decode_stack(cfg, params, h, cache["ssm"], cache["conv"])
     elif cfg.family == "hybrid":
@@ -414,9 +470,10 @@ def decode_step(cfg, params, cache, token, pos):
                     cache["ksum"][li], pos)[0]
             else:
                 attn_out = decode_attention(cfg, lp, a_in, cache["k"][li],
-                                            cache["v"][li], pos)[0]
+                                            cache["v"][li], pos,
+                                            split=cache_split)[0]
             h = h + attn_out
             m_in = apply_norm(cfg, h, lp, "ln2")
             h = h + ffn_apply(cfg, lp, m_in)
     h = apply_norm(cfg, h, params, "final")
-    return lm_logits(cfg, params, h)[:, 0], cache
+    return _head(cfg, params, h)[:, 0], cache

@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import torch.nn.functional as F
 
+from ..distributed import tensor_parallel as tp
 from .common import ParamSpec, Schema
 
 
@@ -27,7 +28,10 @@ def mlp_schema(cfg, layers: int | None = None, prefix: str = "") -> Schema:
     }
 
 
-def mlp_apply(cfg, p, x, prefix: str = ""):
+def mlp_body(cfg, p, x, prefix: str = ""):
+    """The MLP without its output bias.  With `p` holding the rank's "ff"
+    blocks (`w_gate` / `w_up` / `w_in` / `b_in` column-parallel, `w_down`
+    / `w_out` row-parallel) the result is the rank's partial sum."""
     if cfg.act == "swiglu":
         g = x @ p[prefix + "w_gate"]
         u = x @ p[prefix + "w_up"]
@@ -36,4 +40,24 @@ def mlp_apply(cfg, p, x, prefix: str = ""):
     h = x @ p[prefix + "w_in"] + p[prefix + "b_in"].to(x.dtype)
     # jax.nn.gelu defaults to the tanh approximation
     h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
-    return h @ p[prefix + "w_out"] + p[prefix + "b_out"].to(x.dtype)
+    return h @ p[prefix + "w_out"]
+
+
+def mlp_apply(cfg, p, x, prefix: str = "", st: tp.Stream = tp.WHOLE):
+    """The MLP on the residual stream as `st` holds it.  Under a mesh that
+    gives the rank its "ff" blocks (`tp.block_group`) each rank multiplies its
+    blocks and the partial sums are summed over "model" (reduce-scattered
+    along the sequence under `seq_parallel`); `b_out` is added once,
+    after the sum."""
+    first = prefix + ("w_gate" if cfg.act == "swiglu" else "w_in")
+    group = tp.block_group(p[first], cfg.d_ff, -1)
+    if group is None:
+        y = mlp_body(cfg, p, tp.enter_whole(x, st), prefix)
+        if cfg.act != "swiglu":
+            y = y + p[prefix + "b_out"].to(x.dtype)
+        return tp.leave_whole(y, st)
+    y = tp.leave(mlp_body(cfg, p, tp.enter(x, group, st), prefix), group,
+                 st)
+    if cfg.act != "swiglu":
+        y = y + tp.seq_param(p[prefix + "b_out"], st).to(x.dtype)
+    return y

@@ -21,10 +21,13 @@ step) each rank holds its own batch shard.  `moe_apply` then keeps the
 reference's GSPMD semantics: it gathers the tokens of every dp rank
 (differentiably: the gather's backward is a reduce-scatter), routes the
 global tokens at the global capacity, takes the global aux loss and
-returns its own rows.  `moe_apply_ep` is the reference's expert-parallel
-dispatch over the "model" axis (local routing, capacity per rank and
-expert, one all-to-all each way); it falls back to `moe_apply` where the
-reference does.
+returns its own rows.  Given the rank's "experts" block of `we_*` (the
+sharded steps under `tensor_parallel.model_split`), every "model" rank
+still routes the global tokens, computes only its own experts' slots,
+and the outputs are summed over "model".  `moe_apply_ep` is the
+reference's expert-parallel dispatch over the "model" axis (local
+routing, capacity per rank and expert, one all-to-all each way); it
+falls back to `moe_apply` where the reference does.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..distributed import context as mesh_ctx
+from ..distributed import tensor_parallel as tp
 from ..distributed.collectives import (all_to_all_grad, gather_replicated,
                                        gather_rows, own_block, reduce_grad,
                                        sum_both, sum_replicated)
@@ -78,9 +82,10 @@ def _expert_mlp(h_gate, h_up, w_down, dtype):
     return (F.silu(h_gate.float()).to(dtype) * h_up) @ w_down
 
 
-def _dispatch(cfg, p, xf):
+def _slot_table(cfg, p, xf):
     """Route the tokens xf (T, D) and lay them into expert slots: (aux,
-    xe (E, cap, D), slot_token (E*cap,), slot_gate (E*cap,))."""
+    slot_token (E*cap,), slot_gate (E*cap,), cap); slot e * cap + j holds
+    expert e's j-th kept pair, slot_token T (a zero row) where none."""
     t, d = xf.shape
     e, k = cfg.n_experts, cfg.top_k
     cap = _capacity(cfg, t)
@@ -126,10 +131,22 @@ def _dispatch(cfg, p, xf):
     last_overflows = (~keep & (se == e - 1)).any()
     slot_gate[0] = torch.where(any_drop, 0.0, slot_gate[0])
     slot_token[-1] = torch.where(last_overflows, t, slot_token[-1])
+    return aux, slot_token, slot_gate, cap
 
-    xpad = torch.cat([xf, torch.zeros((1, d), dtype=xf.dtype, device=dev)])
-    xe = xpad[slot_token].reshape(e, cap, d)
-    return aux, xe, slot_token, slot_gate
+
+def _slot_inputs(xf, slot_token, cap: int):
+    """The tokens of the slots `slot_token` (n * cap,): (n, cap, D)."""
+    d = xf.shape[1]
+    xpad = torch.cat([xf, torch.zeros((1, d), dtype=xf.dtype,
+                                      device=xf.device)])
+    return xpad[slot_token].reshape(-1, cap, d)
+
+
+def _dispatch(cfg, p, xf):
+    """Route the tokens xf (T, D) and lay them into expert slots: (aux,
+    xe (E, cap, D), slot_token (E*cap,), slot_gate (E*cap,))."""
+    aux, slot_token, slot_gate, cap = _slot_table(cfg, p, xf)
+    return aux, _slot_inputs(xf, slot_token, cap), slot_token, slot_gate
 
 
 def _combine(ye, slot_token, slot_gate, t: int, dtype):
@@ -157,18 +174,45 @@ def _check_top_k(cfg):
 
 
 def _moe_local(cfg, p, x):
-    """The MoE over the tokens of x (B, S, D) alone: (y, aux)."""
+    """The MoE over the tokens of x (B, S, D) alone: (y, aux).  Given the
+    rank's "experts" block of `we_*` (`tp.block_group`) x is the same on
+    every "model" rank, the routing runs whole on each, and each rank
+    computes only its experts' slots (`_experts_split`)."""
     _check_top_k(cfg)
     b, s, d = x.shape
     t = b * s
-    aux, xe, slot_token, slot_gate = _dispatch(cfg, p, x.reshape(t, d))
-    # --- expert GEMMs -> scatter-add -------------------------------------
-    ye = _expert_mlp(xe @ p["we_gate"], xe @ p["we_up"], p["we_down"],
-                     x.dtype).reshape(-1, d)
-    y = _combine(ye, slot_token, slot_gate, t, x.dtype).reshape(b, s, d)
+    group = tp.block_group(p["we_gate"], cfg.n_experts, -3)
+    if group is not None:
+        y, aux = _experts_split(cfg, p, x.reshape(t, d), group)
+    else:
+        aux, xe, slot_token, slot_gate = _dispatch(cfg, p, x.reshape(t, d))
+        # --- expert GEMMs -> scatter-add ---------------------------------
+        ye = _expert_mlp(xe @ p["we_gate"], xe @ p["we_up"], p["we_down"],
+                         x.dtype).reshape(-1, d)
+        y = _combine(ye, slot_token, slot_gate, t, x.dtype)
+    y = y.reshape(b, s, d)
     if cfg.moe_dense_residual:
         y = y + mlp_apply(cfg, p, x, prefix="res_")
     return y, aux
+
+
+def _experts_split(cfg, p, xf, group):
+    """The experts' part of the MoE on the rank's "experts" block of
+    `we_*`: the global routing (the router whole, the same on every
+    rank), the slots of the rank's experts only, their outputs summed
+    over "model".  The slot gates' gradients are summed over "model"
+    (each rank's reach only its own slots), so the router's gradient
+    comes out whole on every rank, beside the aux loss's."""
+    t, d = xf.shape
+    el = p["we_gate"].shape[0]
+    aux, slot_token, slot_gate, cap = _slot_table(cfg, p, xf)
+    lo = dist.get_rank(group) * el * cap
+    own = slot_token[lo:lo + el * cap]
+    xe = _slot_inputs(reduce_grad(xf, group), own, cap)
+    ye = _expert_mlp(xe @ p["we_gate"], xe @ p["we_up"], p["we_down"],
+                     xf.dtype).reshape(-1, d)
+    gate = reduce_grad(slot_gate, group)[lo:lo + el * cap]
+    return sum_replicated(_combine(ye, own, gate, t, xf.dtype), group), aux
 
 
 def moe_apply(cfg, p, x):

@@ -7,6 +7,7 @@ from __future__ import annotations
 import torch
 
 from ..device import resolve_device
+from ..distributed.tensor_parallel import NO_SPLIT
 from . import encdec, lm
 from .common import axes_from_schema, torch_dtype
 
@@ -42,12 +43,19 @@ def loss_fn(cfg, params, batch):
     return _mod(cfg).loss_fn(cfg, params, batch)
 
 
-def prefill(cfg, params, batch):
-    return _mod(cfg).prefill(cfg, params, batch)
+def prefill(cfg, params, batch, cache_split=NO_SPLIT):
+    """`cache_split`: how the sharded serve steps lay the decoder-only
+    families' cache (`tensor_parallel.cache_split`); the enc-dec cache is
+    never split."""
+    if cfg.is_encdec:
+        return encdec.prefill(cfg, params, batch)
+    return lm.prefill(cfg, params, batch, cache_split)
 
 
-def decode_step(cfg, params, cache, token, pos):
-    return _mod(cfg).decode_step(cfg, params, cache, token, pos)
+def decode_step(cfg, params, cache, token, pos, cache_split=NO_SPLIT):
+    if cfg.is_encdec:
+        return encdec.decode_step(cfg, params, cache, token, pos)
+    return lm.decode_step(cfg, params, cache, token, pos, cache_split)
 
 
 def cache_schema(cfg, batch: int, seq: int):

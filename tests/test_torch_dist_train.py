@@ -1,6 +1,7 @@
 """The port's sharded train step (`train.step.make_sharded_train_step`)
-on gloo groups of CPU processes at meshes (1, 2, 1), (2, 2, 1) and (1, 2,
-2), two steps of the MoE and VLM smoke configs, against the port's
+on gloo groups of CPU processes at meshes (1, 2, 1), (1, 1, 2), (2, 2,
+1), (1, 2, 2) and (1, 1, 4) (tests/torch_dist_parity.py's `SHAPES`; on
+the last two the "model" ranks compute on their blocks), two steps of the MoE and VLM smoke configs, against the port's
 single-process step and the reference's jitted `make_train_step` on the
 whole batch (tests/torch_dist_parity.py: the groups, the weights, the
 batch and phase 24's bars).  The dense configs and the microbatched step

@@ -1,5 +1,6 @@
 """The port's sharded train step on gloo groups at meshes (1, 2, 1),
-(2, 2, 1) and (1, 2, 2): two steps of the SSM, hybrid and enc-dec smoke
+(1, 1, 2), (2, 2, 1), (1, 2, 2) and (1, 1, 4) (these families gather
+their leaves whole over "model"): two steps of the SSM, hybrid and enc-dec smoke
 configs against the port's single-process step and the reference's
 jitted `make_train_step` on the whole batch (tests/torch_dist_parity.py);
 and, in the same four-rank group:

@@ -1,5 +1,6 @@
 """The port's sharded train step on gloo groups at meshes (1, 2, 1),
-(2, 2, 1) and (1, 2, 2): two steps of the dense smoke configs, and of
+(1, 1, 2), (2, 2, 1), (1, 2, 2) and (1, 1, 4) (the "model" ranks
+computing on their blocks where the mesh has more than one): two steps of the dense smoke configs, and of
 qwen2-1.5b-smoke with microbatch=2 (batch 8: two rows a slice on the
 four dp ranks), against the port's single-process step and the
 reference's jitted `make_train_step` on the whole batch

@@ -1,11 +1,11 @@
 """The port's multi-pod dry run (`repro_torch.launch.dryrun`) on the CPU.
 
 - OLMo-1B's train_4k cell on the "single" mesh at full width and depth:
-  rank 0 of 256 runs `make_sharded_train_step` on 16 x 4,096 tokens,
-  7.09e14 matmul FLOPs, every parameter gathered whole;
-- the "model" axis repeats the dense compute: the per-rank FLOPs on a
-  (1, 16, 16) mesh with global batch B equal those of a one-rank mesh
-  with batch B / 16;
+  rank 0 of 256 runs `make_sharded_train_step` on 16 x 4,096 tokens and
+  its "model" blocks, 4.43e13 matmul FLOPs (one 16th of the dense
+  step's), its collectives derived from the block shapes;
+- the "model" axis splits the dense compute: the per-rank FLOPs on a
+  (1, 1, m) mesh are 1 / m of a one-rank mesh's at the same batch;
 - opt level 8 (the expert-parallel MoE, the gated strap decode) runs
   under fake tensors too;
 - the dry run never initializes CUDA (no call reaches `torch.cuda`'s
@@ -29,31 +29,60 @@ torch = pytest.importorskip("torch")
 from repro.configs import registry as jreg  # noqa: E402
 from repro_torch.configs import registry  # noqa: E402
 from repro_torch.launch import dryrun, optlevels  # noqa: E402
+from repro_torch.models import registry as M  # noqa: E402
+from repro_torch.tree import leaves  # noqa: E402
 
 REPO = Path(__file__).resolve().parents[1]
 
 
 def test_olmo_1b_train_4k_on_the_single_mesh_at_full_width():
+    """Every matmul dim of OLMo-1B splits over 16 "model" ranks (16 query
+    and KV heads, d_ff 8192, padded vocab 50,432): rank 0 counts one 16th
+    of the dense step's 7.09116280438784e14 FLOPs.  Its collectives,
+    from the block shapes: over "data" the bf16 "model" blocks gathered
+    (2 N / 16 bytes, N the parameters; every OLMo leaf is split over
+    "model") and the float32 gradient blocks reduce-scattered (4 N / 256)
+    and gathered back (4 N / 16), beside the loss's and the grad norm's
+    scalars; over "model" one bf16 (16, 4096, 2048) all-reduce for each
+    of the 5 a layer (the attention's and the MLP's outputs forward, the
+    gradients of their inputs backward, the attention's output again in
+    the remat recompute, which stops before the MLP's) and for the
+    embedding and the head's input, three float32 (16, 4096) all-reduces
+    of the vocab-parallel cross entropy and the grad norm's scalar."""
     r = dryrun.run_cell("olmo-1b", "train_4k", "single")
     assert r["ok"] and r["devices"] == 256 and r["mesh_shape"] == [16, 16]
     assert r["axes"] == ["data", "model"]
-    assert r["flops_per_device"] == 709116280438784.0
+    assert r["flops_per_device"] == 44319767527424.0
+    assert r["flops_per_device"] * 16 == 709116280438784.0
+    assert r["model_gathered"] == []
     cfg = registry.get_arch("olmo-1b")
-    # the whole bf16 parameters gathered; the float32 gradients summed
-    # through a reduce-scatter and an all-gather over "data"
-    by_type = r["collectives"]["by_type"]
-    assert by_type["allgather_"] > 2 * cfg.param_count()
-    assert r["collectives"]["by_axis"]["data"] > 4 * cfg.param_count()
+    n = sum(x.numel() for x in
+            leaves(M.abstract_params(cfg)))
+    by_type, by_axis = r["collectives"]["by_type"], \
+        r["collectives"]["by_axis"]
+    assert by_type["allgather_"] == 2 * n / 16 + 4 * n / 16
+    assert by_type["_reduce_scatter_base_"] == 4 * n / 256
+    assert by_axis["data"] == by_type["allgather_"] \
+        + by_type["_reduce_scatter_base_"] + 4 + 4
+    act = 16 * 4096 * cfg.d_model * 2
+    assert by_axis["model"] == (5 * cfg.n_layers + 2) * act \
+        + 3 * 16 * 4096 * 4 + 4
     mem = r["memory"]
     assert 0 < mem["argument_size_in_bytes"] < mem["peak_memory_in_bytes"]
+    assert mem["peak_memory_in_bytes"] < 80e9
 
 
-def test_model_axis_repeats_the_dense_compute():
+@pytest.mark.parametrize("m", [2, 4])
+def test_model_axis_splits_the_dense_compute(m):
+    """On a (1, 1, m) mesh each rank counts 1 / m of the one-rank step's
+    FLOPs at the same global batch (qwen2-1.5b-smoke: 4 query and 2 KV
+    heads, so at m = 4 the rank's query head attends the gathered K/V)."""
     cfg = registry.get_arch("qwen2-1.5b-smoke")
-    wide = dryrun.run(cfg, "train_4k", "x", (1, 16, 16), b=32, s=128)
+    split = dryrun.run(cfg, "train_4k", "x", (1, 1, m), b=2, s=128)
     one = dryrun.run(cfg, "train_4k", "x", (1, 1, 1), b=2, s=128)
-    assert wide["flops_per_device"] == one["flops_per_device"] > 0
-    assert one["global_batch"] == 2 and wide["devices"] == 256
+    assert split["flops_per_device"] * m == one["flops_per_device"] > 0
+    assert split["global_batch"] == one["global_batch"] == 2
+    assert split["devices"] == m and split["model_gathered"] == []
 
 
 def test_dry_run_never_initializes_cuda(monkeypatch):

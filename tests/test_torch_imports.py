@@ -26,7 +26,7 @@ from repro_torch.models import registry as models  # noqa: E402
 from repro_torch.launch import (elastic, mesh, multiproc,  # noqa: E402
                                 serve, shard)
 from repro_torch.distributed import (collectives, context,  # noqa: E402, F401
-                                     sharding)
+                                     sharding, tensor_parallel)
 from repro_torch.launch import group, optlevels  # noqa: E402, F401
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.train import loop  # noqa: E402
@@ -87,6 +87,16 @@ def test_dryrun_and_roofline_modules_are_scanned():
     assert {"repro_torch.launch.dryrun", "repro_torch.roofline",
             "repro_torch.roofline.analytic", "repro_torch.roofline.analyze",
             "repro_torch.roofline.counts"} <= set(_module_names())
+
+
+def test_tensor_parallel_module_is_scanned():
+    """The "model" axis's module is among the files the AST scan reads and
+    the import test loads."""
+    scanned = {p.relative_to(PORT).as_posix() for p in PORT_FILES
+               if PORT in p.parents}
+    assert "distributed/tensor_parallel.py" in scanned
+    assert "repro_torch.distributed.tensor_parallel" in _module_names()
+    assert tensor_parallel.model_split is not None
 
 
 def _module_names():

@@ -48,6 +48,7 @@ from repro.train import step as jstep  # noqa: E402
 from repro.train.optimizer import abstract_opt_state  # noqa: E402
 from repro_torch.configs import registry  # noqa: E402
 from repro_torch.configs.base import input_specs  # noqa: E402
+from repro_torch.distributed import tensor_parallel as tp  # noqa: E402
 from repro_torch.distributed.sharding import entry_axes  # noqa: E402
 from repro_torch.launch import dryrun, optlevels  # noqa: E402
 from repro_torch.models import ssm  # noqa: E402
@@ -219,16 +220,30 @@ class _Mesh:
         self.devices = np.empty(shape)
 
 
-def _reckoned_bytes(cfg, shape) -> dict:
+def _reckoned_bytes(cfg, shape, b: int, s: int) -> dict:
     """What rank 0 of a (pod, data, model) mesh of `shape` moves in one
-    sharded train step of `cfg`, from the block shapes: every parameter
-    gathered axis by axis (the minor axis of a dim first), every float32
-    gradient reduce-scattered over "data", all-reduced over "pod" and
-    all-gathered over "data" (padded to a multiple of |data|), and the
-    loss all-reduced over each dp axis of more than one rank."""
+    sharded train step of `cfg` (global batch b x s), from the block
+    shapes.  Every parameter gathered axis by axis (the minor axis of a
+    dim first): over its "data" and "pod" axes only where the layer
+    computes on its "model" block (`tensor_parallel.model_split`), over
+    every axis otherwise; every float32 gradient, of that gathered shape,
+    reduce-scattered over "data", all-reduced over "pod" and all-gathered
+    over "data" (padded to a multiple of |data|); the grad norm's sums of
+    squares all-reduced over each axis of more than one rank that splits
+    a leaf, once per set of such axes; the loss all-reduced over each dp
+    axis of more than one rank.  Over "model" (qwen2-1.5b-smoke splits
+    every module at head boundaries): the residual stream of the rank's
+    rows all-reduced 5 times a layer (the attention's and the MLP's
+    outputs forward, their inputs' gradients backward, the attention's
+    output again in the remat recompute, which stops before the MLP's),
+    once after the embedding and once for the head's input's gradient,
+    and three float32 (rows, s) all-reduces of the vocab-parallel cross
+    entropy."""
     axes = ("pod", "data", "model")
     sizes = dict(zip(axes, shape))
-    p_specs, _ = train_specs(cfg, _Mesh(shape, axes))
+    mesh = _Mesh(shape, axes)
+    p_specs, _ = train_specs(cfg, mesh)
+    split = leaves(tp.model_split(cfg, mesh))
     by_op = {"allgather_": 0, "_reduce_scatter_base_": 0, "allreduce_": 0}
     by_axis = dict.fromkeys(axes, 0)
 
@@ -236,7 +251,9 @@ def _reckoned_bytes(cfg, shape) -> dict:
         by_op[op] += nbytes
         by_axis[axis] += nbytes
 
-    for ab, spec in zip(leaves(M.abstract_params(cfg)), leaves(p_specs)):
+    norm_sets = []
+    for ab, spec, on in zip(leaves(M.abstract_params(cfg)), leaves(p_specs),
+                            split):
         block = list(ab.shape)
         for d, entry in enumerate(spec):
             for a in entry_axes(entry):
@@ -244,15 +261,30 @@ def _reckoned_bytes(cfg, shape) -> dict:
         item = ab.element_size()
         for d, entry in enumerate(spec):
             for a in reversed(entry_axes(entry)):
+                if on and a == "model":
+                    continue
                 block[d] *= sizes[a]
                 add("allgather_", a, math.prod(block) * item)
         nd = sizes["data"]
-        padded = -(-ab.numel() // nd) * nd
+        padded = -(-math.prod(block) // nd) * nd
         add("_reduce_scatter_base_", "data", padded // nd * 4)
         add("allreduce_", "pod", padded // nd * 4)
         add("allgather_", "data", padded * 4)
+        split_axes = tuple(sorted(a for e in spec for a in entry_axes(e)
+                                  if sizes[a] > 1))
+        if split_axes not in norm_sets:
+            norm_sets.append(split_axes)
+    for split_axes in norm_sets:
+        for a in split_axes:
+            add("allreduce_", a, 4)
     for a in ("data", "pod"):
         add("allreduce_", a, 4)
+    rows = b // (sizes["pod"] * sizes["data"])
+    stream = rows * s * cfg.d_model * ab.element_size()
+    for _ in range(5 * cfg.n_layers + 2):
+        add("allreduce_", "model", stream)
+    for _ in range(3):
+        add("allreduce_", "model", rows * s * 4)
     return dict(by_op=by_op, by_axis=by_axis)
 
 
@@ -265,7 +297,7 @@ def test_collective_bytes_equal_the_reckoned_moves(monkeypatch):
     monkeypatch.setattr(counts, "NODE_SIZE", 2)
     cfg = registry.get_arch("qwen2-1.5b-smoke")
     got = dryrun.dry_run(cfg, "train", (2, 2, 2), 8, 64)
-    want = _reckoned_bytes(cfg, (2, 2, 2))
+    want = _reckoned_bytes(cfg, (2, 2, 2), 8, 64)
     assert got["collective_bytes_by_type"] == \
         {k: float(v) for k, v in want["by_op"].items()}
     assert got["by_axis"] == {k: float(v) for k, v in

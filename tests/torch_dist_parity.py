@@ -46,7 +46,9 @@ from repro_torch.train.step import make_train_step
 from repro_torch.tree import leaves_with_paths
 
 TESTS = Path(__file__).resolve().parent
-SHAPES = {2: [(1, 2, 1)], 4: [(2, 2, 1), (1, 2, 2)]}
+# the meshes of the 2- and 4-rank groups; at (1, 1, 2), (1, 2, 2) and
+# (1, 1, 4) the "model" ranks compute on their blocks
+SHAPES = {2: [(1, 2, 1), (1, 1, 2)], 4: [(2, 2, 1), (1, 2, 2), (1, 1, 4)]}
 
 
 def case(arch: str, optimizer=None, microbatch=None, steps: int = 2):

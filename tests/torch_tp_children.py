@@ -1,0 +1,426 @@
+"""What the members of the tensor-parallel tests' gloo groups run
+(`repro_torch.launch.group.run_group` imports this module in each
+member; it imports neither JAX nor pytest).
+
+`pieces` holds each split piece of the model against the same function
+on one rank, inside the member: every rank computes the single-rank
+function on the whole inputs (cheap at smoke size) and compares its own
+output and its own blocks of the gradients.  `serve` runs the sharded
+prefill and greedy decode and writes rank 0's tokens and logits for the
+test module to hold against the single process and the reference.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+import torch_dist_children as K
+from repro_torch.configs.registry import get_arch
+from repro_torch.distributed import context as mesh_ctx
+from repro_torch.distributed import tensor_parallel as tp
+from repro_torch.distributed.sharding import (batch_specs, gather_tree,
+                                              local_block, shard_tree)
+from repro_torch.launch.mesh import make_train_mesh
+from repro_torch.models import attention, common, lm, mlp, moe
+from repro_torch.train.step import (make_sharded_serve_decode,
+                                    make_sharded_serve_prefill,
+                                    make_train_step, train_specs)
+from repro_torch.tree import leaves, leaves_with_paths, tree_map, unflatten
+
+SEED = 3
+
+
+def config(arch: str, replace: dict | None):
+    cfg = get_arch(arch)
+    return dataclasses.replace(cfg, **replace) if replace else cfg
+
+
+def compute_form(cfg, mesh, full: dict) -> dict:
+    """The parameters as the layers under `mesh` take them: the rank's
+    "model" block of each leaf `model_split` marks, the others whole (a
+    mesh with no "data" or "pod" ranks)."""
+    p_specs, _ = train_specs(cfg, mesh)
+    split = leaves(tp.model_split(cfg, mesh))
+    blocks = leaves(shard_tree(full, p_specs, mesh))
+    return unflatten(full, [b if on else w for b, w, on in
+                            zip(blocks, leaves(full), split)])
+
+
+def _err(got, want) -> float:
+    """max |got - want| over max |want|."""
+    want = want.detach().float()
+    scale = max(float(want.abs().max()), 1e-30)
+    return float((got.detach().float() - want).abs().max()) / scale
+
+
+def _rng_tensor(rng, shape):
+    return torch.as_tensor(rng.standard_normal(shape, dtype=np.float32))
+
+
+def _objective(fn, inputs: dict, wy):
+    """fn(**inputs) -> y; (y, the gradients of sum(y * wy) by input)."""
+    for t in inputs.values():
+        t.requires_grad_(True)
+    y = fn(**inputs)
+    grads = torch.autograd.grad(torch.sum(y * wy), list(inputs.values()),
+                                allow_unused=True)
+    return y.detach(), dict(zip(inputs, grads))
+
+
+def _compare(mesh, name, run, full_inputs: dict, block_of,
+             y_block=lambda y: y) -> dict:
+    """`run(inputs, split)` on the whole inputs (no mesh) and on the rank's
+    (`block_of(key, whole tensor)`, under the mesh); the rank's output
+    (`y_block` of the whole one) and its blocks of the gradients against
+    the whole run's."""
+    whole = {k: v.clone() for k, v in full_inputs.items()}
+    y1, g1 = run(whole, False)
+    mine = {k: block_of(k, v).clone() for k, v in full_inputs.items()}
+    with mesh_ctx.mesh_scope(mesh):
+        y2, g2 = run(mine, True)
+    out = {"y": _err(y2, y_block(y1))}
+    for k in g1:
+        if g1[k] is None:
+            continue
+        out["grad/" + k] = _err(g2[k], block_of(k, g1[k]))
+    return {name: out}
+
+
+def pieces(shape) -> dict:
+    """Every piece at mesh `shape` (1, 1, m): the errors of the rank's
+    output and gradient blocks, {piece: {what: err of max}}."""
+    torch.set_num_threads(1)
+    mesh = make_train_mesh(tuple(shape), device="cpu")
+    m = shape[-1]
+    rank = dist.get_rank()
+    res = {}
+    cases = [("olmo-1b-smoke", None)]
+    if m == 4:
+        cases.append(("olmo-1b-smoke", {"n_heads": 6, "head_dim": 32}))
+    for arch, rep in cases:
+        cfg = config(arch, rep)
+        tag = arch + ("-h6" if rep else "")
+        res.update(_attention(cfg, mesh, tag))
+        res.update(_mlp(cfg, mesh, tag))
+        res.update(_decode(cfg, mesh, tag))
+        res.update(_seq_layer(dataclasses.replace(cfg, seq_parallel=True),
+                              mesh, tag))
+    res.update(_seq_layer(config("qwen2-1.5b-smoke", {"seq_parallel": True}),
+                          mesh, "qwen2-1.5b-smoke"))
+    res.update(_vocab(config("qwen2-1.5b-smoke", {"vocab_size": 500}),
+                      mesh, "qwen2-1.5b-smoke-v500"))
+    for arch in ("phi3.5-moe-42b-a6.6b-smoke", "arctic-480b-smoke"):
+        res.update(_experts(config(arch, None), mesh, arch))
+    out = {"rank": rank, "model_ranks": m, "errors": res}
+    if m == 2:
+        out["bf16"] = bf16_steps(mesh)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the split train step in bf16
+# ---------------------------------------------------------------------------
+
+BF16 = {"param_dtype": "bfloat16", "compute_dtype": "bfloat16"}
+BF16_B, BF16_STEPS = 4, 2
+
+
+def _world1(cfg, start, b: int, steps: int):
+    """`steps` single-process steps (K.OC) of `cfg` from `start`: (loss,
+    grad norm) per step, the parameters."""
+    params = tree_map(torch.clone, start)
+    fn, opt = make_train_step(cfg, K.OC)
+    state = opt.init(params)
+    batch = K.train_batch(cfg, b)
+    metrics = []
+    for _ in range(steps):
+        params, state, m = fn(params, state, batch)
+        metrics.append((m["loss"].item(), m["grad_norm"].item()))
+    return metrics, params
+
+
+def _leaf_errs(got, want) -> dict:
+    return {"/".join(path): _err(g, w) for (path, w), g in
+            zip(leaves_with_paths(want), leaves(got))}
+
+
+def bf16_steps(mesh) -> dict:
+    """olmo-1b-smoke in bf16: BF16_STEPS sharded steps at `mesh` (every
+    rank the whole batch), world 1 in bf16 from the same weights, and
+    world 1 in float32 from those weights cast (the control: how far bf16
+    itself moves the numbers).  Each run's (loss, grad norm) per step,
+    and each parameter leaf's max |a - b| / max |b| of the split run
+    against world 1 in bf16 and of world 1 in bf16 against float32."""
+    cfg = config("olmo-1b-smoke", BF16)
+    f32 = config("olmo-1b-smoke", {"param_dtype": "float32",
+                                   "compute_dtype": "float32"})
+    params, _, (p_specs, _), metrics = K.sharded_run(cfg, mesh, BF16_STEPS,
+                                                     BF16_B)
+    got = gather_tree(params, p_specs, mesh)
+    start = K.start_params(cfg)
+    w1, want = _world1(cfg, start, BF16_B, BF16_STEPS)
+    ctl, want32 = _world1(f32, tree_map(lambda t: t.float(), start), BF16_B,
+                          BF16_STEPS)
+    return {"split": metrics, "world1": w1, "float32": ctl,
+            "param_split": _leaf_errs(got, want),
+            "param_control": _leaf_errs(want, want32)}
+
+
+def _layer(cfg, mesh):
+    """(whole layer-0 params, the rank's form of them)."""
+    full = K.start_params(cfg)
+    one = lm.layer_params(full, 0)
+    split = compute_form(cfg, mesh, full)
+    return one, lm.layer_params(split, 0)
+
+
+def _param_block(cfg, mesh, whole: dict, mine: dict):
+    """block_of for the layer's params: the rank's block where its form
+    is a block (shape differs), else the whole tensor."""
+    def block_of(key, t):
+        if key not in mine or mine[key].shape == whole[key].shape:
+            return t
+        dim = next(d for d, (a, b) in enumerate(zip(mine[key].shape,
+                                                     whole[key].shape))
+                   if a != b)
+        n = mine[key].shape[dim]
+        r = mesh_ctx.mesh_coords(mesh)["model"]
+        return t.narrow(dim, r * n, n)
+    return block_of
+
+
+def _attention(cfg, mesh, tag) -> dict:
+    rng = np.random.default_rng(SEED)
+    whole, mine = _layer(cfg, mesh)
+    keys = [k for k in ("wq", "wk", "wv", "wo", "bq", "bk", "bv")
+            if k in whole]
+    x = _rng_tensor(rng, (2, 64, cfg.d_model))
+    wy = _rng_tensor(rng, (2, 64, cfg.d_model))
+    block_p = _param_block(cfg, mesh, whole, mine)
+
+    def run(inputs, split):
+        def fn(x, **p):
+            return attention.causal_attention(cfg, p, x)[0]
+        return _objective(fn, inputs, wy)
+
+    full_inputs = {"x": x, **{k: whole[k] for k in keys}}
+    return _compare(mesh, f"{tag}/attention", run, full_inputs,
+                    lambda k, t: t if k == "x" else block_p(k, t))
+
+
+def _mlp(cfg, mesh, tag) -> dict:
+    rng = np.random.default_rng(SEED + 1)
+    whole, mine = _layer(cfg, mesh)
+    keys = ("w_gate", "w_up", "w_down")
+    x = _rng_tensor(rng, (2, 64, cfg.d_model))
+    wy = _rng_tensor(rng, (2, 64, cfg.d_model))
+    block_p = _param_block(cfg, mesh, whole, mine)
+
+    def run(inputs, split):
+        def fn(x, **p):
+            return mlp.mlp_apply(cfg, p, x)
+        return _objective(fn, inputs, wy)
+
+    return _compare(mesh, f"{tag}/mlp", run,
+                    {"x": x, **{k: whole[k] for k in keys}},
+                    lambda k, t: t if k == "x" else block_p(k, t))
+
+
+def _vocab(cfg, mesh, tag) -> dict:
+    """The vocab-parallel lookup, head (tied) and cross entropy: the loss
+    of logits(embed(tokens) + x) against targets, the padded tail of the
+    vocabulary inside the logsumexp."""
+    rng = np.random.default_rng(SEED + 2)
+    full = K.start_params(cfg)
+    mine = compute_form(cfg, mesh, full)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 33)))
+    x = _rng_tensor(rng, (2, 32, cfg.d_model))
+    one = torch.ones(())
+
+    def run(inputs, split):
+        def fn(embed, x):
+            p = {"embed": embed}
+            group = tp.block_group(embed, cfg.padded_vocab, 0)
+            h = common.embed_tokens(p, toks[:, :-1], torch.float32, group) + x
+            if group is not None:
+                h = tp.enter(h, group, tp.Stream(group))
+            logits = common.lm_logits(cfg, p, h)
+            return common.cross_entropy(logits, toks[:, 1:],
+                                        cfg.padded_vocab, group)
+        return _objective(fn, inputs, one)
+
+    r = mesh_ctx.mesh_coords(mesh)["model"]
+    rows = mine["embed"].shape[0]
+    return _compare(mesh, f"{tag}/vocab", run,
+                    {"embed": full["embed"], "x": x},
+                    lambda k, t: t.narrow(0, r * rows, rows)
+                    if k == "embed" else t)
+
+
+def _experts(cfg, mesh, tag) -> dict:
+    """The mesh-global `moe_apply` with the experts split: y, the aux loss
+    and every gradient (router whole, `we_*` and the residual's blocks)."""
+    rng = np.random.default_rng(SEED + 3)
+    whole, mine = _layer(cfg, mesh)
+    keys = [k for k in whole if k in ("router", "we_gate", "we_up",
+                                      "we_down", "res_w_gate", "res_w_up",
+                                      "res_w_down")]
+    x = _rng_tensor(rng, (2, 32, cfg.d_model))
+    wy = _rng_tensor(rng, (2, 32, cfg.d_model))
+    block_p = _param_block(cfg, mesh, whole, mine)
+
+    def run(inputs, split):
+        def fn(x, **p):
+            y, aux = moe.moe_apply(cfg, p, x)
+            return torch.cat([y.reshape(-1), aux.reshape(1)])
+        return _objective(fn, inputs, torch.cat([wy.reshape(-1),
+                                                 torch.ones(1)]))
+
+    return _compare(mesh, f"{tag}/experts", run,
+                    {"x": x, **{k: whole[k] for k in keys}},
+                    lambda k, t: t if k == "x" else block_p(k, t))
+
+
+def _decode(cfg, mesh, tag) -> dict:
+    """`decode_attention` on a cache whose sequence splits over "model":
+    the output and the rank's block of the updated cache against the
+    whole decode, for rows at positions in every rank's block."""
+    rng = np.random.default_rng(SEED + 4)
+    whole, mine = _layer(cfg, mesh)
+    s_cache, b = 32, 4
+    k = _rng_tensor(rng, (b, s_cache, cfg.n_kv_heads, cfg.head_dim_))
+    v = _rng_tensor(rng, (b, s_cache, cfg.n_kv_heads, cfg.head_dim_))
+    x = _rng_tensor(rng, (b, 1, cfg.d_model))
+    pos = torch.tensor([0, 9, 17, 31], dtype=torch.int32)
+    y1, k1, v1 = attention.decode_attention(cfg, whole, x, k.clone(),
+                                            v.clone(), pos)
+    spec = (None, "model", None, None)
+    with mesh_ctx.mesh_scope(mesh):
+        kb = local_block(k, spec, mesh).clone()
+        vb = local_block(v, spec, mesh).clone()
+        y2, k2, v2 = attention.decode_attention(
+            cfg, mine, x, kb, vb, pos, split=tp.CacheSplit(("model",)))
+    return {f"{tag}/decode": {
+        "y": _err(y2, y1), "k": _err(k2, local_block(k1, spec, mesh)),
+        "v": _err(v2, local_block(v1, spec, mesh))}}
+
+
+def _seq_layer(cfg, mesh, tag) -> dict:
+    """One `_tf_block` under `seq_parallel`: the stream is the rank's
+    sequence block in and out; its output block and the gradients of the
+    stream block and of every parameter (norm weights summed over
+    "model") against the whole layer."""
+    rng = np.random.default_rng(SEED + 5)
+    whole, mine = _layer(cfg, mesh)
+    keys = sorted(whole)
+    s = 64
+    h = _rng_tensor(rng, (2, s, cfg.d_model))
+    wy = _rng_tensor(rng, (2, s, cfg.d_model))
+    positions = torch.arange(s)[None, :]
+    block_p = _param_block(cfg, mesh, whole, mine)
+    m = mesh_ctx.mesh_axis_sizes(mesh)["model"]
+    r = mesh_ctx.mesh_coords(mesh)["model"]
+
+    def seq_block(t):
+        return t.narrow(1, r * (s // m), s // m)
+
+    def run(inputs, split):
+        st = tp.stream(cfg) if split else tp.WHOLE
+        w = seq_block(wy) if split else wy
+
+        def fn(h, **p):
+            return lm._tf_block(cfg, p, h, positions, st)[0]
+        return _objective(fn, inputs, w)
+
+    return _compare(mesh, f"{tag}/seq_parallel_layer", run,
+                    {"h": h, **{k: whole[k] for k in keys}},
+                    lambda k, t: seq_block(t) if k == "h" else block_p(k, t),
+                    seq_block)
+
+
+# ---------------------------------------------------------------------------
+# the sharded serve steps
+# ---------------------------------------------------------------------------
+
+SERVE_B, SERVE_PROMPT, SERVE_STEPS, SERVE_LEN = 4, 16, 4, 32
+
+
+def serve_inputs(cfg, seed: int = SEED) -> dict:
+    """The prompts (and a VLM's vision embeddings) of the serve tests."""
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size,
+                                    (SERVE_B, SERVE_PROMPT)).astype(np.int32)}
+    if cfg.n_vision_tokens:
+        batch["vision_embeds"] = rng.standard_normal(
+            (SERVE_B, cfg.n_vision_tokens, cfg.d_model), dtype=np.float32)
+    return {k: torch.as_tensor(v) for k, v in batch.items()}
+
+
+def pad_seq(cache: dict, to: int) -> dict:
+    """A prefill cache with its K/V padded with zeros along the sequence
+    (dim 2) to `to` positions."""
+    out = dict(cache)
+    for k in ("k", "v"):
+        pad = list(cache[k].shape)
+        pad[2] = to - pad[2]
+        out[k] = torch.cat([cache[k], cache[k].new_zeros(pad)], dim=2)
+    return out
+
+
+def serve(shape, cases, out_dir: str) -> dict:
+    """Each case (label, arch, replace): the sharded prefill of
+    `serve_inputs` into the blocks of a SERVE_LEN-position cache and
+    SERVE_STEPS greedy decode steps on them at mesh `shape`.  Every
+    rank's logits
+    (its rows, the whole vocabulary) are gathered over the dp axes; rank
+    0 writes them and the tokens to `out_dir/<shape>-<label>.npz`."""
+    torch.set_num_threads(1)
+    mesh = make_train_mesh(tuple(shape), device="cpu")
+    rank = dist.get_rank()
+    tag = "x".join(map(str, shape))
+    groups = mesh_ctx.dp_groups(mesh)
+    for label, arch, rep in cases:
+        cfg = config(arch, rep)
+        p_specs, _ = train_specs(cfg, mesh)
+        params = tree_map(torch.clone, shard_tree(K.start_params(cfg),
+                                                  p_specs, mesh))
+        full = serve_inputs(cfg)
+        specs = batch_specs(full, mesh)
+        inputs = {k: local_block(v, specs[k], mesh).contiguous()
+                  for k, v in full.items()}
+        s = SERVE_PROMPT + cfg.n_vision_tokens
+        logits, cache = make_sharded_serve_prefill(
+            cfg, mesh, SERVE_B, SERVE_LEN)(params, inputs)
+        dec = make_sharded_serve_decode(cfg, mesh, SERVE_B, SERVE_LEN)
+        token = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+        all_logits, tokens = [logits], [token]
+        for i in range(SERVE_STEPS):
+            pos = torch.full((token.shape[0],), s + i, dtype=torch.int32)
+            token, logits, cache = dec(params, cache, token, pos)
+            all_logits.append(logits)
+            tokens.append(token)
+        lg = torch.stack(all_logits)
+        tk = torch.cat(tokens, dim=1)
+        for g in groups:
+            lg = _gather_rows(lg, g, 1)
+            tk = _gather_rows(tk, g, 0)
+        if rank == 0:
+            np.savez(Path(out_dir) / f"{tag}-{label}.npz",
+                     logits=lg.numpy(), tokens=tk.numpy())
+    return {"rank": rank}
+
+
+def several_serve(shapes, cases, out_dir: str) -> dict:
+    """`serve` at each mesh shape in turn, in one group."""
+    return {"x".join(map(str, sh)): serve(sh, cases, out_dir)
+            for sh in shapes}
+
+
+def _gather_rows(t, group, dim):
+    from repro_torch.distributed.collectives import all_gather_cat
+    return all_gather_cat(t, group, dim)
