@@ -129,8 +129,9 @@ Phases (any failure exits non-zero and prints no result line):
    parameter after the step within 2e-5 of max(max|cpu|, lr) (2e-4 on
    the ssm and hybrid configs), every parameter moved and finite;
 25. OLMo-1B at full width and depth (16 x 2048, bf16, remat on): 8 x
-   2048 tokens a step from `SyntheticSource`, 12 AdamW steps, then 12
-   AdamW8bit steps from the same weights; every loss finite, AdamW's
+   2048 tokens a step from `SyntheticSource`, 6 AdamW steps, then 6
+   AdamW8bit steps from the same weights (few, for the script's time);
+   every loss finite, AdamW's
    falling (AdamW8bit's recorded: the reference's int8 moments can step
    by m / eps, ROADMAP queue 3); median step time, tokens/s, train_mfu
    (6 N T plus the attention's 12 L S d a token, over the bf16 peak),
@@ -138,7 +139,7 @@ Phases (any failure exits non-zero and prints no result line):
    share, kernels);
 26. Mamba2-780M at full width and depth (48 layers, bf16): the SSD
    scan's gradients in float32 against float64 on the card (2 x 1024,
-   2e-4), 6 AdamW steps of 8 x 2048 tokens (losses finite and falling),
+   2e-4), 4 AdamW steps of 8 x 2048 tokens (losses finite and falling),
    the scan's share of the step (one layer's scan timed by the profiler,
    times the layers, forward twice under remat);
 27. `examples/train_lm_torch.py` at its defaults (200 steps of 8 x 256,
@@ -158,10 +159,17 @@ Phases (any failure exits non-zero and prints no result line):
    bit; both step times;
 30. two gloo processes sharing the card (`launch.group.run_group`; NCCL
    refuses two ranks on one GPU), mesh (1, 2, 1), ZeRO over "data":
-   OLMo-1B in full, 8 x 2048 global, 3 AdamW steps on phase 29's weights
-   and batches (losses finite and falling, and beside phase 29's; per
+   OLMo-1B in full, 8 x 2048 global, one AdamW step on phase 29's
+   weights and first batch (one, for the script's time),
+   at the full rate from the first step (one warm-up step, so that the
+   update moves the bf16 weights): the loss within phase 34's bf16
+   loss bar, 1e-3, of phase 29's; each rank then takes world 1's step
+   on the whole batch in turn and holds the loss (1e-3), the grad norm
+   (1e-2) and its blocks of the updated parameters (within 2 lr +
+   2^-7 max |want| a leaf: a flipped update sign and bf16's rounding)
+   against it, the first moments' distance recorded; per
    rank the step time, the host-clock time of the parameter gather and
-   of the gradient psum, peak memory, optimizer-state bytes);
+   of the gradient psum, peak memory, optimizer-state bytes;
    one float32 step of each smoke config (and qwen2-1.5b-smoke with
    microbatch=2) against the single-process step on the card, phase 24's
    bars; qwen2-1.5b-smoke's state saved sharded and restored whole and on
@@ -208,19 +216,50 @@ Phases (any failure exits non-zero and prints no result line):
    world 1's tokens and a differing token allowed only at a near-tie
    (world 1's top-2 margin within twice the logit bar); no ported
    kernel launched;
-35. one JSON line listing the ported kernels (row_cycle at the sweep's
+35. the ssm and hybrid families on the "model" axis: two gloo processes
+   sharing the card, mesh (1, 1, 2), each computing on its "model"
+   blocks of the Mamba2 mixer (`models/ssm.py`), in float32 (the seeded
+   weights cast): (a) Mamba2-780M at full width and depth, 2 x 1024
+   tokens, one AdamW step at opt level 0 (the fused projection), 7 (the
+   split projection) and 8 (plus `seq_parallel`: 512 tokens, 2 SSD
+   chunks, a rank) against `make_train_step` on rank 0 (loss and grad
+   norm 2e-5 relative, parameters 2e-4 of max(max |want|, lr)), the
+   replicated per-head leaves bit-equal on both ranks, each rank's
+   `FlopCounterMode` FLOPs exactly half of world 1's plus half of the
+   C·Bᵀ scores every rank computes whole (levels 0 and 7; exactly half
+   at level 8, whose state exchange is elementwise); level 7 again in
+   bf16 against world 1 in bf16 beside the float32 control (phase 34's
+   bf16 bars; a parameter within 2^-7 or, where bf16 itself moves a
+   zero-initialised leaf further, within twice the control's distance:
+   a loose bar for those biases, 2 x 0.32 of `conv_C_b`'s largest value,
+   so the bf16 run does not check them, and the float32 runs' 2e-4 bar
+   is what holds them);
+   (b) Mamba2-780M served: the sharded prefill of 2 x 512 prompts and 8
+   greedy decode steps at levels 0 and 7, the prefill at level 8,
+   against the model functions on rank 0 (the same tokens, logits 1e-4
+   of max, `SPLIT_BAR`); (c) Zamba2-7B at full width, its depth cut to its first
+   group (6 Mamba2 layers and the shared block) and its 3 trailing
+   layers, at level 7 (the fused layout's weight gather is held at full
+   width by (a) and (b)): the same serving (the shared K/V's sequence split over
+   "model", the SSM state on the rank's heads) and one train step at 2 x
+   512 at (a)'s bars; each rank's step times and peak logged; no ported
+   kernel launched;
+36. one JSON line listing the ported kernels (row_cycle at the sweep's
    one launch over 299,008 rows and at one 2048-row chunk, with the
    cycles of a step; rc_multistep at the phased path's ACT call, with
    cycles a step, its block as the library reports it and, in its
    `bound_work`, the chain model beside the byte bound;
    strap_attend at the full-width path's last exact-mode and gated
-   steps, on 1 to 8 rows, and SDPA on the same tokens, with
+   steps (timed after phase 23, from a profiled run whose recorded
+   kernels match the launches counted, and profiled 10 times again here
+   with the runs that fall short counted), on 1 to 8 rows, and SDPA on
+   the same tokens, with
    `launches_by_path` (each served path's launches, 0 on the ssm,
    hybrid and enc-dec paths) and `by_shape` (the Pixtral and OLMo decode
    shapes); row_cycle's `launches_by_path` counts each path's launches,
    read around it; every entry's `launches_by_path` has `dist_train`,
-   its launches in phases 29-31 and 34, this process's and the six
-   members' summed), then the card line, then the result line
+   its launches in phases 29-31, 34 and 35, this process's and the
+   eight members' summed), then the card line, then the result line
    {"ok": true, "device": {...}}.
 
 It imports nothing of JAX and nothing of the JAX package.
@@ -286,8 +325,12 @@ def check(cond, msg: str) -> None:
         raise SmokeFailure(msg)
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """`msg` on a line of its own, after the seconds since the start."""
+    print(f"[{time.perf_counter() - _T0:7.1f} s] {msg}", flush=True)
 
 
 def rel(a: float, b: float) -> float:
@@ -1128,6 +1171,58 @@ BF16_BAR = 3e-2         # tests/test_torch_lm.py: the port's bf16 bar
 F32_BAR = 2e-5          # tests/test_torch_lm.py's TOL
 
 
+STRAP_PROFILE_TRIES = 5
+STRAP_PROFILE_LEAD = 64
+
+
+def strap_profiled(kernel, calls, strict: bool = True) -> tuple:
+    """The device time a call of each strap_attend kernel the `calls`
+    launch (the wrapper `kernel`), by kernel name: torch.profiler's
+    kernel times summed over one run after a warm-up, the kernels it
+    recorded counted against the launches the wrapper counted in that
+    run (one split and one combine kernel a launch).  The profiler lost
+    4 to 11 records of such runs on the card, their split / combine
+    counts those of the run's first kernels, so STRAP_PROFILE_LEAD small
+    kernels, which are not counted, lead the run; a run whose count still falls short is
+    discarded and taken again, up to STRAP_PROFILE_TRIES runs.  Returns
+    (the agreeing run's ms by kernel name, None where none agreed, and
+    the discarded runs' counts); with `strict`, fails where none
+    agreed."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def run():
+        return [kernel(*a, lengths=kw["lengths"]) for a, kw in calls]
+
+    run()
+    lead = torch.zeros(1, device=calls[0][0][0].device)
+    torch.cuda.synchronize()
+    missed = []
+    for _ in range(STRAP_PROFILE_TRIES):
+        before = kernel.launches
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(STRAP_PROFILE_LEAD):
+                lead.add_(1.0)
+            run()
+            torch.cuda.synchronize()
+        counted = kernel.launches - before
+        ms, got = {}, {"strap_split": 0, "strap_combine": 0}
+        for e in prof.events():
+            if (getattr(e, "device_type", None)
+                    == torch.autograd.DeviceType.CUDA
+                    and "strap_" in e.name):
+                ms[e.name] = (ms.get(e.name, 0.0)
+                              + e.self_device_time_total / 1e3 / len(calls))
+                for part in got:
+                    got[part] += part in e.name
+        if all(c == counted for c in got.values()):
+            return ms, missed
+        missed.append({"seen": got, "launched": counted})
+    check(not strict, f"torch.profiler recorded fewer strap_attend kernels "
+          f"than were launched in each of {len(missed)} runs: {missed}")
+    return None, missed
+
+
 def strap_shape_timing(kernel, ops_mod, layer_calls) -> tuple[dict, dict]:
     """strap_attend at one decode step of a full-width path (`layer_calls`:
     its calls for every layer, with outputs, each layer's cache distinct
@@ -1137,12 +1232,11 @@ def strap_shape_timing(kernel, ops_mod, layer_calls) -> tuple[dict, dict]:
     operand form that agrees at the bf16 bar, by its device time or, where
     the profiler reads that below the bound, by CUDA events around the
     calls.  Returns the summary and SDPA's results by form and backend."""
-    from repro_torch.kernels.bench import device_ms, device_ms_by_kernel
+    from repro_torch.kernels.bench import device_ms
 
     calls = [(a, kw) for a, kw, _ in layer_calls]
     n = len(calls)
-    ms_by_kernel = device_ms_by_kernel(lambda: [
-        kernel(*a, lengths=kw["lengths"]) for a, kw in calls], n)
+    ms_by_kernel, missed = strap_profiled(kernel, calls)
     plain_ms = device_ms(lambda: [ops_mod.strap_attend(
         *a, **{**kw, "backend": "ref"}) for a, kw in calls], n)
     a, kw = calls[-1]
@@ -1174,7 +1268,8 @@ def strap_shape_timing(kernel, ops_mod, layer_calls) -> tuple[dict, dict]:
             "library_ms_from": agreeing[best]["ms_from"],
             "library_ms_events": agreeing[best]["ms_events"],
             "ms_by_kernel": {k[:80]: v for k, v in ms_by_kernel.items()},
-            "launches_a_step": n, "group": a[0].shape[1] // hkv,
+            "launches_a_step": n, "profiler_missed_runs": missed,
+            "group": a[0].shape[1] // hkv,
             "kv_heads": hkv,
             "shape": {"q": list(a[0].shape), "pages": list(a[1].shape),
                       "strap_ids": list(a[3].shape)},
@@ -2317,8 +2412,8 @@ def fabric_phase(dev, kernel, mc_space, mc_batch, mc_mask) -> dict:
 TRAIN_B, TRAIN_S = 4, 64            # phase 24's batch (tests' smoke size)
 TRAIN_BAR = 2e-5                    # tests/test_torch_train_step.py
 TRAIN_SSD_BAR = 2e-4                # the reference's SSD bar
-OLMO_TRAIN = ("olmo-1b", 8, 2048, 12)         # arch, batch, seq, steps
-MAMBA_TRAIN = ("mamba2-780m", 8, 2048, 6)
+OLMO_TRAIN = ("olmo-1b", 8, 2048, 6)          # arch, batch, seq, steps
+MAMBA_TRAIN = ("mamba2-780m", 8, 2048, 4)
 SSD_GRAD_SHAPE = (2, 1024)          # B, L of the float64 gradient check
 BF16_PEAK_FLOPS = 989e12            # H100 SXM dense bf16, data sheet
 TRAIN_CLI_ARGS = ["--arch", "qwen2-1.5b", "--smoke", "--steps", "25",
@@ -2504,7 +2599,7 @@ def full_train_run(cfg, oc, spec, dev, seed, start,
 def olmo_train_phase(args, dev, card) -> dict:
     """Phase 25: OLMo-1B at full width and depth (16 x 2048, MHA 16 heads,
     vocab 50304, bf16 weights, remat on), 8 x 2048 tokens a step from
-    `SyntheticSource`, 12 AdamW steps and then 12 AdamW8bit steps from
+    `SyntheticSource`, 6 AdamW steps and then 6 AdamW8bit steps from
     the same start; every loss finite, AdamW's falling.  AdamW8bit's are
     recorded, not held to fall: the reference's int8 moments step by
     m / eps where a row's v quantizes to zero, and its loss spikes (the
@@ -2629,7 +2724,7 @@ def ssd_share(cfg, dev, b, s) -> dict:
 
 def mamba_train_phase(args, dev, card) -> dict:
     """Phase 26: Mamba2-780M at full width and depth (48 layers, bf16,
-    remat on), 8 x 2048 tokens, 6 AdamW steps: losses finite and falling,
+    remat on), 8 x 2048 tokens, 4 AdamW steps: losses finite and falling,
     step time, peak memory, the SSD scan's share of the step; the scan's
     gradients in float32 against float64 on the card."""
     import torch
@@ -2800,7 +2895,7 @@ def train_cli_phase(dev) -> dict:
 # --------------------------------------------------------------------------
 
 DIST_OLMO = ("olmo-1b", 8, 2048)          # arch, global batch, seq (A, B)
-DIST_A_STEPS, DIST_B_STEPS = 3, 3
+DIST_A_STEPS, DIST_B_STEPS = 3, 1
 DIST_LR = 3e-4          # OptConfig's defaults: 100 warm-up steps from 0
 DIST_B_MESH, DIST_B_RESTORE_MESH = (1, 2, 1), (1, 1, 2)
 EP_ARCH, EP_MESH = "phi3.5-moe-42b-a6.6b", (1, 1, 2)
@@ -3075,11 +3170,15 @@ def dist_member_zero(seed: int, ckpt_dir: str, arch: str, batch: int,
                      seq: int, steps: int, lr: float, device: str) -> dict:
     """Phase 30 (B), in each of two gloo processes sharing cuda:0, mesh
     (1, 2, 1): OLMo-1B at full width, 8 x 2048 global (4 x 2048 a rank),
-    DIST_B_STEPS AdamW steps (losses finite and falling; step time, the
-    host-clock time of the parameter gather and of the gradient psum,
-    peak memory and optimizer-state bytes); one float32 step of each smoke
-    config against the single-process step; qwen2-1.5b-smoke's state saved
-    sharded and restored whole and on (1, 1, 2), bit for bit."""
+    DIST_B_STEPS AdamW steps at `lr` from the first step (one warm-up
+    step, so that the update moves the bf16 weights; losses finite, and
+    falling where more than one; the parent holds them against phase
+    29's; step time, the host-clock time of the parameter gather and of
+    the gradient psum, peak memory and optimizer-state bytes), held
+    against world 1's step (`_zero_vs_world1`); one float32 step of each
+    smoke config against the single-process step; qwen2-1.5b-smoke's
+    state saved sharded and restored whole and on (1, 1, 2), bit for
+    bit."""
     import torch
     import torch.distributed as dist
 
@@ -3097,7 +3196,7 @@ def dist_member_zero(seed: int, ckpt_dir: str, arch: str, batch: int,
     mesh = make_train_mesh(DIST_B_MESH, device=device)
     rank = dist.get_rank()
     cfg = get_arch(arch)
-    oc = OptConfig(lr=lr)
+    oc = OptConfig(lr=lr, warmup_steps=1)
     p_specs, _ = step_mod.train_specs(cfg, mesh)
     full = models.init_params(cfg, torch.Generator(dev).manual_seed(seed),
                               dev)
@@ -3117,7 +3216,8 @@ def dist_member_zero(seed: int, ckpt_dir: str, arch: str, batch: int,
                olmo_batches(cfg, batch, seq, seed, steps, dev)]
     params, state, metrics, ms = timed_run(fn, params, state, batches)
     losses = [m.item() for m in metrics[::2]]
-    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+    check(all(math.isfinite(x) for x in losses)
+          and (len(losses) < 2 or losses[-1] < losses[0]),
           f"B: rank {rank}: losses {losses}")
     olmo = {"arch": cfg.name, "mesh": list(DIST_B_MESH),
             "local_batch": list(batches[0]["tokens"].shape),
@@ -3128,13 +3228,87 @@ def dist_member_zero(seed: int, ckpt_dir: str, arch: str, batch: int,
             "param_bytes": tree_bytes(params),
             "opt_state_bytes": tree_bytes({k: v for k, v in state.items()
                                            if k != "count"})}
-    del params, state, batches
+    m1 = state["m"]
+    del state, batches
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    if steps == 1:
+        olmo["vs_world1"] = _zero_vs_world1(
+            cfg, oc, (seed, batch, seq), dev, mesh, (params, m1),
+            metrics[:2])
+    del params, m1
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     smoke, kept = _smoke_steps_vs_single(mesh, seed, dev)
     restore = _restore_checks(kept, mesh, ckpt_dir, dev)
     return {"rank": rank, "olmo": olmo, "smoke": smoke, "restore": restore,
             "kernel_launches": {n: k.launches for n, k in wrappers.items()}}
+
+
+def _zero_vs_world1(cfg, oc, run, dev, mesh, got, metrics) -> dict:
+    """Phase 30's step held against world 1's: each rank in turn (the
+    other waits at a barrier, so that one world-1 step is on the card at
+    a time) takes one `make_train_step` step on the whole first batch
+    (`run`: seed, batch, seq) from the same weights.  Its loss and grad
+    norm against `metrics`, the sharded step's, at the bf16 train bars
+    (1e-3, 1e-2 relative); the rank's blocks of its updated parameters
+    (`got`: parameters, first moments) within 2 lr + 2^-7 max |want| of
+    world 1's, leaf by leaf: AdamW's first update is lr times the sign
+    of the gradient, which flips where a gradient near zero is summed
+    in another order (2 lr), and each result is rounded to bf16 (2^-7
+    of the leaf's largest value at most).  Also recorded: each leaf's
+    distance of max(max |want|, lr), the share of world 1's elements the
+    update moved, and the first moments' distance (float32: 0.1 of the
+    clipped gradient) of max |want|."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed.sharding import shard_tree
+    from repro_torch.models import registry as models
+    from repro_torch.train.step import make_train_step, train_specs
+    from repro_torch.tree import leaves, tree_map
+
+    seed, b, s = run
+    p_specs = train_specs(cfg, mesh)[0]
+    out = None
+    for turn in range(dist.get_world_size()):
+        if turn == dist.get_rank():
+            start = models.init_params(
+                cfg, torch.Generator(dev).manual_seed(seed), dev)
+            fn, opt = make_train_step(cfg, oc)
+            state = opt.init(start)
+            want, state, m = fn(tree_map(torch.clone, start), state,
+                                olmo_batches(cfg, b, s, seed, 1, dev)[0])
+            moved = sum(int((w != s0).sum()) for w, s0 in
+                        zip(leaves(want), leaves(start)))
+            total = sum(w.numel() for w in leaves(want))
+            del start
+            blocks = {k: shard_tree(t, p_specs, mesh)
+                      for k, t in (("p", want), ("m", state["m"]))}
+            p_errs = _param_errs(got[0], blocks["p"], oc.lr)
+            m_errs = _param_errs(got[1], blocks["m"], 1e-30)
+            of_bar = [
+                (g.float() - w.float()).abs().max().item()
+                / (2 * oc.lr + 2.0 ** -7 * w.float().abs().max().item())
+                for g, w in zip(leaves(got[0]), leaves(blocks["p"]))]
+            out = {"loss_rel": rel(metrics[0].item(), m["loss"].item()),
+                   "grad_norm_rel": rel(metrics[1].item(),
+                                        m["grad_norm"].item()),
+                   "param_worst": max(p_errs.values()),
+                   "param_worst_leaf": max(p_errs, key=p_errs.get),
+                   "param_worst_of_bar": max(of_bar),
+                   "moved_share": moved / total,
+                   "m_worst": max(m_errs.values()),
+                   "m_worst_leaf": max(m_errs, key=m_errs.get)}
+            del want, state, blocks
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+        dist.barrier()
+    check(out["loss_rel"] <= TP_BF16_LOSS_BAR
+          and out["grad_norm_rel"] <= TP_BF16_GNORM_BAR
+          and out["param_worst_of_bar"] <= 1.0,
+          f"B: rank {dist.get_rank()}: the sharded step vs world 1's: {out}")
+    return out
 
 
 def _dropped_pairs(cfg, p, xs) -> int:
@@ -3291,11 +3465,15 @@ def dist_zero_phase(args, dev, card, single_losses) -> list:
         o = res["olmo"]
         o["loss_rel_vs_single"] = [rel(x, y) for x, y in
                                    zip(o["losses"], single_losses)]
+        check(all(e <= TP_BF16_LOSS_BAR for e in o["loss_rel_vs_single"]),
+              f"B: rank {res['rank']}: losses vs phase 29's "
+              f"{o['loss_rel_vs_single']} (bar {TP_BF16_LOSS_BAR})")
         log(f"[dist-B] rank {res['rank']} of 2 gloo on the card, mesh "
             f"{tuple(o['mesh'])}, {o['arch']} {o['local_batch']} a rank: "
             f"losses {[round(x, 4) for x in o['losses']]}, step ms "
             f"{[round(x, 1) for x in o['step_ms']]} (losses vs phase 29's "
-            f"{[f'{x:.1e}' for x in o['loss_rel_vs_single']]}), gather "
+            f"{[f'{x:.1e}' for x in o['loss_rel_vs_single']]}; vs world "
+            f"1's step {json.dumps(o.get('vs_world1'))}), gather "
             f"{o['gather_ms']:.1f} ms + psum {o['psum_ms']:.1f} ms a step "
             f"(host clock), peak {o['peak_gb']} GB, optimizer state "
             f"{o['opt_state_bytes'] / 1e9:.3f} GB; smoke configs "
@@ -3570,7 +3748,7 @@ def _param_errs(got, want, lr: float) -> dict:
 
     out = {}
     for (path, w), g in zip(leaves_with_paths(want), leaves(got)):
-        w, g = w.float(), g.float()
+        w, g = w.float(), g.float().to(w.device)
         out["/".join(path)] = ((g - w).abs().max().item()
                                / max(w.abs().max().item(), lr))
     return out
@@ -3629,7 +3807,8 @@ def _world1_serve(cfg, params, prompts, steps) -> tuple:
     b, s = prompts.shape
     with torch.no_grad():
         logits, cache = models.prefill(cfg, params, {"tokens": prompts})
-        cache = {k: pad_seq(v, s + steps, dim=2) for k, v in cache.items()}
+        cache = {k: pad_seq(v, s + steps, dim=2) if k in ("k", "v") else v
+                 for k, v in cache.items()}
         token = torch.argmax(logits, -1).to(torch.int32)[:, None]
         lg, tk = [logits], [token]
         for i in range(steps):
@@ -3879,6 +4058,377 @@ def tp_phase(args, dev, card) -> list:
         f"logits {[f'{x:.2e}' for x in c['logit_err']]} of max; greedy "
         f"tokens equal {c['tokens_equal']} of {c['tokens']}"
         f" ({card})")
+    return results
+
+
+# --------------------------------------------------------------------------
+# the ssm and hybrid families on the "model" axis
+# --------------------------------------------------------------------------
+
+SSM_TP_MAMBA = ("mamba2-780m", 2, 1024)   # arch, batch, seq: 2 chunks a rank
+SSM_TP_LEVELS = (0, 7, 8)                 # fused, split, split + seq_parallel
+SSM_TP_BF16_LEVEL = 7
+SSM_TP_SERVE = (2, 512, 8)                # prompts, prompt length, greedy steps
+# Zamba2-7B cut to its first group (6 Mamba2 layers and the shared block)
+# and its 3 trailing layers, at opt level 7, for the script's time: the
+# fused layout's weight gather, ~210 MB a layer in float32, takes gloo
+# ~1.3 s a layer and pass; (a) and (b) hold that path at full width
+SSM_TP_ZAMBA = ("zamba2-7b", 2, 512, 9, 7)  # arch, batch, seq, layers, level
+SSM_REPLICATED = ("A_log", "D_skip", "dt_bias", "in_dt")
+# the served logits against world 1: SPLIT_BAR, the port's float32 bar for
+# the Mamba2 mixer in another association (phase 21's split vs fused; the
+# reference's tests/test_perf_features.py); OLMo's TP_BAR (2e-5) lies
+# below what 48 Mamba2 layers' float32 rounding moves them (2.0e-5 to
+# 2.3e-5 of max on the H100, PERF.md)
+SSM_TP_LOGIT_BAR = SPLIT_BAR
+
+
+def _ssm_tp_config(arch: str, cell: str, level: int, dtype=None,
+                   n_layers=None):
+    """`arch` at opt `level` for `cell` (`launch.optlevels`), in `dtype`
+    (param and compute; None: the config's), cut to `n_layers`."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.optlevels import apply_opt_level
+
+    cfg = apply_opt_level(get_arch(arch), cell, level)
+    if dtype is not None:
+        cfg = dataclasses.replace(cfg, param_dtype=dtype,
+                                  compute_dtype=dtype)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    return cfg
+
+
+def ssd_scores_flops(cfg, b: int, s: int) -> float:
+    """The FLOPs of the SSD's C·Bᵀ scores (B, nc, ng, Q, Q), which every
+    "model" rank computes whole, in one train step of b x s tokens: the
+    forward, its remat recompute and the two backward products in each
+    layer a remat region holds (every Mamba2 layer; the hybrid's grouped
+    ones), three passes in the others (the hybrid's trailing layers)."""
+    from repro_torch.models import lm
+    from repro_torch.models.ssm import chunk_size
+
+    q = chunk_size(cfg, s)
+    one = 2 * b * (s // q) * cfg.ssm_ngroups * q * q * cfg.ssm_state
+    remat = 4 if cfg.remat else 3
+    if cfg.family == "hybrid":
+        groups, per, trailing = lm._hybrid_split(cfg)
+        return float(one * (remat * groups * per + 3 * trailing))
+    return float(one * remat * cfg.n_layers)
+
+
+def _replicated_equal(params, mesh) -> dict:
+    """{leaf: this rank's replicated per-head leaf equal to every "model"
+    rank's, bit for bit}."""
+    import torch
+
+    from repro_torch.distributed.collectives import all_gather_cat
+
+    out = {}
+    for name in SSM_REPLICATED:
+        if name not in params["layers"]:
+            continue
+        t = params["layers"][name].detach().contiguous()
+        every = all_gather_cat(t[None], mesh.get_group("model"), 0)
+        bits = every.view(torch.int32 if t.element_size() == 4
+                          else torch.int16)
+        out[name] = bool(all(torch.equal(bits[0], x) for x in bits[1:]))
+    return out
+
+
+def _ssm_train_run(cfg, mesh, oc, start, batches, dev, rank, w1=None):
+    """One sharded step of `cfg` (`_tp_train`) and, on rank 0, the world-1
+    step it is held against (`w1`: (record, parameters) of an earlier
+    world-1 run of the same weights and math, else run here): the
+    rank's record; on rank 0 also the parameter errors and (record,
+    parameters) of world 1.  The gathered parameters wait in host memory
+    while world 1 runs, and every rank returns its cached blocks to the
+    card first: the two processes share it."""
+    import torch
+
+    from repro_torch.tree import tree_map
+
+    t0 = time.perf_counter()
+    train, got = _tp_train(cfg, mesh, oc, start, batches, dev)
+    train["wall_s"] = time.perf_counter() - t0
+    rec = {"train": train, "replicated_equal": _replicated_equal(got, mesh)}
+    got = tree_map(lambda t: t.cpu(), got) if rank == 0 else None
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    if rank != 0:
+        return rec, None
+    if w1 is None:
+        w1 = _world1_train(cfg, oc, start, batches, dev)
+    rec["world1"] = w1[0]
+    rec["metric_rel"] = [rel(x, y) for x, y in zip(train["metrics"],
+                                                  w1[0]["metrics"])]
+    rec["param_errs"] = _param_errs(got, w1[1], oc.lr)
+    return rec, w1
+
+
+def _ssm_serve_run(cfg, mesh, params, prompts, steps, dev, rank,
+                   w1=None) -> tuple:
+    """The sharded prefill and `steps` greedy steps (`_tp_serve`) and, on
+    rank 0, world 1's (`w1`: an earlier world-1 run of the same math,
+    else run here), held: the rank's record; world 1's (logits,
+    tokens)."""
+    t0 = time.perf_counter()
+    logits, tokens, ms = _tp_serve(cfg, mesh, params, prompts, steps, dev)
+    rec = {"prefill_ms": ms[0], "step_ms": ms[1:],
+           "wall_s": time.perf_counter() - t0, "tokens": tokens.tolist()}
+    if rank != 0:
+        return rec, None
+    if w1 is None:
+        w1 = _world1_serve(cfg, params, prompts, steps)
+    rec["world1_tokens"] = w1[1][:, :steps + 1].tolist()
+    rec["logit_err"] = _logit_errs(logits, w1[0][:steps + 1])
+    return rec, w1
+
+
+def ssm_tp_member(seed: int, device: str, mamba: list, zamba: list,
+                  serve: list) -> dict:
+    """Phase 35, in each of two gloo processes sharing cuda:0, mesh
+    (1, 1, 2): every rank computes on its "model" blocks of the Mamba2
+    mixer.  Weights from `seed` (the config's bf16, cast to float32 but
+    in the bf16 run); batches from `SyntheticSource`.
+
+    (a) Mamba2-780M, one step of 2 x 1024 tokens at each opt level of
+    SSM_TP_LEVELS in float32 and at SSM_TP_BF16_LEVEL in bf16; rank 0
+    holds each against world 1 (level 8's math at world 1 is level 7's:
+    it is held against that run) and, in bf16, world 1 in bf16 against
+    world 1 in float32 (the control);
+    (b) Mamba2-780M served at the levels of (a): the sharded prefill of
+    2 x 512 prompts and 8 greedy steps, the prefill alone at level 8;
+    (c) Zamba2-7B cut to SSM_TP_ZAMBA's layers, at its level: the same
+    serving and one float32 step of 2 x 512.
+
+    Rank 0 runs each world-1 reference right after the sharded run (the
+    other rank waits in its next collective), so that no two runs'
+    parameters live at once.  Each part's wall time is returned."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_train_mesh
+    from repro_torch.models import registry as models
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.tree import tree_map
+
+    wrappers = _zero_launches()
+    set_precision()
+    dev = _member_device(device)
+    mesh = make_train_mesh(TP_MESH, device=device)
+    rank = dist.get_rank()
+    oc = OptConfig(**TP_OC)
+    arch, b, s = mamba
+    out = {"rank": rank, "mesh": list(TP_MESH), "mamba": {}, "serve": {},
+           "zamba": {}}
+    f32 = lambda tree: tree_map(lambda t: t.float(), tree)   # noqa: E731
+
+    def start_of(cfg):
+        return models.init_params(cfg, torch.Generator(dev).manual_seed(
+            seed), dev)
+
+    def free():
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+    wall = {}
+    t_part = time.perf_counter()
+    # ---- (a) Mamba2-780M train -------------------------------------------------
+    batches = olmo_batches(_ssm_tp_config(arch, "train_4k", 0), b, s, seed,
+                           1, dev)
+    w1_split = None
+    for level in SSM_TP_LEVELS:
+        bf = _ssm_tp_config(arch, "train_4k", level)
+        cfg = dataclasses.replace(bf, param_dtype="float32",
+                                  compute_dtype="float32")
+        start = start_of(bf)
+        p32 = f32(start)
+        rec, w1 = _ssm_train_run(cfg, mesh, oc, p32, batches, dev, rank,
+                                 w1_split if level == 8 else None)
+        rec["scores_flops"] = ssd_scores_flops(cfg, b, s)
+        out["mamba"][f"level{level}"] = rec
+        if level == SSM_TP_BF16_LEVEL:
+            w1_split = w1
+            rec16, w16 = _ssm_train_run(bf, mesh, oc, start, batches, dev,
+                                        rank)
+            rec16["scores_flops"] = ssd_scores_flops(bf, b, s)
+            if rank == 0:
+                rec16["control"] = {
+                    "metric_rel": [rel(x, y) for x, y in zip(
+                        w16[0]["metrics"], w1[0]["metrics"])],
+                    "param_errs": _param_errs(w16[1], w1[1], oc.lr)}
+            out["mamba"][f"level{level}_bf16"] = rec16
+            del w16
+        del start, p32, w1
+        free()
+    del w1_split
+    free()
+    wall["a_train"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+
+    # ---- (b) Mamba2-780M served --------------------------------------------------
+    gen = torch.Generator(dev).manual_seed(seed + 35)
+    prompts = torch.randint(0, _ssm_tp_config(arch, "train_4k", 0)
+                            .vocab_size, tuple(serve[:2]), generator=gen,
+                            device=dev, dtype=torch.int32)
+    w1_split = None
+    for level in SSM_TP_LEVELS:
+        cfg = _ssm_tp_config(arch, "prefill_32k", level, "float32")
+        p32 = f32(start_of(_ssm_tp_config(arch, "prefill_32k", level)))
+        steps = 0 if cfg.seq_parallel else serve[2]
+        rec, w1 = _ssm_serve_run(cfg, mesh, p32, prompts, steps, dev, rank,
+                                 w1_split if level == 8 else None)
+        if cfg.ssm_split_proj:
+            w1_split = w1
+        out["serve"][f"level{level}"] = rec
+        del p32
+        free()
+    del w1_split
+    wall["b_serve"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+
+    # ---- (c) Zamba2-7B, its depth cut --------------------------------------------
+    zarch, zb, zs, zlayers, zlevel = zamba
+    zbf = _ssm_tp_config(zarch, "train_4k", zlevel, n_layers=zlayers)
+    zcfg = dataclasses.replace(zbf, param_dtype="float32",
+                               compute_dtype="float32")
+    p32 = f32(start_of(zbf))
+    free()
+    zprompts = torch.randint(0, zcfg.vocab_size, tuple(serve[:2]),
+                             generator=gen, device=dev, dtype=torch.int32)
+    out["zamba"]["serve"], _ = _ssm_serve_run(zcfg, mesh, p32, zprompts,
+                                              serve[2], dev, rank)
+    free()
+    zbatches = olmo_batches(zcfg, zb, zs, seed, 1, dev)
+    rec, _ = _ssm_train_run(zcfg, mesh, oc, p32, zbatches, dev, rank)
+    del p32
+    free()
+    rec["scores_flops"] = ssd_scores_flops(zcfg, zb, zs)
+    out["zamba"]["train"] = rec
+    out["zamba"]["layers"] = zlayers
+    out["zamba"]["level"] = zlevel
+    wall["c_zamba"] = time.perf_counter() - t_part
+    out["wall_s"] = wall
+    out["kernel_launches"] = {n: k.launches for n, k in wrappers.items()}
+    return out
+
+
+def _ssm_tp_bad(r0, results) -> list[str]:
+    """What fails of phase 35's readings (rank 0's holds `r0`, every rank's
+    `results`) against its bars."""
+    bad = []
+
+    def train_bars(label, rec, param_bar):
+        for i, e in enumerate(rec["metric_rel"]):
+            if e > TRAIN_BAR:
+                bad.append(f"{label}: {'loss' if i % 2 == 0 else 'grad norm'}"
+                           f" rel {e:.3e}")
+        for leaf, e in rec["param_errs"].items():
+            if e > param_bar(leaf):
+                bad.append(f"{label}: {leaf} {e:.3e} (bar "
+                           f"{param_bar(leaf):.3e})")
+
+    def flops(label, key, split_scores):
+        for res in results:
+            rec = key(res)
+            w = key(r0)["world1"]["flops"]
+            extra = rec["scores_flops"] if split_scores else 0.0
+            if 2 * rec["train"]["flops"] != w + extra:
+                bad.append(f"{label}: rank {res['rank']} counted "
+                           f"{rec['train']['flops']} FLOPs, world 1 {w}, "
+                           f"scores {extra}")
+            if not all(rec["replicated_equal"].values()):
+                bad.append(f"{label}: rank {res['rank']} replicated leaves "
+                           f"{rec['replicated_equal']}")
+
+    for level in SSM_TP_LEVELS:
+        key = f"level{level}"
+        train_bars(f"mamba2 {key}", r0["mamba"][key],
+                   lambda leaf: TRAIN_SSD_BAR)
+        flops(f"mamba2 {key}", lambda res: res["mamba"][key], level != 8)
+    key = f"level{SSM_TP_BF16_LEVEL}_bf16"
+    r = r0["mamba"][key]
+    for i, e in enumerate(r["metric_rel"]):
+        bar = TP_BF16_LOSS_BAR if i % 2 == 0 else TP_BF16_GNORM_BAR
+        if e > bar:
+            bad.append(f"mamba2 bf16: metric {i} rel {e:.3e} (bar {bar})")
+    # each parameter within one bf16 step, or within twice bf16's own
+    # distance from float32 (the control, world 1 in bf16 against world 1
+    # in float32): two bf16 runs each a control's distance from float32
+    # are at most twice that apart.  The zero-initialised biases need it:
+    # their largest value is one step's update, which bf16's rounding of
+    # their small gradients moves by 0.1-0.3 (PERF.md), so this bar does
+    # not check them: the float32 steps above hold them at 2e-4
+    ctl = r["control"]["param_errs"]
+    for leaf, e in r["param_errs"].items():
+        if e > max(TP_BF16_PARAM_BAR, 2 * ctl[leaf]):
+            bad.append(f"mamba2 bf16: {leaf} {e:.3e} (control "
+                       f"{ctl[leaf]:.3e})")
+    flops("mamba2 bf16", lambda res: res["mamba"][key], True)
+    train_bars("zamba2", r0["zamba"]["train"], lambda leaf: TRAIN_SSD_BAR)
+    flops("zamba2", lambda res: res["zamba"]["train"], True)
+    serves = [(f"mamba2 serve {k}", lambda res, k=k: res["serve"][k])
+              for k in r0["serve"]]
+    serves.append(("zamba2 serve", lambda res: res["zamba"]["serve"]))
+    for label, get in serves:
+        want = get(r0)
+        bad += [f"{label}: logits of step {i} {e:.3e}" for i, e in
+                enumerate(want["logit_err"]) if e > SSM_TP_LOGIT_BAR]
+        bad += [f"{label}: rank {res['rank']} tokens differ" for res in
+                results if get(res)["tokens"] != want["world1_tokens"]]
+    return bad
+
+
+def ssm_tp_phase(args, dev, card) -> list:
+    """Phase 35 from the parent (see `ssm_tp_member`): the bars and the
+    log lines."""
+    results = dist_gloo_phase(args, dev, "ssm_tp_member", card,
+                              mamba=list(SSM_TP_MAMBA),
+                              zamba=list(SSM_TP_ZAMBA),
+                              serve=list(SSM_TP_SERVE))
+    r0 = results[0]
+    runs = [(f"mamba2-780m {k}", lambda res, k=k: res["mamba"][k])
+            for k in r0["mamba"]]
+    runs.append((f"zamba2-7b ({r0['zamba']['layers']} layers, level "
+                  f"{r0['zamba']['level']})",
+                 lambda res: res["zamba"]["train"]))
+    for label, get in runs:
+        w = get(r0)
+        for res in results:
+            t = get(res)["train"]
+            log(f"[ssm-tp] {label}: rank {res['rank']} of 2 gloo on the "
+                f"card, mesh {tuple(res['mesh'])}: {t['flops']:.6e} FLOPs "
+                f"(world 1 {w['world1']['flops']:.6e}, scores "
+                f"{get(res)['scores_flops']:.6e}), step ms "
+                f"{[round(x, 1) for x in t['step_ms']]}, peak "
+                f"{t['peak_gb']} GB ({card})")
+        worst = max(w["param_errs"], key=w["param_errs"].get)
+        log(f"[ssm-tp] {label}: world 1 step ms "
+            f"{[round(x, 1) for x in w['world1']['step_ms']]}, peak "
+            f"{w['world1']['peak_gb']} GB; loss / grad norm rel "
+            f"{[f'{x:.2e}' for x in w['metric_rel']]}; worst parameter "
+            f"{w['param_errs'][worst]:.2e} ({worst})"
+            + (f"; float32 control: metrics "
+               f"{[f'{x:.2e}' for x in w['control']['metric_rel']]}, "
+               f"worst parameter "
+               f"{max(w['control']['param_errs'].values()):.2e}"
+               if "control" in w else "") + f" ({card})")
+    serves = [(f"mamba2-780m serve {k}", lambda res, k=k: res["serve"][k])
+              for k in r0["serve"]]
+    serves.append(("zamba2-7b serve", lambda res: res["zamba"]["serve"]))
+    for label, get in serves:
+        for res in results:
+            v = get(res)
+            log(f"[ssm-tp] {label}: rank {res['rank']}: prefill "
+                f"{v['prefill_ms']:.1f} ms, decode ms "
+                f"{[round(x, 1) for x in v['step_ms']]}; logits "
+                f"{[f'{x:.2e}' for x in get(r0)['logit_err']]} of max, "
+                f"tokens {'equal' if v['tokens'] == get(r0)['world1_tokens'] else 'DIFFER'} ({card})")
+    log(f"[ssm-tp] wall s by part, rank 0: "
+        f"{ {k: round(v, 1) for k, v in r0['wall_s'].items()} }")
+    bad = _ssm_tp_bad(r0, results)
+    check(not bad, f"phase 35 (ssm / hybrid on \"model\"): {bad}")
     return results
 
 
@@ -4411,6 +4961,15 @@ def main(argv=None) -> int:
         "launches"]
     strap_shapes = {record[key]["arch"]: record[key]["strap_timing"]
                     for key in ("pixtral", "olmo")}
+    # strap_attend's kernels-line entry is timed here, with the serving
+    # phases, from a profiled run whose recorded kernels match the
+    # launches (`strap_profiled`); phase 36 profiles it again after the
+    # distributed phases, where earlier runs of this script read 0.0013-
+    # 0.0051 ms against its 0.0051 ms byte bound (PERF.md)
+    strap_entry = strap_line(
+        strap_kernel, ops, strap_calls,
+        record["serve"]["backends"]["strap_exact"]["launches"], strap_err,
+        registers, strap_paths, strap_shapes)
 
     # 24-28. training: one step of every smoke config on the card against
     #    the CPU; OLMo-1B (AdamW, then AdamW8bit) and Mamba2-780M at full
@@ -4498,7 +5057,24 @@ def main(argv=None) -> int:
         f"kernels launched there, the two members summed (none lies on the "
         f"path): {tp_launches}")
 
-    # 35. the kernels line: row_cycle at the sized path's one launch over
+    # 35. the ssm and hybrid families on the "model" axis: two gloo
+    #    processes on the card, mesh (1, 1, 2): Mamba2-780M's train step at
+    #    opt levels 0, 7 and 8 and its serving, Zamba2-7B's (depth cut),
+    #    against world 1 (none of the ported kernels lies on the path)
+    t_ssm = time.perf_counter()
+    record["ssm_tp"] = ssm_tp_phase(args, dev, card)
+    record["ssm_tp_wall_s"] = time.perf_counter() - t_ssm
+    ssm_launches = {n: sum(r["kernel_launches"][n] for r in record["ssm_tp"])
+                    for n in dist_launches}
+    check(not any(ssm_launches.values()),
+          f"phase 35 launched a ported kernel: {ssm_launches}")
+    for n, c in ssm_launches.items():
+        dist_launches[n] += c
+    log(f"[ssm-tp] phase 35 wall time {record['ssm_tp_wall_s']:.1f} s; "
+        f"ported kernels launched there, the two members summed (none lies "
+        f"on the path): {ssm_launches}")
+
+    # 36. the kernels line: row_cycle at the sized path's one launch over
     #    299,008 rows and at one 2048-row chunk; rc_multistep at the phased
     #    path's ACT call; strap_attend at the full-width path's last
     #    exact-mode (and gated) step
@@ -4513,6 +5089,16 @@ def main(argv=None) -> int:
         check=True).stdout.split()[0])
     b_ms, b_by, b_work = bound_ms(evt_full, full[5], 6, dt, caps)
     chunk_bound_ms, _, chunk_work = bound_ms(evt, chunk[5], 6, dt, caps)
+    # a diagnostic: strap_attend's timed calls profiled again, 10 times,
+    # after the distributed phases, the runs whose recorded kernels fall
+    # short of the launches counted (the entry's times, taken after phase
+    # 23, come from a run that agrees)
+    late = [strap_profiled(strap_kernel, [(a, kw) for a, kw, _ in
+                                          strap_calls["strap_exact"]], False)
+            for _ in range(10)]
+    strap_entry["profiled_after_phase_35"] = {
+        "ms": [sum(ms.values()) if ms else None for ms, _ in late],
+        "missed_runs": [m for _, ms in late for m in ms]}
     line = {"kernels": [{
         "name": "row_cycle_fused",
         "route": "cuda",
@@ -4554,10 +5140,7 @@ def main(argv=None) -> int:
         "sm_clock_mhz": sm_clock_mhz,
         "registers": {k: v for k, v in registers.items() if "row_cycle" in k},
     }, rc_line(rc_kernel, ops, phased_calls[0][0], phased_launches["fixed"],
-               rc_err, registers),
-        strap_line(strap_kernel, ops, strap_calls,
-                   record["serve"]["backends"]["strap_exact"]["launches"],
-                   strap_err, registers, strap_paths, strap_shapes)]}
+               rc_err, registers), strap_entry]}
     for entry in line["kernels"]:
         entry.setdefault("launches_by_path", {})["dist_train"] = \
             dist_launches[entry["name"]]

@@ -122,6 +122,20 @@ def reduce_scatter(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     return out.to(t.device)
 
 
+def broadcast_from(t: torch.Tensor, group, src: int) -> torch.Tensor:
+    """Group rank `src`'s `t` on every rank of `group` (one broadcast).
+    Every rank passes a `t` of the same shape; only `src`'s values are
+    read."""
+    if _alone(t, group):
+        return t.detach().clone()
+    src_t = _src(t, group)
+    buf = src_t if _via_host(t, group) else src_t.clone()
+    if buf.dtype in (torch.bfloat16, torch.float16):
+        buf = _as_bytes(buf)
+    dist.broadcast(buf, src=dist.get_global_rank(group, src), group=group)
+    return buf.view(src_t.dtype).reshape(src_t.shape).to(t.device)
+
+
 def all_to_all(t: torch.Tensor, group) -> torch.Tensor:
     """Dim 0 cut into n equal chunks, chunk j sent to group rank j; the
     chunks received, in source-rank order, along dim 0."""

@@ -30,12 +30,22 @@ gathers the leaf over "data" only) or on the whole leaf (`False`:
 gathered over every axis, computed redundantly by the "model" ranks).
 The layers read what they are given (`block_group`): a module whose
 weights are the rank's blocks runs split, one given whole runs whole.
-Out of scope, and so gathered whole: the SSM and hybrid mixers, the
-encoder-decoder family, the gated strap decode, the router, the
-expert-parallel MoE (`cfg.moe_ep`, which splits its experts itself), and
-any module whose "model" dims do not divide the axis.  `cache_split`
-says whether the serve steps' decode cache holds the rank's block of
-positions; they pass its answer to `prefill` and `decode_step`.
+The Mamba2 mixer (the ssm and hybrid families) splits at head
+boundaries: the rank's columns of the projections, its channels of the
+conv, its heads of the scan, its rows of `out_proj` (`models/ssm.py`;
+the fused layout's uniform blocks of `in_proj` and the conv are
+all-gathered as weights and re-cut at those boundaries);
+its replicated per-head leaves (`A_log`, `D_skip`, `dt_bias`, `in_dt`)
+stay whole, each rank using its heads' part through `reduce_grad`.
+Out of scope, and so gathered whole: the encoder-decoder family, the
+gated strap decode, the router, the expert-parallel MoE (`cfg.moe_ep`,
+which splits its experts itself), the Mamba2 mixer under
+`seq_parallel` (the stream then holds the rank's sequence block and the
+mixer runs whole on it, as the reference's `head_ax = None`), and any
+module whose "model" dims do not divide the axis.  `cache_split` says
+whether the serve steps' decode cache holds the rank's block of
+positions and the rank's blocks of the SSM state; they pass its answer
+to `prefill` and `decode_step`.
 """
 
 from __future__ import annotations
@@ -47,11 +57,14 @@ import torch.distributed as dist
 
 from ..tree import leaves_with_paths, unflatten
 from . import context as mesh_ctx
-from .collectives import (all_gather_cat, all_to_all, gather_dim,
-                          gather_replicated, own_block, reduce_grad,
-                          scatter_dim, sum_replicated)
+from .collectives import (all_gather_cat, all_to_all, broadcast_from,
+                          gather_dim, gather_replicated, own_block,
+                          reduce_grad, scatter_dim, sum_replicated)
 
 ATTENTION_FAMILIES = ("dense", "moe", "vlm")
+SSM_FAMILIES = ("ssm", "hybrid")
+# the families whose stream `seq_parallel` puts on the rank's sequence block
+SEQ_FAMILIES = ATTENTION_FAMILIES + ("ssm",)
 
 
 # ---------------------------------------------------------------------------
@@ -65,11 +78,13 @@ def _model_size(sizes: dict) -> int:
 def module_split(cfg, sizes: dict) -> dict[str, bool]:
     """{module: True where its ranks compute on their "model" blocks}
     for a mesh of axis `sizes`: "vocab" (embedding and head), "attn"
-    (wq / wk / wv / wo and the biases), "mlp" (the dense MLP), "experts"
-    (`we_*`) and "res" (Arctic's dense residual MLP)."""
+    (wq / wk / wv / wo and the biases; Zamba2's shared block too), "mlp"
+    (the dense MLP), "experts" (`we_*`), "res" (Arctic's dense residual
+    MLP) and "ssm" (the Mamba2 mixer, `_ssm_splits`)."""
     m = _model_size(sizes)
-    off = dict(vocab=False, attn=False, mlp=False, experts=False, res=False)
-    if m <= 1 or cfg.family not in ATTENTION_FAMILIES:
+    off = dict(vocab=False, attn=False, mlp=False, experts=False, res=False,
+               ssm=False)
+    if m <= 1 or cfg.family not in ATTENTION_FAMILIES + SSM_FAMILIES:
         return off
     hd = cfg.head_dim_
     return dict(
@@ -80,7 +95,32 @@ def module_split(cfg, sizes: dict) -> dict[str, bool]:
         experts=(bool(cfg.n_experts) and not cfg.moe_ep
                  and cfg.n_experts % m == 0),
         res=(cfg.moe_dense_residual and not cfg.moe_ep
-             and cfg.d_ff % m == 0))
+             and cfg.d_ff % m == 0),
+        ssm=cfg.family in SSM_FAMILIES and _ssm_splits(cfg, m))
+
+
+def _ssm_splits(cfg, m: int) -> bool:
+    """The Mamba2 mixer splits over `m` "model" ranks at head boundaries:
+    the stream is not the rank's sequence block (`seq_parallel`), the
+    heads divide, the rank's heads read whole B/C groups or sit in one,
+    and every "ssm_out" dim divides: `d_inner` and the B/C width (the
+    split layout's blocks, which the fused layout is re-cut into), and
+    for the fused layout `in_proj`'s columns and the conv's channels."""
+    nh, ng = cfg.ssm_nheads, cfg.ssm_ngroups
+    di, gs = cfg.d_inner, ng * cfg.ssm_state
+    if seq_parallel(cfg) or not nh or nh % m:
+        return False
+    per, rep = nh // m, nh // ng
+    if per % rep and rep % per:
+        return False
+    dims = (di, gs) + (() if cfg.ssm_split_proj
+                       else (2 * di + 2 * gs + nh, di + 2 * gs))
+    return all(d % m == 0 for d in dims)
+
+
+def seq_parallel(cfg) -> bool:
+    """`cfg.seq_parallel` in a family whose stream it splits."""
+    return bool(cfg.seq_parallel and cfg.family in SEQ_FAMILIES)
 
 
 _LEAF_MODULE = {
@@ -90,6 +130,10 @@ _LEAF_MODULE = {
                           "w_out")},
     **{k: "experts" for k in ("we_gate", "we_up", "we_down")},
     **{"res_" + k: "res" for k in ("w_gate", "w_up", "w_down")},
+    **{k: "ssm" for k in ("in_proj", "conv_w", "conv_b", "ssm_norm_w",
+                          "out_proj", "in_z", "in_x", "in_B", "in_C",
+                          "conv_x_w", "conv_B_w", "conv_C_w", "conv_x_b",
+                          "conv_B_b", "conv_C_b")},
 }
 
 
@@ -165,14 +209,16 @@ class Stream(NamedTuple):
 WHOLE = Stream()
 
 
-def stream(cfg, seq: bool = True) -> Stream:
-    """The stream of `cfg` under the registered mesh.  `seq=False` for
-    prefill and decode: `seq_parallel` applies to the train step, as the
-    reference's opt level 6 sets it for the train cell only."""
+def stream(cfg, prefill: bool = False) -> Stream:
+    """The stream of `cfg` under the registered mesh: the train step's,
+    or with `prefill` the prefill's.  `seq_parallel` splits the
+    attention families' train stream (the reference's opt level 6 sets
+    it for their train cell) and the ssm family's train and prefill
+    streams (level 8 sets it for both cells); decode never."""
     mesh = mesh_ctx.get_mesh()
     if mesh is None or _model_size(mesh_ctx.mesh_axis_sizes(mesh)) <= 1:
         return WHOLE
-    sp = bool(seq and cfg.seq_parallel and cfg.family in ATTENTION_FAMILIES)
+    sp = seq_parallel(cfg) and (not prefill or cfg.family == "ssm")
     return Stream(mesh.get_group("model"), sp)
 
 
@@ -206,10 +252,32 @@ def seq_param(w, st: Stream):
 
 
 def check_seq(cfg, st: Stream, s: int) -> None:
-    if st.seq and s % dist.get_world_size(st.group):
+    """Under `seq_parallel` the sequence of `s` positions must split over
+    the "model" ranks; for the SSD scan the whole sequence's chunks must
+    also align with the ranks' blocks (its chunk size divides a block),
+    so that each rank scans whole chunks of the whole sequence's."""
+    if not st.seq:
+        return
+    m = dist.get_world_size(st.group)
+    if s % m:
         raise ValueError(f"{cfg.name}: seq_parallel needs the sequence "
-                         f"({s}) to split over the "
-                         f"{dist.get_world_size(st.group)} model ranks")
+                         f"({s}) to split over the {m} model ranks")
+    if cfg.family == "ssm":
+        from ..models.ssm import chunk_size
+        q = chunk_size(cfg, s)
+        if (s // m) % q:
+            raise ValueError(f"{cfg.name}: seq_parallel needs the SSD "
+                             f"chunks ({q} of the {s} positions) to align "
+                             f"with the {m} model ranks' blocks of {s // m}")
+
+
+def from_last_rank(t, st: Stream):
+    """Under `seq_parallel`: the last "model" rank's `t` (what it holds
+    at the end of the whole sequence) on every rank (one broadcast).
+    Inference only."""
+    if not st.seq:
+        return t
+    return broadcast_from(t, st.group, dist.get_world_size(st.group) - 1)
 
 
 # ---------------------------------------------------------------------------
@@ -217,37 +285,64 @@ def check_seq(cfg, st: Stream, s: int) -> None:
 # ---------------------------------------------------------------------------
 
 class CacheSplit(NamedTuple):
-    """How the serve steps lay the decode cache's sequence dim: `axes`,
-    the mesh axes (major first) whose ranks each hold a block of the
-    positions (() : every rank the whole sequence); `length`, the
-    cache's length, to which prefill pads each layer's K/V (None: the
-    prompt's)."""
+    """How the serve steps lay the decode cache: `axes`, the mesh axes
+    (major first) whose ranks each hold a block of the K/V positions
+    (() : every rank the whole sequence); `length`, the cache's length,
+    to which prefill pads each layer's K/V (None: the prompt's);
+    `state`, the SSM state and conv tail are the rank's "model" blocks
+    (its heads; its 1/m of the conv channels [x | B | C]), as the split
+    mixer computes them (False: whole on every rank).  `holds_block`
+    reads it."""
     axes: tuple = ()
     length: int | None = None
+    state: bool = False
 
 
 NO_SPLIT = CacheSplit()
 
 
 def cache_split(cfg, mesh, batch: int, seq: int) -> CacheSplit:
-    """The rule for the serve steps' cache of `batch` x `seq` positions:
-    split along the sequence over the axes that `cache_specs` puts on
-    its "seq" dim, where the attention families (not the gated decode)
-    run under more than one "model" rank and the cache's other dims,
-    the batch aside, stay whole on each rank; else whole."""
+    """The rule for the serve steps' cache of `batch` x `seq` positions.
+    The K/V (the attention families but for the gated decode, and the
+    hybrid's shared block) split along the sequence over the axes that
+    `cache_specs` puts on its "seq" dim, where more than one "model"
+    rank runs and the K/V's other dims, the batch aside, stay whole on
+    each rank; else whole.  The SSM state and conv tail are the rank's
+    blocks where the mixer splits (`module_split`'s "ssm"), which their
+    specs then split too (checked)."""
     from ..models import registry as M
     from .sharding import cache_specs, entry_axes
 
-    if (cfg.family not in ATTENTION_FAMILIES or cfg.strap_decode
-            or _model_size(mesh_ctx.mesh_axis_sizes(mesh)) <= 1):
-        return CacheSplit((), seq)
-    axes = M.cache_axes(cfg, batch, seq)["k"]
-    spec = cache_specs(cfg, {"k": axes},
-                       {"k": M.abstract_cache(cfg, batch, seq)["k"]},
-                       mesh)["k"]
-    if any(e for e, a in zip(spec, axes) if a not in ("seq", "batch")):
-        return CacheSplit((), seq)
-    return CacheSplit(entry_axes(spec[axes.index("seq")]), seq)
+    sizes = mesh_ctx.mesh_axis_sizes(mesh)
+    axes = M.cache_axes(cfg, batch, seq)
+    specs = cache_specs(cfg, axes, M.abstract_cache(cfg, batch, seq), mesh)
+    state = module_split(cfg, sizes)["ssm"]
+    for k in ("ssm", "conv", "t_ssm", "t_conv"):
+        if state and k in axes:
+            dim = axes[k].index("heads" if k.endswith("ssm") else "ssm_out")
+            if "model" not in entry_axes(specs[k][dim]):
+                raise ValueError(f"{cfg.name}: the mixer splits over "
+                                 f"\"model\" but the cache's {k} is stored "
+                                 f"as {specs[k]}")
+    if (cfg.family not in ATTENTION_FAMILIES + ("hybrid",)
+            or cfg.strap_decode or _model_size(sizes) <= 1):
+        return CacheSplit((), seq, state)
+    spec, k_axes = specs["k"], axes["k"]
+    if any(e for e, a in zip(spec, k_axes) if a not in ("seq", "batch")):
+        return CacheSplit((), seq, state)
+    return CacheSplit(entry_axes(spec[k_axes.index("seq")]), seq, state)
+
+
+def holds_block(key: str, split: CacheSplit) -> bool:
+    """The serve steps' cache leaf `key` is the rank's block as the model
+    functions return and take it under `split` (prefill's output,
+    decode's input and output): the K/V where their sequence splits, the
+    SSM state and conv tail where the mixer splits.  Any other leaf goes
+    whole through them and is cut to the rank's block after (and
+    gathered before decode)."""
+    if key in ("k", "v"):
+        return bool(split.axes)
+    return split.state and key in ("ssm", "conv", "t_ssm", "t_conv")
 
 
 def cache_blocks(split: CacheSplit) -> tuple[list, int, int]:

@@ -19,23 +19,31 @@ What each cell runs is the placement of the reference's GSPMD program:
 each rank holds its blocks of the parameters (`train_specs`) and
 computes on its "model" blocks (`distributed.tensor_parallel`): the
 attention's heads, the MLP's "ff" columns, the head's vocab rows, the
-experts.  The rule `tensor_parallel.model_split` gathers those over
+experts, the Mamba2 mixer's heads (its projections' columns, conv
+channels and `out_proj` rows, into which the fused layout's `in_proj`
+and conv blocks are re-cut after one all-gather of those weights;
+Zamba2's shared block as the attention layers).  The rule
+`tensor_parallel.model_split` gathers those over
 "data" only, and gathers whole the leaves of the paths it leaves out
-(the record's `model_gathered`: the router, the SSM and hybrid mixers,
-the enc-dec family, the gated decode's attention, the expert-parallel
-MoE):
+(the record's `model_gathered`: the router, the enc-dec family, the
+gated decode's attention, the expert-parallel MoE, the Mamba2 mixer
+under `seq_parallel` (opt level 8, where the stream is the rank's
+sequence block instead), and any module whose "model" dims do not
+divide):
   * train_4k: `make_sharded_train_step` on those blocks, the
     optimizer state's (`train_specs`) and the rank's shard of the batch
     (`batch_specs`); the gradients summed over ("pod", "data") leaf by
     leaf, the rank's blocks clipped and updated;
   * prefill_32k: `make_sharded_serve_prefill` on the rank's rows, its
     K/V written as its blocks of the cache (`cache_specs`: the sequence
-    over "model");
+    over "model"), its SSM state and conv tail as its head and channel
+    blocks;
   * decode_32k, long_500k: `make_sharded_serve_decode`, each rank
     attending its block of the cache's positions and combining the
     softmax statistics over "model" (and "data" at long_500k's one
-    sequence); the gated decode and the SSM / hybrid / enc-dec caches
-    are gathered for the rank's rows, as before.
+    sequence; Zamba2's shared block too) and advancing its heads' SSM
+    state; the gated decode and the enc-dec caches are gathered for the
+    rank's rows, as before.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch deepseek-67b --cell train_4k --mesh single
@@ -230,8 +238,7 @@ def memory_reckoned(cfg, kind: str, mesh, b: int, s: int) -> dict:
         return out
     state = abstract_opt_state(cfg.optimizer, M.abstract_params(cfg))
     rows = b // math.prod(sizes[a] for a in dp_axes(mesh, b))
-    seq = s // m if cfg.seq_parallel and cfg.family in \
-        tp.ATTENTION_FAMILIES else s
+    seq = s // m if tp.seq_parallel(cfg) else s
     item = torch_dtype(cfg.compute_dtype).itemsize
     vocab = cfg.padded_vocab // m if tp.module_split(cfg, sizes)["vocab"] \
         else cfg.padded_vocab

@@ -19,9 +19,12 @@ backward instead of keeping its activations, where the reference puts
 Under a registered mesh (the sharded steps of `train.step`) the layers
 compute on the "model" blocks they are given (`distributed.
 tensor_parallel`): the vocab-parallel embedding, head and loss, the
-attention's heads, the MLP's "ff" columns, the experts; with
-`cfg.seq_parallel` (train) the residual stream between the regions is
-the rank's sequence block; prefill writes each layer's K/V as the
+attention's heads, the MLP's "ff" columns, the experts, the Mamba2
+mixer's heads (Zamba2's shared block split as the attention families'
+layers); with `cfg.seq_parallel` (the attention families' train step,
+the ssm family's train step and prefill) the residual stream between
+the regions is the rank's sequence block; prefill writes each layer's
+K/V (and, where the mixer splits, its SSM state and conv tail) as the
 rank's cache blocks.
 
 Public entry points (functions of (cfg, params, ...)):
@@ -172,11 +175,15 @@ def _tf_block(cfg, lp, h, positions, st: tp.Stream = tp.WHOLE):
     return h + mo, aux, (k, v)
 
 
-def _ssm_block(cfg, lp, h):
-    """A Mamba2 layer over the prompt: (h, (ssm state, conv tail))."""
+def _ssm_block(cfg, lp, h, st: tp.Stream = tp.WHOLE):
+    """A Mamba2 layer over the prompt: (h, (ssm state, conv tail)), the
+    state the rank's blocks where the mixer splits; under `seq_parallel`
+    the last "model" rank's (the whole prompt's end), whole on every
+    rank."""
+    lp = _seq_norms(lp, st)
     a_in = apply_norm(cfg, h, lp, "ln1")
-    out, hf, convf = ssm_apply(cfg, lp, a_in, return_state=True)
-    return h + out, (hf, convf)
+    out, hf, convf = ssm_apply(cfg, lp, a_in, return_state=True, st=st)
+    return h + out, (tp.from_last_rank(hf, st), tp.from_last_rank(convf, st))
 
 
 def _embed_inputs(cfg, params, batch, dtype, st: tp.Stream = tp.WHOLE):
@@ -209,49 +216,54 @@ def _head(cfg, params, h, st: tp.Stream = tp.WHOLE):
     return lm_logits(cfg, params, h)
 
 
-def _ssm_stack(cfg, params, h, *lead, key="layers"):
+def _ssm_stack(cfg, params, h, *lead, key="layers", st=tp.WHOLE):
     """The Mamba2 layers of `params[key]` (under the leading index `lead`,
     a hybrid group) in order; returns (h, stacked ssm states, stacked conv
     tails)."""
     n = params[key]["A_log"][lead].shape[0]
     states = []
     for i in range(n):
-        h, st = _ssm_block(cfg, layer_params(params, *lead, i, key=key), h)
-        states.append(st)
+        h, state = _ssm_block(cfg, layer_params(params, *lead, i, key=key),
+                              h, st)
+        states.append(state)
     return (h, torch.stack([s for s, _ in states]),
             torch.stack([c for _, c in states]))
 
 
-def _prefill_ssm_like(cfg, params, h, positions) -> tuple:
-    """(h, cache) of the ssm and hybrid families."""
+def _prefill_ssm_like(cfg, params, h, positions, st: tp.Stream = tp.WHOLE,
+                      cache_split: tp.CacheSplit = tp.NO_SPLIT) -> tuple:
+    """(h, cache) of the ssm and hybrid families; the shared block's K/V
+    as the rank's blocks of a cache laid out by `cache_split`."""
     if cfg.family == "ssm":
-        h, hs, convs = _ssm_stack(cfg, params, h)
+        h, hs, convs = _ssm_stack(cfg, params, h, st=st)
         return h, {"ssm": hs, "conv": convs}
     shared = params["shared"]
     groups = _hybrid_split(cfg)[0]
     hs, convs, ks, vs = [], [], [], []
     for g in range(groups):
-        h, hs_g, convs_g = _ssm_stack(cfg, params, h, g)
+        h, hs_g, convs_g = _ssm_stack(cfg, params, h, g, st=st)
         hs.append(hs_g)
         convs.append(convs_g)
-        h, (k, v) = _shared_block(cfg, shared, h, positions)
-        ks.append(k)
-        vs.append(v)
+        h, (k, v) = _shared_block(cfg, shared, h, positions, st)
+        ks.append(tp.to_cache_block(k, cfg.n_kv_heads, cache_split))
+        vs.append(tp.to_cache_block(v, cfg.n_kv_heads, cache_split))
     cache = {"ssm": torch.stack(hs), "conv": torch.stack(convs),
              "k": torch.stack(ks), "v": torch.stack(vs)}
     if "trailing" in params:
-        h, cache["t_ssm"], cache["t_conv"] = _ssm_stack(cfg, params, h,
-                                                        key="trailing")
+        h, cache["t_ssm"], cache["t_conv"] = _ssm_stack(
+            cfg, params, h, key="trailing", st=st)
     return h, cache
 
 
-def _shared_block(cfg, shared, h, positions):
-    """The hybrid's weight-shared attention + MLP block over the prompt."""
+def _shared_block(cfg, shared, h, positions, st: tp.Stream = tp.WHOLE):
+    """The hybrid's weight-shared attention + MLP block over the prompt:
+    (h, (k, v)), on the rank's heads and "ff" columns where the mesh
+    splits them (the attention families' split paths)."""
     a_in = apply_norm(cfg, h, shared, "ln1")
-    attn_out, kv = causal_attention(cfg, shared, a_in, positions)
+    attn_out, kv = causal_attention(cfg, shared, a_in, positions, st=st)
     h = h + attn_out
     m_in = apply_norm(cfg, h, shared, "ln2")
-    return h + mlp_apply(cfg, shared, m_in), kv
+    return h + mlp_apply(cfg, shared, m_in, st=st), kv
 
 
 def prefill(cfg, params, batch, cache_split: tp.CacheSplit = tp.NO_SPLIT):
@@ -263,11 +275,14 @@ def prefill(cfg, params, batch, cache_split: tp.CacheSplit = tp.NO_SPLIT):
     per-strap key sums `ksum`.  The ssm and hybrid caches are as
     `cache_schema` gives them (the SSM state in float32).  Under a mesh
     the K/V are the rank's blocks of a cache laid out by `cache_split`
-    (`tensor_parallel.cache_split`)."""
+    (`tensor_parallel.cache_split`), and the SSM state and conv tail the
+    rank's blocks where the mixer splits, else whole."""
     dtype = torch_dtype(cfg.compute_dtype)
-    h, positions = _embed_inputs(cfg, params, batch, dtype)
+    st = tp.stream(cfg, prefill=True)
+    h, positions = _embed_inputs(cfg, params, batch, dtype, st)
     if cfg.family in ("ssm", "hybrid"):
-        h, cache = _prefill_ssm_like(cfg, params, h, positions)
+        h, cache = _prefill_ssm_like(cfg, params, h, positions, st,
+                                     cache_split)
     else:
         # under a mesh each layer's K/V leave as the rank's cache blocks
         ks, vs = [], []
@@ -277,8 +292,8 @@ def prefill(cfg, params, batch, cache_split: tp.CacheSplit = tp.NO_SPLIT):
             ks.append(tp.to_cache_block(k, cfg.n_kv_heads, cache_split))
             vs.append(tp.to_cache_block(v, cfg.n_kv_heads, cache_split))
         cache = dict(k=torch.stack(ks).to(dtype), v=torch.stack(vs).to(dtype))
-    logits = _head(cfg, params, apply_norm(cfg, h[:, -1:, :], params,
-                                           "final"))
+    last = tp.from_last_rank(h[:, -1:, :], st)
+    logits = _head(cfg, params, apply_norm(cfg, last, params, "final"))
     return logits[:, 0], cache
 
 
@@ -302,8 +317,9 @@ def _maybe_remat(cfg, fn):
     return lambda *args: checkpoint(fn, *args, use_reentrant=False)
 
 
-def _ssm_layer(cfg, lp, h):
-    return h + ssm_apply(cfg, lp, apply_norm(cfg, h, lp, "ln1"))
+def _ssm_layer(cfg, lp, h, st: tp.Stream = tp.WHOLE):
+    lp = _seq_norms(lp, st)
+    return h + ssm_apply(cfg, lp, apply_norm(cfg, h, lp, "ln1"), st=st)
 
 
 def _run_layers(cfg, params, h, positions, st: tp.Stream = tp.WHOLE):
@@ -312,7 +328,7 @@ def _run_layers(cfg, params, h, positions, st: tp.Stream = tp.WHOLE):
     the rank's sequence block."""
     zero = torch.zeros((), dtype=torch.float32, device=h.device)
     if cfg.family == "ssm":
-        body = _maybe_remat(cfg, lambda hh, lp: _ssm_layer(cfg, lp, hh))
+        body = _maybe_remat(cfg, lambda hh, lp: _ssm_layer(cfg, lp, hh, st))
         for lp in _unstack(params["layers"]):
             h = body(h, lp)
         return h, zero
@@ -321,15 +337,15 @@ def _run_layers(cfg, params, h, positions, st: tp.Stream = tp.WHOLE):
 
         def group_body(hh, glp):
             for lp in _unstack(glp):
-                hh = _ssm_layer(cfg, lp, hh)
-            return _shared_block(cfg, shared, hh, positions)[0]
+                hh = _ssm_layer(cfg, lp, hh, st)
+            return _shared_block(cfg, shared, hh, positions, st)[0]
 
         body = _maybe_remat(cfg, group_body)
         for glp in _unstack(params["layers"]):
             h = body(h, glp)
         if "trailing" in params:
             for lp in _unstack(params["trailing"]):
-                h = _ssm_layer(cfg, lp, h)
+                h = _ssm_layer(cfg, lp, h, st)
         return h, zero
     body = _maybe_remat(cfg, lambda hh, lp: _tf_block(cfg, lp, hh,
                                                        positions, st)[:2])
@@ -440,7 +456,8 @@ def decode_step(cfg, params, cache, token, pos,
     float32 logits, cache).  The token's K/V (gated: and its key sum) or
     the SSM and conv states are written into `cache` in place; the same
     dict is returned.  `cache_split`: how a sharded serve step laid the
-    attention cache (the rank's block of positions, or whole)."""
+    cache (the rank's block of the K/V positions, or whole; the SSM state
+    and conv tail the rank's blocks where the mixer splits)."""
     dtype = torch_dtype(cfg.compute_dtype)
     h = embed_tokens(params, token, dtype,
                      _vocab_group(cfg, params))              # (B,1,D)
@@ -453,7 +470,8 @@ def decode_step(cfg, params, cache, token, pos,
                                   cache["conv"][g], g)
             a_in = apply_norm(cfg, h, shared, "ln1")
             h = h + decode_attention(cfg, shared, a_in, cache["k"][g],
-                                     cache["v"][g], pos)[0]
+                                     cache["v"][g], pos,
+                                     split=cache_split)[0]
             m_in = apply_norm(cfg, h, shared, "ln2")
             h = h + mlp_apply(cfg, shared, m_in)
         if "t_ssm" in cache:

@@ -29,9 +29,8 @@ from ..distributed import context as mesh_ctx
 from ..distributed import tensor_parallel as tp
 from ..distributed.collectives import (all_gather_cat, all_reduce,
                                        hierarchical_psum_tree)
-from ..distributed.sharding import (cache_specs, entry_axes,
-                                    gather_block, gather_tree, local_block,
-                                    tree_specs)
+from ..distributed.sharding import (cache_specs, entry_axes, gather_block,
+                                    local_block, tree_specs)
 from ..models import registry as M
 from ..tree import leaves, tree_map, unflatten
 from .optimizer import (OptConfig, abstract_opt_state, make_optimizer,
@@ -265,8 +264,10 @@ def make_sharded_serve_prefill(cfg, mesh, batch: int, seq: int):
     blocks as they are.  Each rank computes on its blocks
     (`tensor_parallel.model_split`); where the cache's sequence splits
     over "model" each layer's K/V leave as the rank's block (an
-    all-to-all from head blocks to sequence blocks), elsewhere the cache
-    is cut from the whole."""
+    all-to-all from head blocks to sequence blocks), and the SSM state
+    and conv tail leave as the rank's blocks where the mixer splits
+    (`tensor_parallel.holds_block`); elsewhere the cache is cut from the
+    whole."""
     gather_specs, rows, split = _serve_geometry(cfg, mesh, batch, seq)
 
     @torch.no_grad()
@@ -282,13 +283,13 @@ def make_sharded_serve_prefill(cfg, mesh, batch: int, seq: int):
 
 
 def _cache_blocks(cache, rows, mesh, split):
-    """Each cache leaf as the rank's block under its rows spec: K and V
-    already are where the sequence splits (`tensor_parallel.
-    to_cache_block`); anything else came out whole, K and V of the
-    prompt's length (padded here to `seq`), and is cut."""
+    """Each cache leaf as the rank's block under its rows spec: as it came
+    out where it already is (`tensor_parallel.holds_block`); anything
+    else came out whole, K and V of the prompt's length (padded here to
+    `seq`), and is cut."""
     out = {}
     for k, x in cache.items():
-        if split.axes and k in ("k", "v"):
+        if tp.holds_block(k, split):
             out[k] = x
             continue
         if k in ("k", "v"):
@@ -305,26 +306,30 @@ def make_sharded_serve_decode(cfg, mesh, batch: int, seq: int):
     blocks).  `params` are the rank's blocks, `cache` its blocks under
     `cache_specs` (global batch `batch`, length `seq`), `token` / `pos`
     its rows.  Where the cache's sequence splits over "model" (the
-    attention families, not gated) each rank attends its block of
-    positions and the softmax statistics are combined over the split
-    axes; the rank owning `pos` writes the token's K/V, in place.
-    Elsewhere (the gated decode, the SSM, hybrid and enc-dec caches) the
-    rank's rows of the cache are gathered whole, decoded, and its blocks
-    cut back out, as the reference's GSPMD gathers them."""
+    attention families, not gated, and the hybrid's shared block) each
+    rank attends its block of positions and the softmax statistics are
+    combined over the split axes; the rank owning `pos` writes the
+    token's K/V, in place.  Where the Mamba2 mixer splits, each rank
+    advances its heads' state and its block of the conv tail, in place.
+    Elsewhere (the gated decode, the enc-dec cache, a mixer that does not
+    split) the rank's rows of the leaf are gathered whole, decoded, and
+    its block cut back out, as the reference's GSPMD gathers them."""
     gather_specs, rows, split = _serve_geometry(cfg, mesh, batch, seq)
 
     @torch.no_grad()
     def serve_decode(params, cache, token, pos):
         full = _compute_params(params, gather_specs, mesh)
-        work = cache if split.axes else gather_tree(cache, rows, mesh)
+        work = {k: x if tp.holds_block(k, split)
+                else gather_block(x, rows[k], mesh)
+                for k, x in cache.items()}
         with mesh_ctx.mesh_scope(mesh):
             logits, work = M.decode_step(cfg, full, work, token, pos, split)
         del full
         logits = _whole_logits(cfg, mesh, logits)
         next_token = torch.argmax(logits, dim=-1).to(torch.int32)
-        if not split.axes:
-            work = {k: local_block(x, rows[k], mesh).clone()
-                    for k, x in work.items()}
+        work = {k: x if tp.holds_block(k, split)
+                else local_block(x, rows[k], mesh).clone()
+                for k, x in work.items()}
         return next_token[:, None], logits, work
 
     return serve_decode

@@ -1,9 +1,18 @@
 """The port's sharded train step on gloo groups at meshes (1, 2, 1),
-(1, 1, 2), (2, 2, 1), (1, 2, 2) and (1, 1, 4) (these families gather
-their leaves whole over "model"): two steps of the SSM, hybrid and enc-dec smoke
-configs against the port's single-process step and the reference's
-jitted `make_train_step` on the whole batch (tests/torch_dist_parity.py);
-and, in the same four-rank group:
+(1, 1, 2), (2, 2, 1), (1, 2, 2) and (1, 1, 4): two steps of the SSM,
+hybrid and enc-dec smoke configs against the port's single-process step
+and the reference's jitted `make_train_step` on the whole batch
+(tests/torch_dist_parity.py).  Where the mesh has more than one "model"
+rank the ssm and hybrid families compute on their blocks (the Mamba2
+mixer's heads, Zamba2's shared block, the vocab-parallel embedding and
+head); the enc-dec family gathers its leaves whole over "model".
+mamba2-smoke also runs at opt level 7 (`ssm_split_proj`) and 8 (plus
+`seq_parallel`: 4 x 128 tokens, the SSD's 4 chunks of 32 over up to 4
+"model" ranks), against the reference at the same level.  Level 8 takes
+one step: after it a chunk's decay sums to ~95, past the float32 exp's
+~88.7, and the reference's SSD backward gives NaN there (the fault of
+the reference that ROADMAP queue 3 records; the port's
+second step is finite).  And, in the same four-rank group:
 
 - AdamW8bit's `_q8` on a row split over mesh axes (its row max reduced
   over their groups) against the block of `_q8` of the whole tensor, bit
@@ -31,6 +40,8 @@ from repro.ckpt.manager import CheckpointManager as JManager  # noqa: E402
 
 CASES = [P.case(a) for a in ("mamba2-780m-smoke", "whisper-tiny-smoke",
                              "zamba2-7b-smoke")]
+CASES += [P.case("mamba2-780m-smoke", opt_level=7),
+          P.case("mamba2-780m-smoke", opt_level=8, steps=1)]
 SHAPES = [s for shapes in P.SHAPES.values() for s in shapes]
 Q8_SPECS = ["(None, 'data')", "(None, 'model')", "('data', 'model')",
             "(None, ('data', 'model'))"]

@@ -4,8 +4,16 @@
   rank 0 of 256 runs `make_sharded_train_step` on 16 x 4,096 tokens and
   its "model" blocks, 4.43e13 matmul FLOPs (one 16th of the dense
   step's), its collectives derived from the block shapes;
+- Mamba2-780M's train_4k cell on the "single" mesh at full width and
+  depth: every leaf on its "model" block (`model_gathered` empty), rank
+  0's FLOPs reckoned from the block shapes;
 - the "model" axis splits the dense compute: the per-rank FLOPs on a
-  (1, 1, m) mesh are 1 / m of a one-rank mesh's at the same batch;
+  (1, 1, m) mesh are 1 / m of a one-rank mesh's at the same batch; for
+  the ssm and hybrid families 1 / m but for the SSD's C·Bᵀ scores, which
+  every rank computes;
+- the fused layout (level 0) moves over "model" what the split layout
+  (level 7) moves plus its weights' all-gather a layer, not the
+  (B, L, d_in_proj) product;
 - opt level 8 (the expert-parallel MoE, the gated strap decode) runs
   under fake tensors too;
 - the dry run never initializes CUDA (no call reaches `torch.cuda`'s
@@ -72,6 +80,47 @@ def test_olmo_1b_train_4k_on_the_single_mesh_at_full_width():
     assert mem["peak_memory_in_bytes"] < 80e9
 
 
+def _ssd_scores_flops(cfg, layers: int, passes: int, b: int, s: int):
+    """The SSD's C·Bᵀ scores, (B, nc, ng, Q, Q) from (Q, st) products, in
+    `layers` Mamba2 layers at `passes` times the forward (4 under remat:
+    the forward, its recompute and the two backward products)."""
+    from repro_torch.models.ssm import chunk_size
+    q = chunk_size(cfg, s)
+    return layers * passes * 2 * b * (s // q) * cfg.ssm_ngroups * q * q \
+        * cfg.ssm_state
+
+
+def test_mamba2_780m_train_4k_on_the_single_mesh_at_full_width():
+    """Every "model" dim of Mamba2-780M divides 16 (48 heads: 3 a rank;
+    `in_proj` 6448 = 16 x 403 columns, `conv_dim` 3328 = 16 x 208,
+    `d_inner` 3072 = 16 x 192, padded vocab 50,432): no leaf is gathered
+    whole.  Rank 0's FLOPs, from its block shapes (16 rows of 4,096
+    tokens): in each of the 48 layers `in_proj` on its 403 columns, the
+    SSD on its 3 heads with the whole C·Bᵀ scores, each four times (the
+    forward, the remat recompute, two backward products), and
+    `out_proj` on its 192 rows three times (the recompute stops before
+    it); the tied head on its 3,152 vocab rows three times (forward and
+    two backward products)."""
+    r = dryrun.run_cell("mamba2-780m", "train_4k", "single")
+    assert r["ok"] and r["model_gathered"] == []
+    cfg = registry.get_arch("mamba2-780m")
+    b, s, m = 16, 4096, 16
+    d, di, nh = cfg.d_model, cfg.d_inner, cfg.ssm_nheads
+    hp, st, q = cfg.ssm_headdim, cfg.ssm_state, 256
+    nc, nl = s // q, nh // m
+    d_in_proj = 2 * di + 2 * cfg.ssm_ngroups * st + nh
+    in_proj = 2 * b * s * d * d_in_proj // m
+    out_proj = 2 * b * s * (di // m) * d
+    ssd = (2 * b * nc * nl * q * q * hp           # the decay-weighted sum
+           + 2 * 2 * b * nc * nl * q * hp * st)   # chunk states, y_off
+    scores = _ssd_scores_flops(cfg, 1, 1, b, s)
+    head = 2 * b * s * d * cfg.padded_vocab // m
+    want = cfg.n_layers * (4 * (in_proj + ssd + scores) + 3 * out_proj) \
+        + 3 * head
+    assert r["flops_per_device"] == want == 26346403135488
+    assert r["memory"]["peak_memory_in_bytes"] < 78.9e9 / 4
+
+
 @pytest.mark.parametrize("m", [2, 4])
 def test_model_axis_splits_the_dense_compute(m):
     """On a (1, 1, m) mesh each rank counts 1 / m of the one-rank step's
@@ -83,6 +132,63 @@ def test_model_axis_splits_the_dense_compute(m):
     assert split["flops_per_device"] * m == one["flops_per_device"] > 0
     assert split["global_batch"] == one["global_batch"] == 2
     assert split["devices"] == m and split["model_gathered"] == []
+
+
+@pytest.mark.parametrize("m", [2, 4])
+@pytest.mark.parametrize("arch", ["mamba2-780m-smoke", "zamba2-7b-smoke"])
+@pytest.mark.parametrize("level", [0, 7])
+def test_model_axis_splits_the_ssm_compute(arch, level, m):
+    """On a (1, 1, m) mesh each rank counts 1 / m of the one-rank step's
+    FLOPs, plus (m - 1) / m of the C·Bᵀ scores every rank computes whole
+    (4 layers under remat; Zamba2's 2 groups of 2 with the shared block,
+    its attention and MLP split as the attention families')."""
+    cfg = optlevels.apply_opt_level(registry.get_arch(arch), "train_4k",
+                                    level)
+    split = dryrun.run(cfg, "train_4k", "x", (1, 1, m), level, b=2, s=128)
+    one = dryrun.run(cfg, "train_4k", "x", (1, 1, 1), level, b=2, s=128)
+    scores = _ssd_scores_flops(cfg, cfg.n_layers, 4, 2, 128)
+    assert split["flops_per_device"] * m == \
+        one["flops_per_device"] + (m - 1) * scores
+    assert split["model_gathered"] == []
+
+
+@pytest.mark.parametrize("m", [2, 4])
+def test_fused_mixer_gathers_its_weights_not_its_product(m):
+    """mamba2-780m-smoke on (1, 1, m): level 0 runs level 7's schedule on
+    the fused weights' blocks re-cut, so its bytes over "model" are level
+    7's plus, in each layer, the all-gather of the whole `in_proj`,
+    `conv_w` and `conv_b` (in the forward and in the remat recompute)
+    and its backward's reduce-scatter (the rank's block), less level 7's
+    all-reduce of `in_dt`'s gradient (level 0 cuts the dt columns from
+    the gathered weights); the FLOPs are the same."""
+    cfg = registry.get_arch("mamba2-780m-smoke")
+    fused = dryrun.run(cfg, "train_4k", "x", (1, 1, m), b=2, s=128)
+    split = dryrun.run(optlevels.apply_opt_level(cfg, "train_4k", 7),
+                       "train_4k", "x", (1, 1, m), 7, b=2, s=128)
+    d, di, nh = cfg.d_model, cfg.d_inner, cfg.ssm_nheads
+    gs, k = cfg.ssm_ngroups * cfg.ssm_state, cfg.conv_kernel
+    size = torch.empty((), dtype=getattr(torch, cfg.param_dtype)).element_size()
+    whole = (d * (2 * di + 2 * gs + nh) + (k + 1) * (di + 2 * gs)) * size
+    passes = 2 if cfg.remat else 1
+    extra = cfg.n_layers * (passes * whole + whole // m - d * nh * size)
+    model = [r["collectives"]["by_axis"]["model"] for r in (fused, split)]
+    assert model[0] - model[1] == extra > 0
+    assert fused["flops_per_device"] == split["flops_per_device"]
+    assert fused["model_gathered"] == split["model_gathered"] == []
+
+
+@pytest.mark.parametrize("m", [2, 4])
+def test_seq_parallel_splits_the_ssm_compute_exactly(m):
+    """At opt level 8 (`seq_parallel`) each rank scans its sequence block
+    (the whole chunks of the whole sequence's, their states passed
+    between the ranks by one all-gather of elementwise work): 1 / m of
+    the one-rank step's FLOPs, the mixer whole and named."""
+    cfg = optlevels.apply_opt_level(registry.get_arch("mamba2-780m-smoke"),
+                                    "train_4k", 8)
+    split = dryrun.run(cfg, "train_4k", "x", (1, 1, m), 8, b=2, s=128)
+    one = dryrun.run(cfg, "train_4k", "x", (1, 1, 1), 8, b=2, s=128)
+    assert split["flops_per_device"] * m == one["flops_per_device"] > 0
+    assert "layers/in_x" in split["model_gathered"]
 
 
 def test_dry_run_never_initializes_cuda(monkeypatch):

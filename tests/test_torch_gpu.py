@@ -4,8 +4,9 @@ the strap-gated decode attention (LM server), the MoE layer against
 its per-pair plain version, the SSM scan and the ssm, hybrid and
 enc-dec decode steps on the card, and training: a train step on the card
 against the CPU, the SSD backward where its decay overflows, a
-checkpoint of the card's state restored on the CPU, and the sharded
-train step on a one-rank NCCL mesh, bit for bit the train step.
+checkpoint of the card's state restored on the CPU, the sharded
+train step on a one-rank NCCL mesh, bit for bit the train step, and the
+Mamba2 mixer split over two "model" ranks sharing the card.
 
 Marked `gpu`: without a GPU every test here skips (the kernel has no CPU
 mode).  This file imports neither JAX nor the reference package, so it
@@ -980,3 +981,29 @@ def test_sharded_step_at_world_size_one_is_the_train_step_bit_for_bit(
 
     for a, b in zip(*runs):
         assert a.dtype == b.dtype and torch.equal(bits(a), bits(b))
+
+
+# --------------------------------------------------------------------------
+# the Mamba2 mixer on the "model" axis: two gloo ranks sharing the card
+# --------------------------------------------------------------------------
+
+def test_split_mamba2_mixer_on_two_ranks_sharing_the_card(cuda):
+    """mamba2-780m-smoke's mixer (output and every gradient) and three
+    decode steps on the rank's state blocks, in the fused and the split
+    (opt level 7) layouts, each of two gloo ranks on cuda:0 computing on
+    its "model" blocks (`tests/torch_tp_children.py:ssm_card`), against
+    the same function on one rank: 2e-5 of the largest value (float32,
+    TF32 off), tests/test_torch_tp_ssm.py's bar."""
+    from pathlib import Path
+
+    from repro_torch.launch.group import run_group
+
+    results = run_group("torch_tp_children:ssm_card", 2,
+                        dict(shape=(1, 1, 2)), 300,
+                        [Path(__file__).resolve().parent])
+    assert [r["rank"] for r in results] == [0, 1]
+    for res in results:
+        assert len(res["errors"]) == 4, sorted(res["errors"])
+        for piece, errs in res["errors"].items():
+            for what, err in errs.items():
+                assert err <= 2e-5, (res["rank"], piece, what, err)

@@ -6,13 +6,18 @@ tokens before them) and 4 greedy decode steps against `M.prefill` /
 from the same weights (`tests/torch_tp_children.py:serve`).
 
 Each rank holds its blocks of the parameters and computes on its
-"model" blocks; the cache's sequence splits over "model" (the attention
-families: each rank attends its positions and the softmax statistics
-are combined) or, for Zamba2's hybrid cache, is gathered for the rank's
-rows.  The prefill writes the blocks of a 32-position cache, which the
-decode takes as they are.  Bars:
-the greedy tokens equal, the logits within 2e-5 of max |logits|
-(float32 smoke configs).
+"model" blocks; the K/V cache's sequence splits over "model" (the
+attention families and Zamba2's shared block: each rank attends its
+positions and the softmax statistics are combined), and the SSM state
+and conv tail are the rank's heads and channel block (mamba2-smoke in
+the fused layout and the split layout of opt level 7, zamba2-smoke).
+The prefill writes the blocks of a 32-position cache, which the decode
+takes as they are.  mamba2-smoke at opt level 8 (`seq_parallel`)
+prefills 4 x 128 prompts, each rank its sequence block (the SSD's 4
+chunks of 32 over the "model" ranks; the last rank's state broadcast
+and cut as the cache's blocks), then decodes with the mixer whole on the
+gathered state.  Bars: the greedy tokens equal, the logits within 2e-5 of max
+|logits| (float32 smoke configs).
 """
 
 import concurrent.futures
@@ -22,6 +27,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+
+import dataclasses  # noqa: E402
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -36,22 +43,32 @@ from repro_torch.models import registry as M  # noqa: E402
 TESTS = Path(__file__).resolve().parent
 BAR = 2e-5
 SHAPES = {2: [(1, 1, 2)], 4: [(1, 2, 2), (1, 1, 4)]}
-CASES = [("olmo", "olmo-1b-smoke"), ("qwen2", "qwen2-1.5b-smoke"),
-         ("phi", "phi3.5-moe-42b-a6.6b-smoke"),
-         ("pixtral", "pixtral-12b-smoke"), ("zamba2", "zamba2-7b-smoke")]
+# (label, arch, config replaced, prompt length (None: SERVE_PROMPT))
+CASES = [("olmo", "olmo-1b-smoke", None, None),
+         ("qwen2", "qwen2-1.5b-smoke", None, None),
+         ("phi", "phi3.5-moe-42b-a6.6b-smoke", None, None),
+         ("pixtral", "pixtral-12b-smoke", None, None),
+         ("zamba2", "zamba2-7b-smoke", None, None),
+         ("mamba2", "mamba2-780m-smoke", None, None),
+         ("mamba2-level7", "mamba2-780m-smoke", {"ssm_split_proj": True},
+          None),
+         ("mamba2-level8", "mamba2-780m-smoke",
+          {"ssm_split_proj": True, "seq_parallel": True}, 128)]
 MESH_CASES = [(s, c) for shapes in SHAPES.values() for s in shapes
               for c in CASES]
 
 
-def _single(cfg):
+def _single(cfg, prompt):
     """(logits (steps + 1, B, V), tokens (B, steps + 1)) of the port's
     model functions on one process."""
     params = K.start_params(cfg)
-    batch = T.serve_inputs(cfg)
-    s = T.SERVE_PROMPT + cfg.n_vision_tokens
+    prompt, length = T.serve_lengths(prompt)
+    batch = T.serve_inputs(cfg, prompt=prompt)
+    s = prompt + cfg.n_vision_tokens
     with torch.no_grad():
         logits, cache = M.prefill(cfg, params, batch)
-        cache = T.pad_seq(cache, T.SERVE_LEN)
+        if "k" in cache:
+            cache = T.pad_seq(cache, length)
         token = torch.argmax(logits, -1).to(torch.int32)[:, None]
         lg, tk = [logits], [token]
         for i in range(T.SERVE_STEPS):
@@ -63,16 +80,17 @@ def _single(cfg):
     return torch.stack(lg).numpy(), torch.cat(tk, 1).numpy()
 
 
-def _reference(arch, cfg):
+def _reference(arch, rep, cfg, prompt):
     """The same with the reference's model functions."""
-    jcfg = jreg.get_arch(arch)
+    jcfg = dataclasses.replace(jreg.get_arch(arch), **(rep or {}))
     jparams = jax.tree.map(lambda t: jnp.asarray(t.numpy()),
                            K.start_params(cfg))
+    prompt, length = T.serve_lengths(prompt)
     batch = {k: jnp.asarray(v.numpy()) for k, v in
-             T.serve_inputs(cfg).items()}
-    s = T.SERVE_PROMPT + cfg.n_vision_tokens
+             T.serve_inputs(cfg, prompt=prompt).items()}
+    s = prompt + cfg.n_vision_tokens
     logits, cache = JM.prefill(jcfg, jparams, batch)
-    pad = T.SERVE_LEN - s
+    pad = length - s
     cache = {k: (jnp.pad(v, [(0, 0), (0, 0), (0, pad)]
                          + [(0, 0)] * (v.ndim - 3)) if k in ("k", "v")
                  else v) for k, v in cache.items()}
@@ -91,16 +109,16 @@ def _reference(arch, cfg):
 @pytest.fixture(scope="module")
 def run(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("tp_serve")
-    cases = [(label, arch, None) for label, arch in CASES]
+    cases = [list(c) for c in CASES]
     with concurrent.futures.ThreadPoolExecutor(2) as pool:
         futures = [pool.submit(run_group, "torch_tp_children:several_serve",
                                w, dict(shapes=shapes, cases=cases,
                                        out_dir=str(tmp)), 300, [TESTS])
                    for w, shapes in SHAPES.items()]
-        single = {label: _single(T.config(arch, None))
-                  for label, arch in CASES}
-        ref = {label: _reference(arch, T.config(arch, None))
-               for label, arch in CASES}
+        single = {label: _single(T.config(arch, rep), prompt)
+                  for label, arch, rep, prompt in CASES}
+        ref = {label: _reference(arch, rep, T.config(arch, rep), prompt)
+               for label, arch, rep, prompt in CASES}
         for f in futures:
             f.result()
     return tmp, single, ref

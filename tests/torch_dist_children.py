@@ -24,6 +24,7 @@ from repro_torch.distributed import context as mesh_ctx
 from repro_torch.distributed.sharding import (batch_specs, gather_tree,
                                               local_block, shard_tree)
 from repro_torch.launch.mesh import make_train_mesh
+from repro_torch.launch.optlevels import apply_opt_level
 from repro_torch.models import moe
 from repro_torch.models import registry as models
 from repro_torch.train import optimizer as topt
@@ -32,6 +33,9 @@ from repro_torch.tree import leaves_with_paths, tree_map
 
 OC = topt.OptConfig(lr=1e-3, eps=1e-3, warmup_steps=1, total_steps=10)
 SEQ = 64
+# under the ssm family's seq_parallel (opt level 8) the whole sequence's SSD
+# chunks must align with the "model" ranks' blocks: 4 chunks of 32
+SSM_SEQ_PARALLEL = 128
 
 
 def _setup():
@@ -50,18 +54,27 @@ def _host(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
+def batch_seq(cfg) -> int:
+    """The tests' sequence: SEQ, or SSM_SEQ_PARALLEL under the ssm
+    family's `seq_parallel`."""
+    if cfg.seq_parallel and cfg.family == "ssm":
+        return SSM_SEQ_PARALLEL
+    return SEQ
+
+
 def train_batch(cfg, b: int, seed: int = 0) -> dict:
     """Tokens, next-token targets and the stub vision / encoder
     embeddings, from numpy's generator at `seed` (the tests' batch)."""
     rng = np.random.default_rng(seed)
-    toks = rng.integers(0, cfg.vocab_size, (b, SEQ + 1)).astype(np.int32)
+    seq = batch_seq(cfg)
+    toks = rng.integers(0, cfg.vocab_size, (b, seq + 1)).astype(np.int32)
     batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
     if cfg.n_vision_tokens:
         batch["vision_embeds"] = rng.standard_normal(
             (b, cfg.n_vision_tokens, cfg.d_model), dtype=np.float32)
     if cfg.is_encdec:
         batch["enc_embeds"] = rng.standard_normal(
-            (b, SEQ // 2, cfg.d_model), dtype=np.float32)
+            (b, seq // 2, cfg.d_model), dtype=np.float32)
     return {k: torch.as_tensor(np.ascontiguousarray(v))
             for k, v in batch.items()}
 
@@ -94,24 +107,27 @@ def sharded_run(cfg, mesh, steps: int, b: int, microbatch=None):
     return params, state, (p_specs, o_specs), metrics
 
 
-def case_config(arch: str, optimizer: str | None):
-    cfg = get_arch(arch)
+def case_config(arch: str, optimizer: str | None, opt_level: int = 0):
+    """`arch` with `optimizer` (None: the config's) at `opt_level` (the
+    train_4k cell's rewrites, `launch.optlevels`)."""
+    cfg = apply_opt_level(get_arch(arch), "train_4k", opt_level)
     return dataclasses.replace(cfg, optimizer=optimizer) if optimizer \
         else cfg
 
 
 def train_group(shapes, cases, out_dir: str) -> dict:
     """Every case (label, arch, optimizer or None for the config's,
-    microbatch, batch, steps) on every mesh shape: rank 0 writes the
-    gathered parameters and optimizer state after the sharded steps, and
-    the losses and grad norms, to `out_dir/<shape>-<label>.npz`."""
+    microbatch, batch, steps, opt level) on every mesh shape: rank 0
+    writes the gathered parameters and optimizer state after the sharded
+    steps, and the losses and grad norms, to
+    `out_dir/<shape>-<label>.npz`."""
     rank = _setup()
     out = {}
     for shape in shapes:
         mesh = make_train_mesh(tuple(shape), device="cpu")
         tag = "x".join(map(str, shape))
-        for label, arch, optimizer, microbatch, b, steps in cases:
-            cfg = case_config(arch, optimizer)
+        for label, arch, optimizer, microbatch, b, steps, level in cases:
+            cfg = case_config(arch, optimizer, level)
             params, state, (p_specs, o_specs), metrics = sharded_run(
                 cfg, mesh, steps, b, microbatch)
             fp = gather_tree(params, p_specs, mesh)

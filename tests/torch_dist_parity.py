@@ -39,6 +39,7 @@ import torch
 
 import torch_dist_children as K
 from repro.configs import registry as jreg
+from repro.launch.optlevels import apply_opt_level as japply_opt_level
 from repro.train import step as jstep
 from repro_torch.configs.registry import get_arch
 from repro_torch.launch.group import run_group
@@ -51,14 +52,16 @@ TESTS = Path(__file__).resolve().parent
 SHAPES = {2: [(1, 2, 1), (1, 1, 2)], 4: [(2, 2, 1), (1, 2, 2), (1, 1, 4)]}
 
 
-def case(arch: str, optimizer=None, microbatch=None, steps: int = 2):
+def case(arch: str, optimizer=None, microbatch=None, steps: int = 2,
+         opt_level: int = 0):
     """(label, arch, optimizer (None: the config's), microbatch, global
-    batch, steps): batch 4, or 8 with microbatches (two rows a slice on
-    the four-rank dp mesh)."""
+    batch, steps, opt level (the train_4k cell's rewrites)): batch 4, or
+    8 with microbatches (two rows a slice on the four-rank dp mesh)."""
     label = "-".join([arch] + ([optimizer] if optimizer else [])
-                     + ([f"microbatch{microbatch}"] if microbatch else []))
+                     + ([f"microbatch{microbatch}"] if microbatch else [])
+                     + ([f"level{opt_level}"] if opt_level else []))
     return (label, arch, optimizer, microbatch, 8 if microbatch else 4,
-            steps)
+            steps, opt_level)
 
 
 def _flat(tree) -> dict:
@@ -69,9 +72,9 @@ def _flat(tree) -> dict:
             for p, x in leaves_with_paths(tree)}
 
 
-def single_steps(arch, optimizer, microbatch, b, steps):
+def single_steps(arch, optimizer, microbatch, b, steps, opt_level):
     """(metrics per step, {path: array}) of the port's single process."""
-    cfg = K.case_config(arch, optimizer)
+    cfg = K.case_config(arch, optimizer, opt_level)
     params = K.start_params(cfg)
     fn, opt = make_train_step(cfg, K.OC, microbatch)
     state = opt.init(params)
@@ -83,11 +86,13 @@ def single_steps(arch, optimizer, microbatch, b, steps):
     return metrics, _flat({"opt": state, "params": params})
 
 
-def reference_steps(arch, optimizer, microbatch, b, steps):
+def reference_steps(arch, optimizer, microbatch, b, steps, opt_level):
     """(metrics per step, {path: array}) of the reference's jitted step
-    on the whole batch from the same weights."""
-    cfg = K.case_config(arch, optimizer)
-    jcfg = dataclasses.replace(jreg.get_arch(arch), optimizer=cfg.optimizer)
+    on the whole batch from the same weights, at the same opt level."""
+    cfg = K.case_config(arch, optimizer, opt_level)
+    jcfg = dataclasses.replace(
+        japply_opt_level(jreg.get_arch(arch), "train_4k", opt_level),
+        optimizer=cfg.optimizer)
     params = jax.tree.map(lambda t: jnp.asarray(t.numpy()),
                           K.start_params(cfg))
     fn, opt = jstep.make_train_step(jcfg, K.OC, microbatch)
@@ -133,7 +138,7 @@ def assert_close(case_, got, want):
     """The sharded run `got` of `case_` against `want` (single process or
     reference), both (metrics, {path: array})."""
     cfg = get_arch(case_[1])
-    steps = case_[-1]
+    steps = case_[5]
     tol = 2e-4 if cfg.family in ("ssm", "hybrid") else 2e-5
     for (gl, gg), (wl, wg) in zip(got[0], want[0]):
         assert abs(gl - wl) <= 2e-5 * abs(wl), (gl, wl)

@@ -5,7 +5,8 @@ member; it imports neither JAX nor pytest).
 `pieces` holds each split piece of the model against the same function
 on one rank, inside the member: every rank computes the single-rank
 function on the whole inputs (cheap at smoke size) and compares its own
-output and its own blocks of the gradients.  `serve` runs the sharded
+output and its own blocks of the gradients; `ssm_pieces` does the same
+for the Mamba2 mixer and Zamba2's group.  `serve` runs the sharded
 prefill and greedy decode and writes rank 0's tokens and logits for the
 test module to hold against the single process and the reference.
 """
@@ -26,7 +27,8 @@ from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.distributed.sharding import (batch_specs, gather_tree,
                                               local_block, shard_tree)
 from repro_torch.launch.mesh import make_train_mesh
-from repro_torch.models import attention, common, lm, mlp, moe
+from repro_torch.distributed.collectives import all_gather_cat
+from repro_torch.models import attention, common, lm, mlp, moe, ssm
 from repro_torch.train.step import (make_sharded_serve_decode,
                                     make_sharded_serve_prefill,
                                     make_train_step, train_specs)
@@ -149,16 +151,16 @@ def _leaf_errs(got, want) -> dict:
             zip(leaves_with_paths(want), leaves(got))}
 
 
-def bf16_steps(mesh) -> dict:
-    """olmo-1b-smoke in bf16: BF16_STEPS sharded steps at `mesh` (every
-    rank the whole batch), world 1 in bf16 from the same weights, and
-    world 1 in float32 from those weights cast (the control: how far bf16
-    itself moves the numbers).  Each run's (loss, grad norm) per step,
-    and each parameter leaf's max |a - b| / max |b| of the split run
-    against world 1 in bf16 and of world 1 in bf16 against float32."""
-    cfg = config("olmo-1b-smoke", BF16)
-    f32 = config("olmo-1b-smoke", {"param_dtype": "float32",
-                                   "compute_dtype": "float32"})
+def bf16_steps(mesh, arch: str = "olmo-1b-smoke") -> dict:
+    """`arch` in bf16: BF16_STEPS sharded steps at `mesh` (every rank the
+    whole batch), world 1 in bf16 from the same weights, and world 1 in
+    float32 from those weights cast (the control: how far bf16 itself
+    moves the numbers).  Each run's (loss, grad norm) per step, and each
+    parameter leaf's max |a - b| / max |b| of the split run against
+    world 1 in bf16 and of world 1 in bf16 against float32."""
+    cfg = config(arch, BF16)
+    f32 = config(arch, {"param_dtype": "float32",
+                        "compute_dtype": "float32"})
     params, _, (p_specs, _), metrics = K.sharded_run(cfg, mesh, BF16_STEPS,
                                                      BF16_B)
     got = gather_tree(params, p_specs, mesh)
@@ -344,17 +346,297 @@ def _seq_layer(cfg, mesh, tag) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the Mamba2 mixer and Zamba2's group over "model"
+# ---------------------------------------------------------------------------
+
+MAMBA = "mamba2-780m-smoke"
+SPLIT = {"ssm_split_proj": True}                       # opt level 7
+LEVEL8 = {"ssm_split_proj": True, "seq_parallel": True}
+REPLICATED = ("A_log", "D_skip", "dt_bias", "in_dt")
+INDIVISIBLE = {"ssm_expand": 3, "ssm_headdim": 64}     # 6 heads
+
+
+def ssm_pieces(shape) -> dict:
+    """The Mamba2 pieces at mesh `shape` (1, 1, m), both projection
+    layouts: the mixer (output and every gradient), the mixer from a
+    state and its final state, the decode step on the rank's state
+    blocks, a `seq_parallel` layer at seq 128 and its prefill state, and
+    Zamba2's first group with the shared block; {piece: {what: err of
+    max}}.  Also the replicated leaves after a sharded step (bit-equal
+    on every "model" rank), the indivisible mixer at 4 ranks and, at 2,
+    mamba2-smoke's split step in bf16."""
+    torch.set_num_threads(1)
+    mesh = make_train_mesh(tuple(shape), device="cpu")
+    m = shape[-1]
+    res = {}
+    for tag, rep in (("", None), ("-split", SPLIT)):
+        cfg = config(MAMBA, rep)
+        res.update(_mixer(cfg, mesh, MAMBA + tag))
+        res.update(_mixer_state(cfg, mesh, MAMBA + tag))
+        res.update(_ssm_decode(cfg, mesh, MAMBA + tag))
+        seq = config(MAMBA, {**(rep or {}), "seq_parallel": True})
+        res.update(_seq_ssm_layer(seq, mesh, MAMBA + tag))
+        res.update(_seq_ssm_state(seq, mesh, MAMBA + tag))
+        res.update(_hybrid_group(config("zamba2-7b-smoke", rep), mesh,
+                                 "zamba2-7b-smoke" + tag))
+    out = {"rank": dist.get_rank(), "model_ranks": m, "errors": res,
+           "replicated": {**_replicated(config(MAMBA, None), mesh, MAMBA),
+                          **_replicated(config(MAMBA, SPLIT), mesh,
+                                        MAMBA + "-split")}}
+    if m == 4:
+        out["indivisible"] = _indivisible(mesh)
+    if m == 2:
+        out["bf16"] = bf16_steps(mesh, MAMBA)
+    return out
+
+
+def ssm_card(shape) -> dict:
+    """The mixer and its decode steps (`_mixer`, `_ssm_decode`) in both
+    layouts on the card, cuda:0 shared by the group's members (a gloo
+    group: NCCL refuses two ranks on one GPU), TF32 off."""
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    mesh = make_train_mesh(tuple(shape), device="cuda")
+    res = {}
+    for tag, rep in (("", None), ("-split", SPLIT)):
+        cfg = config(MAMBA, rep)
+        res.update(_mixer(cfg, mesh, MAMBA + tag, dev))
+        res.update(_ssm_decode(cfg, mesh, MAMBA + tag, dev))
+    return {"rank": dist.get_rank(), "errors": res}
+
+
+def _mixer_inputs(whole: dict) -> list:
+    return [k for k in whole if k != "ln1_w"]
+
+
+def _on(dev, *trees):
+    return [{k: v.to(dev) for k, v in t.items()} for t in trees]
+
+
+def _mixer(cfg, mesh, tag, dev="cpu") -> dict:
+    """`ssm_apply` on the rank's blocks: the output and the gradients of
+    the input and of every leaf (the replicated ones summed over
+    "model")."""
+    rng = np.random.default_rng(SEED + 6)
+    whole, mine = _on(dev, *_layer(cfg, mesh))
+    x = _rng_tensor(rng, (2, 64, cfg.d_model)).to(dev)
+    wy = _rng_tensor(rng, (2, 64, cfg.d_model)).to(dev)
+    block_p = _param_block(cfg, mesh, whole, mine)
+
+    def run(inputs, split):
+        def fn(x, **p):
+            return ssm.ssm_apply(cfg, p, x)
+        return _objective(fn, inputs, wy)
+
+    return _compare(mesh, f"{tag}/mixer", run,
+                    {"x": x, **{k: whole[k] for k in _mixer_inputs(whole)}},
+                    lambda k, t: t if k == "x" else block_p(k, t))
+
+
+def _state_blocks(cfg, mesh):
+    """(the rank's heads block of an SSM state (B, nh, hp, st), its
+    uniform block of a conv tail (B, K-1, conv_dim)) as functions."""
+    m = mesh_ctx.mesh_axis_sizes(mesh)["model"]
+    r = mesh_ctx.mesh_coords(mesh)["model"]
+
+    def cut(t, dim):
+        n = t.shape[dim] // m
+        return t.narrow(dim, r * n, n).contiguous()
+    return (lambda h: cut(h, -3)), (lambda c: cut(c, -1))
+
+
+def _state_inputs(cfg, rng, b: int):
+    conv_dim = cfg.d_inner + 2 * cfg.ssm_ngroups * cfg.ssm_state
+    h0 = _rng_tensor(rng, (b, cfg.ssm_nheads, cfg.ssm_headdim,
+                           cfg.ssm_state)) * 0.1
+    c0 = _rng_tensor(rng, (b, cfg.conv_kernel - 1, conv_dim))
+    return h0, c0
+
+
+def _mixer_state(cfg, mesh, tag) -> dict:
+    """`ssm_apply` from a state (the rank's blocks of it) returning the
+    final state: the output, the state (the rank's heads) and the conv
+    tail (its uniform block of [x | B | C])."""
+    rng = np.random.default_rng(SEED + 7)
+    whole, mine = _layer(cfg, mesh)
+    x = _rng_tensor(rng, (2, 64, cfg.d_model))
+    h0, c0 = _state_inputs(cfg, rng, 2)
+    heads, chans = _state_blocks(cfg, mesh)
+    with torch.no_grad():
+        y1, h1, c1 = ssm.ssm_apply(cfg, whole, x, h0, c0, True)
+        with mesh_ctx.mesh_scope(mesh):
+            y2, h2, c2 = ssm.ssm_apply(cfg, mine, x, heads(h0), chans(c0),
+                                       True)
+    return {f"{tag}/mixer_state": {"y": _err(y2, y1),
+                                   "h": _err(h2, heads(h1)),
+                                   "conv": _err(c2, chans(c1))}}
+
+
+def _ssm_decode(cfg, mesh, tag, dev="cpu") -> dict:
+    """Three `ssm_decode_step`s on the rank's state blocks: each step's
+    output, and the final state and conv tail blocks."""
+    rng = np.random.default_rng(SEED + 8)
+    whole, mine = _on(dev, *_layer(cfg, mesh))
+    h1, c1 = (t.to(dev) for t in _state_inputs(cfg, rng, 4))
+    heads, chans = _state_blocks(cfg, mesh)
+    h2, c2 = heads(h1), chans(c1)
+    errs = {}
+    with torch.no_grad():
+        for i in range(3):
+            x = _rng_tensor(rng, (4, 1, cfg.d_model)).to(dev)
+            y1, h1, c1 = ssm.ssm_decode_step(cfg, whole, x, h1, c1)
+            with mesh_ctx.mesh_scope(mesh):
+                y2, h2, c2 = ssm.ssm_decode_step(cfg, mine, x, h2, c2)
+            errs[f"y{i}"] = _err(y2, y1)
+    errs.update(h=_err(h2, heads(h1)), conv=_err(c2, chans(c1)))
+    return {f"{tag}/decode": errs}
+
+
+SSM_SEQ = 128           # 4 chunks of 32: 2 a rank at 2 ranks, 1 at 4
+
+
+def _seq_ssm_layer(cfg, mesh, tag) -> dict:
+    """One Mamba2 layer under `seq_parallel` (the mixer whole, the stream
+    the rank's sequence block: the conv's halo, the state passed between
+    the ranks' blocks): its output block and the gradients of the stream
+    block and of every leaf (summed over "model") against the whole
+    layer."""
+    rng = np.random.default_rng(SEED + 9)
+    whole, mine = _layer(cfg, mesh)
+    s = SSM_SEQ
+    h = _rng_tensor(rng, (2, s, cfg.d_model))
+    wy = _rng_tensor(rng, (2, s, cfg.d_model))
+    m = mesh_ctx.mesh_axis_sizes(mesh)["model"]
+    r = mesh_ctx.mesh_coords(mesh)["model"]
+
+    def seq_block(t):
+        return t.narrow(1, r * (s // m), s // m)
+
+    def run(inputs, split):
+        st = tp.stream(cfg) if split else tp.WHOLE
+        w = seq_block(wy) if split else wy
+
+        def fn(h, **p):
+            return lm._ssm_layer(cfg, p, h, st)
+        return _objective(fn, inputs, w)
+
+    return _compare(mesh, f"{tag}/seq_parallel_layer", run,
+                    {"h": h, **whole},
+                    lambda k, t: seq_block(t) if k == "h" else t, seq_block)
+
+
+def _seq_ssm_state(cfg, mesh, tag) -> dict:
+    """A `seq_parallel` prefill layer (`lm._ssm_block`): the output block,
+    and the last rank's final state and conv tail as every rank receives
+    them (whole) against the whole prompt's."""
+    rng = np.random.default_rng(SEED + 10)
+    whole, _ = _layer(cfg, mesh)
+    s = SSM_SEQ
+    h = _rng_tensor(rng, (2, s, cfg.d_model))
+    m = mesh_ctx.mesh_axis_sizes(mesh)["model"]
+    r = mesh_ctx.mesh_coords(mesh)["model"]
+    with torch.no_grad():
+        y1, (h1, c1) = lm._ssm_block(cfg, whole, h)
+        with mesh_ctx.mesh_scope(mesh):
+            st = tp.stream(cfg, prefill=True)
+            y2, (h2, c2) = lm._ssm_block(
+                cfg, whole, h.narrow(1, r * (s // m), s // m), st)
+    return {f"{tag}/seq_parallel_state": {
+        "y": _err(y2, y1.narrow(1, r * (s // m), s // m)),
+        "h": _err(h2, h1), "conv": _err(c2, c1)}}
+
+
+def _hybrid_group(cfg, mesh, tag) -> dict:
+    """Zamba2's first group (its Mamba2 layers, then the shared attention
+    + MLP block) on the rank's blocks: the output and the gradients of
+    the stream and of every leaf of the group and of the shared block."""
+    rng = np.random.default_rng(SEED + 11)
+    full = K.start_params(cfg)
+    split = compute_form(cfg, mesh, full)
+    whole = {**{"l/" + k: v[0] for k, v in full["layers"].items()},
+             **{"s/" + k: v for k, v in full["shared"].items()}}
+    mine = {**{"l/" + k: v[0] for k, v in split["layers"].items()},
+            **{"s/" + k: v for k, v in split["shared"].items()}}
+    s = 64
+    h = _rng_tensor(rng, (2, s, cfg.d_model))
+    wy = _rng_tensor(rng, (2, s, cfg.d_model))
+    positions = torch.arange(s)[None, :]
+    block_p = _param_block(cfg, mesh, whole, mine)
+
+    def run(inputs, split_):
+        st = tp.stream(cfg) if split_ else tp.WHOLE
+
+        def fn(h, **kw):
+            layers = {k[2:]: v for k, v in kw.items() if k[0] == "l"}
+            shared = {k[2:]: v for k, v in kw.items() if k[0] == "s"}
+            for lp in lm._unstack(layers):
+                h = lm._ssm_layer(cfg, lp, h, st)
+            return lm._shared_block(cfg, shared, h, positions, st)[0]
+        return _objective(fn, inputs, wy)
+
+    return _compare(mesh, f"{tag}/group", run, {"h": h, **whole},
+                    lambda k, t: t if k == "h" else block_p(k, t))
+
+
+def _replicated(cfg, mesh, tag) -> dict:
+    """One sharded step of `cfg`: {tag/leaf: every "model" rank's block of
+    each replicated per-head leaf equal to rank 0's, bit for bit}."""
+    params = K.sharded_run(cfg, mesh, 1, 4)[0]
+    out = {}
+    for name in REPLICATED:
+        if name not in params["layers"]:
+            continue
+        t = params["layers"][name].contiguous()
+        every = all_gather_cat(t[None], mesh.get_group("model"), 0)
+        bits = every.view(torch.int32)
+        out[f"{tag}/{name}"] = bool(all(torch.equal(bits[0], b)
+                                        for b in bits[1:]))
+    return out
+
+
+def _indivisible(mesh) -> dict:
+    """mamba2-smoke with 6 heads at 4 "model" ranks: the mixer takes the
+    whole path (`model_split`), its leaves stored split over "model" are
+    named in `model_gathered`, and one sharded step matches world 1
+    (loss, grad norm relative; parameters of max(max |want|, lr))."""
+    cfg = config(MAMBA, INDIVISIBLE)
+    params, _, (p_specs, _), metrics = K.sharded_run(cfg, mesh, 1, 4)
+    got = gather_tree(params, p_specs, mesh)
+    w1, want = _world1(cfg, K.start_params(cfg), 4, 1)
+    errs = {"/".join(path): float((g - w).abs().max())
+            / max(float(w.abs().max()), K.OC.lr)
+            for (path, w), g in zip(leaves_with_paths(want), leaves(got))}
+    sizes = mesh_ctx.mesh_axis_sizes(mesh)
+    return {"ssm_split": tp.module_split(cfg, sizes)["ssm"],
+            "vocab_split": tp.module_split(cfg, sizes)["vocab"],
+            "model_gathered": tp.model_gathered(cfg, mesh),
+            "metric_rel": [abs(a - b) / abs(b) for a, b in
+                           zip(metrics[0], w1[0])],
+            "param_worst": max(errs.values())}
+
+
+# ---------------------------------------------------------------------------
 # the sharded serve steps
 # ---------------------------------------------------------------------------
 
 SERVE_B, SERVE_PROMPT, SERVE_STEPS, SERVE_LEN = 4, 16, 4, 32
 
 
-def serve_inputs(cfg, seed: int = SEED) -> dict:
+def serve_lengths(prompt: int | None) -> tuple[int, int]:
+    """(prompt length, cache length) of a serve case: SERVE_PROMPT and
+    SERVE_LEN, or a longer prompt (a `seq_parallel` prefill's, whose SSD
+    chunks align with the ranks' blocks) and room for its steps."""
+    if prompt is None:
+        return SERVE_PROMPT, SERVE_LEN
+    return prompt, prompt + SERVE_STEPS
+
+
+def serve_inputs(cfg, seed: int = SEED, prompt: int = SERVE_PROMPT) -> dict:
     """The prompts (and a VLM's vision embeddings) of the serve tests."""
     rng = np.random.default_rng(seed)
     batch = {"tokens": rng.integers(0, cfg.vocab_size,
-                                    (SERVE_B, SERVE_PROMPT)).astype(np.int32)}
+                                    (SERVE_B, prompt)).astype(np.int32)}
     if cfg.n_vision_tokens:
         batch["vision_embeds"] = rng.standard_normal(
             (SERVE_B, cfg.n_vision_tokens, cfg.d_model), dtype=np.float32)
@@ -373,30 +655,31 @@ def pad_seq(cache: dict, to: int) -> dict:
 
 
 def serve(shape, cases, out_dir: str) -> dict:
-    """Each case (label, arch, replace): the sharded prefill of
-    `serve_inputs` into the blocks of a SERVE_LEN-position cache and
-    SERVE_STEPS greedy decode steps on them at mesh `shape`.  Every
-    rank's logits
-    (its rows, the whole vocabulary) are gathered over the dp axes; rank
-    0 writes them and the tokens to `out_dir/<shape>-<label>.npz`."""
+    """Each case (label, arch, replace[, prompt length]): the sharded
+    prefill of `serve_inputs` into the blocks of a cache of
+    `serve_lengths` positions and SERVE_STEPS greedy decode steps on them
+    at mesh `shape`.  Every rank's logits (its rows, the whole
+    vocabulary) are gathered over the dp axes; rank 0 writes them and the
+    tokens to `out_dir/<shape>-<label>.npz`."""
     torch.set_num_threads(1)
     mesh = make_train_mesh(tuple(shape), device="cpu")
     rank = dist.get_rank()
     tag = "x".join(map(str, shape))
     groups = mesh_ctx.dp_groups(mesh)
-    for label, arch, rep in cases:
+    for label, arch, rep, *prompt in cases:
         cfg = config(arch, rep)
+        prompt, length = serve_lengths(prompt[0] if prompt else None)
         p_specs, _ = train_specs(cfg, mesh)
         params = tree_map(torch.clone, shard_tree(K.start_params(cfg),
                                                   p_specs, mesh))
-        full = serve_inputs(cfg)
+        full = serve_inputs(cfg, prompt=prompt)
         specs = batch_specs(full, mesh)
         inputs = {k: local_block(v, specs[k], mesh).contiguous()
                   for k, v in full.items()}
-        s = SERVE_PROMPT + cfg.n_vision_tokens
+        s = prompt + cfg.n_vision_tokens
         logits, cache = make_sharded_serve_prefill(
-            cfg, mesh, SERVE_B, SERVE_LEN)(params, inputs)
-        dec = make_sharded_serve_decode(cfg, mesh, SERVE_B, SERVE_LEN)
+            cfg, mesh, SERVE_B, length)(params, inputs)
+        dec = make_sharded_serve_decode(cfg, mesh, SERVE_B, length)
         token = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
         all_logits, tokens = [logits], [token]
         for i in range(SERVE_STEPS):
