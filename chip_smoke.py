@@ -198,8 +198,9 @@ Phases (any failure exits non-zero and prints no result line):
    True`;
 34. the "model" axis: two gloo processes sharing the card, mesh
    (1, 1, 2), each computing on its "model" blocks
-   (`distributed.tensor_parallel`): OLMo-1B at full width and depth
-   from phase 29's weights, the first 2 x 2048 rows of its first two
+   (`distributed.tensor_parallel`): OLMo-1B at full width, its depth
+   cut to 8 of 16 layers for the script's time (`TP_OLMO`), weights
+   drawn as phase 29's, the first 2 x 2048 rows of its first two
    batches, twice: in float32 (the weights cast; the train bars'
    optimizer, eps 1e-3) and in bf16 (the config's dtype; phase 29's
    optimizer).  Each: two AdamW steps of `make_sharded_train_step`
@@ -219,7 +220,8 @@ Phases (any failure exits non-zero and prints no result line):
 35. the ssm and hybrid families on the "model" axis: two gloo processes
    sharing the card, mesh (1, 1, 2), each computing on its "model"
    blocks of the Mamba2 mixer (`models/ssm.py`), in float32 (the seeded
-   weights cast): (a) Mamba2-780M at full width and depth, 2 x 1024
+   weights cast): (a) Mamba2-780M at full width, its depth cut to 16 of
+   48 layers for the script's time (`SSM_TP_MAMBA`), 2 x 1024
    tokens, one AdamW step at opt level 0 (the fused projection), 7 (the
    split projection) and 8 (plus `seq_parallel`: 512 tokens, 2 SSD
    chunks, a rank) against `make_train_step` on rank 0 (loss and grad
@@ -244,7 +246,31 @@ Phases (any failure exits non-zero and prints no result line):
    "model", the SSM state on the rank's heads) and one train step at 2 x
    512 at (a)'s bars; each rank's step times and peak logged; no ported
    kernel launched;
-36. one JSON line listing the ported kernels (row_cycle at the sweep's
+36. the rest of the attention side on the "model" axis, in gloo groups
+   of 2 and 4 processes sharing the card, side by side
+   (`attn_tp_member`): (a) Whisper-tiny at full width and depth (4 + 4
+   layers, d 384; float32, the seeded weights cast) at mesh (1, 1, 2),
+   its 6 heads split 3 a rank: one AdamW step at 2 x 1024 tokens against
+   2 x 1024 frames held against `make_train_step` on rank 0 (loss and
+   grad norm 2e-5 relative, parameters 2e-5 of max(max |want|, lr)),
+   each rank's FLOPs exactly half of world 1's; the same step in bf16
+   against world 1 in bf16 beside the float32 control (phase 34's bf16
+   bars); the sharded prefill of 2 x 512 prompts against the 1024
+   frames, the self and cross caches split along the sequence over
+   "model", and 8 greedy decode steps against the model functions (the
+   same tokens, logits 2e-5 of max); (b) the same at (1, 1, 4), where
+   the 6 heads do not divide and every rank attends every head (the
+   production mesh's path), one float32 step and the serving, each
+   rank's FLOPs exactly a quarter of world 1's projection, MLP and head
+   FLOPs plus all of its attention's (`encdec_attention_flops`); (c)
+   Qwen2-1.5B at full width and depth at opt level 3's gated strap
+   decode (2048-token straps, top 4; float32) at both meshes: the
+   sharded prefill of 2 x 10,240 prompts into a 16,384-position cache
+   and 8 greedy steps, the cache's KV heads split at 2 ranks and its
+   `head_dim` at 4, against the model functions (the same tokens,
+   logits 2e-5 of max, the same strap ids at every layer and step);
+   each rank's step times and peak logged; no ported kernel launched;
+37. one JSON line listing the ported kernels (row_cycle at the sweep's
    one launch over 299,008 rows and at one 2048-row chunk, with the
    cycles of a step; rc_multistep at the phased path's ACT call, with
    cycles a step, its block as the library reports it and, in its
@@ -258,8 +284,8 @@ Phases (any failure exits non-zero and prints no result line):
    hybrid and enc-dec paths) and `by_shape` (the Pixtral and OLMo decode
    shapes); row_cycle's `launches_by_path` counts each path's launches,
    read around it; every entry's `launches_by_path` has `dist_train`,
-   its launches in phases 29-31, 34 and 35, this process's and the
-   eight members' summed), then the card line, then the result line
+   its launches in phases 29-31 and 34-36, this process's and the
+   fourteen members' summed), then the card line, then the result line
    {"ok": true, "device": {...}}.
 
 It imports nothing of JAX and nothing of the JAX package.
@@ -3670,7 +3696,11 @@ def twins_phase(dev) -> dict:
 # the "model" axis: each rank computes on its blocks
 # --------------------------------------------------------------------------
 
-TP_OLMO = ("olmo-1b", 2, 2048)     # arch, global batch, seq (phase 29's rows)
+# arch, global batch, seq (phase 29's rows), layers: OLMo-1B at full width
+# with its depth cut to 8 of 16 layers for the script's time (phase 36's
+# Whisper and gated decode took the room; the split is per layer, so half
+# the depth checks the same code)
+TP_OLMO = ("olmo-1b", 2, 2048, 8)
 TP_MESH = (1, 1, 2)
 TP_STEPS = 2
 # the float32 run's optimizer: the train bars' (tests/test_torch_train_step.py:
@@ -3848,11 +3878,11 @@ def _top2_margins(logits) -> list:
 
 
 def tp_member(seed: int, device: str, arch: str, batch: int, seq: int,
-              serve: list) -> dict:
+              layers: int, serve: list) -> dict:
     """Phase 34, in each of two gloo processes sharing cuda:0, mesh
-    (1, 1, 2): every rank computes on its "model" blocks.  Two runs from
-    phase 29's weights on the first 2 x 2048 rows of its first two
-    batches: "float32" (the weights cast, TP_OC) and "bfloat16" (the
+    (1, 1, 2): every rank computes on its "model" blocks.  `arch` cut to
+    `layers` layers.  Two runs from weights drawn as phase 29's on the
+    first 2 x 2048 rows of its first two batches: "float32" (the weights cast, TP_OC) and "bfloat16" (the
     config as it is, phase 29's optimizer TP_BF16_OC).  Each:
 
     (a) TP_STEPS AdamW steps of `make_sharded_train_step`; the rank's
@@ -3887,7 +3917,7 @@ def tp_member(seed: int, device: str, arch: str, batch: int, seq: int,
     mesh = make_train_mesh(TP_MESH, device=device)
     rank = dist.get_rank()
     b, s = batch, seq
-    bf16 = get_arch(arch)
+    bf16 = dc.replace(get_arch(arch), n_layers=layers)
     f32 = dc.replace(bf16, param_dtype="float32", compute_dtype="float32")
     start = models.init_params(bf16, torch.Generator(dev).manual_seed(seed),
                                dev)
@@ -3899,8 +3929,8 @@ def tp_member(seed: int, device: str, arch: str, batch: int, seq: int,
                             generator=gen, device=dev, dtype=torch.int32)
     runs = {"float32": (f32, OptConfig(**TP_OC), start32),
             "bfloat16": (bf16, OptConfig(**TP_BF16_OC), start)}
-    out = {"rank": rank, "mesh": list(TP_MESH), "arch": bf16.name,
-           "batch": [b, s]}
+    out = {"rank": rank, "mesh": list(TP_MESH),
+           "arch": f"{bf16.name} ({layers} layers)", "batch": [b, s]}
     got, logits, w1_logits, feed = {}, {}, {}, None
     for name, (cfg, oc, p0) in runs.items():
         t0 = time.perf_counter()
@@ -3998,9 +4028,10 @@ def _bf16_bars(r0, results) -> list[str]:
 def tp_phase(args, dev, card) -> list:
     """Phase 34 from the parent (see `tp_member`): the bars, each rank's
     FLOPs exactly half the world-1 step's in both runs, the log lines."""
-    arch, b, s = TP_OLMO
+    arch, b, s, layers = TP_OLMO
     results = dist_gloo_phase(args, dev, "tp_member", card, arch=arch,
-                              batch=b, seq=s, serve=list(TP_SERVE))
+                              batch=b, seq=s, layers=layers,
+                              serve=list(TP_SERVE))
     r0 = results[0]
     for name in ("float32", "bfloat16"):
         w1 = r0[name]
@@ -4065,7 +4096,10 @@ def tp_phase(args, dev, card) -> list:
 # the ssm and hybrid families on the "model" axis
 # --------------------------------------------------------------------------
 
-SSM_TP_MAMBA = ("mamba2-780m", 2, 1024)   # arch, batch, seq: 2 chunks a rank
+# arch, batch, seq (2 chunks a rank), layers: Mamba2-780M at full width
+# with its depth cut to 16 of 48 layers for the script's time (phase 36
+# took the room; every layer runs the same split schedule)
+SSM_TP_MAMBA = ("mamba2-780m", 2, 1024, 16)
 SSM_TP_LEVELS = (0, 7, 8)                 # fused, split, split + seq_parallel
 SSM_TP_BF16_LEVEL = 7
 SSM_TP_SERVE = (2, 512, 8)                # prompts, prompt length, greedy steps
@@ -4126,7 +4160,7 @@ def _replicated_equal(params, mesh) -> dict:
 
     out = {}
     for name in SSM_REPLICATED:
-        if name not in params["layers"]:
+        if name not in params.get("layers", {}):
             continue
         t = params["layers"][name].detach().contiguous()
         every = all_gather_cat(t[None], mesh.get_group("model"), 0)
@@ -4137,9 +4171,10 @@ def _replicated_equal(params, mesh) -> dict:
 
 
 def _ssm_train_run(cfg, mesh, oc, start, batches, dev, rank, w1=None):
-    """One sharded step of `cfg` (`_tp_train`) and, on rank 0, the world-1
-    step it is held against (`w1`: (record, parameters) of an earlier
-    world-1 run of the same weights and math, else run here): the
+    """One sharded step of `cfg` (`_tp_train`; phases 35 and 36) and, on
+    rank 0, the world-1 step it is held against (`w1`: (record,
+    parameters) of an earlier world-1 run of the same weights and math,
+    else run here): the
     rank's record; on rank 0 also the parameter errors and (record,
     parameters) of world 1.  The gathered parameters wait in host memory
     while world 1 runs, and every rank returns its cached blocks to the
@@ -4192,7 +4227,8 @@ def ssm_tp_member(seed: int, device: str, mamba: list, zamba: list,
     mixer.  Weights from `seed` (the config's bf16, cast to float32 but
     in the bf16 run); batches from `SyntheticSource`.
 
-    (a) Mamba2-780M, one step of 2 x 1024 tokens at each opt level of
+    (a) Mamba2-780M cut to `mamba`'s layers, one step of 2 x 1024 tokens
+    at each opt level of
     SSM_TP_LEVELS in float32 and at SSM_TP_BF16_LEVEL in bf16; rank 0
     holds each against world 1 (level 8's math at world 1 is level 7's:
     it is held against that run) and, in bf16, world 1 in bf16 against
@@ -4219,7 +4255,7 @@ def ssm_tp_member(seed: int, device: str, mamba: list, zamba: list,
     mesh = make_train_mesh(TP_MESH, device=device)
     rank = dist.get_rank()
     oc = OptConfig(**TP_OC)
-    arch, b, s = mamba
+    arch, b, s, layers = mamba
     out = {"rank": rank, "mesh": list(TP_MESH), "mamba": {}, "serve": {},
            "zamba": {}}
     f32 = lambda tree: tree_map(lambda t: t.float(), tree)   # noqa: E731
@@ -4239,7 +4275,7 @@ def ssm_tp_member(seed: int, device: str, mamba: list, zamba: list,
                            1, dev)
     w1_split = None
     for level in SSM_TP_LEVELS:
-        bf = _ssm_tp_config(arch, "train_4k", level)
+        bf = _ssm_tp_config(arch, "train_4k", level, n_layers=layers)
         cfg = dataclasses.replace(bf, param_dtype="float32",
                                   compute_dtype="float32")
         start = start_of(bf)
@@ -4274,8 +4310,10 @@ def ssm_tp_member(seed: int, device: str, mamba: list, zamba: list,
                             device=dev, dtype=torch.int32)
     w1_split = None
     for level in SSM_TP_LEVELS:
-        cfg = _ssm_tp_config(arch, "prefill_32k", level, "float32")
-        p32 = f32(start_of(_ssm_tp_config(arch, "prefill_32k", level)))
+        cfg = _ssm_tp_config(arch, "prefill_32k", level, "float32",
+                             n_layers=layers)
+        p32 = f32(start_of(_ssm_tp_config(arch, "prefill_32k", level,
+                                          n_layers=layers)))
         steps = 0 if cfg.seq_parallel else serve[2]
         rec, w1 = _ssm_serve_run(cfg, mesh, p32, prompts, steps, dev, rank,
                                  w1_split if level == 8 else None)
@@ -4388,7 +4426,8 @@ def ssm_tp_phase(args, dev, card) -> list:
                               zamba=list(SSM_TP_ZAMBA),
                               serve=list(SSM_TP_SERVE))
     r0 = results[0]
-    runs = [(f"mamba2-780m {k}", lambda res, k=k: res["mamba"][k])
+    runs = [(f"mamba2-780m ({SSM_TP_MAMBA[3]} layers) {k}",
+             lambda res, k=k: res["mamba"][k])
             for k in r0["mamba"]]
     runs.append((f"zamba2-7b ({r0['zamba']['layers']} layers, level "
                   f"{r0['zamba']['level']})",
@@ -4430,6 +4469,416 @@ def ssm_tp_phase(args, dev, card) -> list:
     bad = _ssm_tp_bad(r0, results)
     check(not bad, f"phase 35 (ssm / hybrid on \"model\"): {bad}")
     return results
+
+
+# --------------------------------------------------------------------------
+# the rest of the attention side on the "model" axis: Whisper's
+# encoder-decoder and the gated strap decode
+# --------------------------------------------------------------------------
+
+ATTN_TP_MESHES = ((1, 1, 2), (1, 1, 4))
+ENCDEC_TP = ("whisper-tiny", 2, 1024)    # arch, batch, tokens and frames
+ENCDEC_TP_SERVE = (2, 512, 8)            # prompts, prompt length, steps
+# Qwen2-1.5B at opt level 3's decode cell (2048-token straps, the top 4
+# kept): prompts, prompt length, cache positions, greedy steps.  A cut of
+# decode_32k's 32,768 positions: 16,384 (8 straps); the 10,240-token
+# prompts fill 5 and the decode writes the 6th, so the selector drops 2
+# of the 6 valid straps at every step
+GATED_TP = ("qwen2-1.5b", 2, 10240, 16384, 8)
+GATED_TP_STRAPS = (2048, 4)     # level 3's strap tokens and top straps
+
+
+def encdec_attention_flops(cfg, b: int, s_enc: int, s_dec: int) -> float:
+    """The attention's own FLOPs in one train step of the enc-dec model
+    (b rows, s_enc frames, s_dec tokens): the scores q·kᵀ and w·v of
+    every head, forward and their two backward products each, in the
+    encoder's self-attention (s_enc x s_enc), the decoder's (s_dec x
+    s_dec: every query chunk against the whole K/V, the mask applied
+    after) and the cross-attention (s_dec x s_enc).  Where the heads do
+    not divide the "model" ranks every rank repeats all of it."""
+    per = 3 * 2 * 2 * b * cfg.n_heads * cfg.head_dim_
+    return float(per * (cfg.n_enc_layers * s_enc * s_enc
+                        + cfg.n_layers * (s_dec * s_dec + s_dec * s_enc)))
+
+
+def _encdec_batch(cfg, b: int, s: int, seed: int, dev) -> dict:
+    """b x s tokens, their next-token targets and b x s random frames."""
+    import torch
+
+    gen = torch.Generator(dev).manual_seed(seed + 36)
+    toks = torch.randint(0, cfg.vocab_size, (b, s + 1), generator=gen,
+                         device=dev, dtype=torch.int32)
+    frames = torch.randn((b, s, cfg.d_model), generator=gen, device=dev)
+    return {"tokens": toks[:, :-1].contiguous(),
+            "targets": toks[:, 1:].contiguous(), "enc_embeds": frames}
+
+
+def _attn_serve(cfg, mesh, params, inputs, seq, steps, dev) -> tuple:
+    """The sharded prefill of `inputs` into the blocks of the serve
+    steps' cache for `seq` and `steps` greedy steps: (logits (steps + 1,
+    B, V), tokens (B, steps + 1), ms of the prefill and each step, the
+    gated decode's strap ids, one (B, K) a layer and step)."""
+    import torch
+
+    from repro_torch.distributed.sharding import shard_tree
+    from repro_torch.models import attention
+    from repro_torch.train.step import (make_sharded_serve_decode,
+                                        make_sharded_serve_prefill,
+                                        train_specs)
+
+    b, s = inputs["tokens"].shape
+    blocks = shard_tree(params, train_specs(cfg, mesh)[0], mesh)
+    pre = make_sharded_serve_prefill(cfg, mesh, b, seq)
+    dec = make_sharded_serve_decode(cfg, mesh, b, seq)
+    sync(dev)
+    t0 = time.perf_counter()
+    logits, cache = pre(blocks, inputs)
+    sync(dev)
+    ms = [(time.perf_counter() - t0) * 1e3]
+    token = torch.argmax(logits, -1).to(torch.int32)[:, None]
+    lg, tk = [logits], [token]
+    with attention.recording_selections() as picks:
+        for i in range(steps):
+            pos = torch.full((b,), s + i, dtype=torch.int32, device=dev)
+            t0 = time.perf_counter()
+            token, logits, cache = dec(blocks, cache, token, pos)
+            sync(dev)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            lg.append(logits)
+            tk.append(token)
+    return torch.stack(lg), torch.cat(tk, 1), ms, [i for i, _ in picks]
+
+
+def _attn_world1(cfg, params, inputs, length: int, steps: int) -> tuple:
+    """The same greedy run through the model functions on one process:
+    the self K/V padded to `length` positions (the cross K/V as the
+    encoder gave them), a gated config's `ksum` built from the padded
+    keys: (logits, tokens, [(strap ids, scores)] a layer and step)."""
+    import torch
+
+    from repro_torch.distributed.tensor_parallel import gated, pad_seq
+    from repro_torch.models import attention
+    from repro_torch.models import registry as models
+    from repro_torch.models.lm import strap_key_sums
+
+    b, s = inputs["tokens"].shape
+    with torch.no_grad(), attention.recording_selections() as picks:
+        logits, cache = models.prefill(cfg, params, inputs)
+        cache = {k: pad_seq(v, length, dim=2) if k in ("k", "v") else v
+                 for k, v in cache.items()}
+        if gated(cfg):
+            cache["ksum"] = strap_key_sums(cache["k"],
+                                           cfg.decode_strap_tokens)
+        token = torch.argmax(logits, -1).to(torch.int32)[:, None]
+        lg, tk = [logits], [token]
+        for i in range(steps):
+            pos = torch.full((b,), s + i, dtype=torch.int32,
+                             device=token.device)
+            logits, cache = models.decode_step(cfg, params, cache, token, pos)
+            token = torch.argmax(logits, -1).to(torch.int32)[:, None]
+            lg.append(logits)
+            tk.append(token)
+    return torch.stack(lg), torch.cat(tk, 1), list(picks)
+
+
+def _serve_record(cfg, mesh, params, inputs, seq, length, steps, dev,
+                  rank) -> dict:
+    """`_attn_serve` and, on rank 0, world 1's run held: the rank's
+    record (tokens, ms, strap ids); rank 0's also world 1's tokens, the
+    logits' errors of max |logits| a step and, for the gated decode, the
+    (call, row, world 1's gap between its k-th and (k+1)-th score) of
+    every strap pick that differs from world 1's."""
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    logits, tokens, ms, picks = _attn_serve(cfg, mesh, params, inputs, seq,
+                                            steps, dev)
+    rec = {"prefill_ms": ms[0], "step_ms": ms[1:], "tokens": tokens.tolist(),
+           "wall_s": time.perf_counter() - t0, "peak_gb": _peak_gb(dev),
+           "strap_calls": len(picks)}
+    if rank != 0:
+        return rec
+    w_logits, w_tokens, w_picks = _attn_world1(cfg, params, inputs, length,
+                                               steps)
+    rec["world1_tokens"] = w_tokens.tolist()
+    rec["logit_err"] = _logit_errs(logits, w_logits)
+    differ = []
+    for c, (got, (want, scores)) in enumerate(zip(picks, w_picks)):
+        k = want.shape[-1]
+        ranked = torch.sort(scores, -1, descending=True).values
+        rows = (torch.sort(got, -1).values
+                != torch.sort(want, -1).values).any(-1).nonzero()[:, 0]
+        differ += [(c, int(r), float(ranked[r, k - 1] - ranked[r, k]))
+                   for r in rows]
+    if w_picks:
+        rec["strap_differ"] = differ
+        rec["world1_strap_calls"] = len(w_picks)
+        ranked = torch.sort(torch.stack([s for _, s in w_picks]), -1,
+                            descending=True).values
+        k = w_picks[0][0].shape[-1]
+        last, first_out = ranked[..., k - 1], ranked[..., k]
+        gaps = (last - first_out) / torch.maximum(last.abs(),
+                                                  first_out.abs())
+        rec["world1_min_rel_gap"] = float(gaps.min())
+        rec["valid_straps"] = int((ranked > float("-inf")).sum(-1).min())
+    return rec
+
+
+def attn_tp_member(seed: int, device: str, mesh: list, whisper: list,
+                   whisper_serve: list, gated: list, straps: list) -> dict:
+    """Phase 36, in each member of a gloo group sharing cuda:0 at mesh
+    `mesh` ((1, 1, 2) or (1, 1, 4)): every rank computes on its "model"
+    blocks.
+
+    (a) Whisper-tiny at full width and depth (4 + 4 layers, d 384, 6
+    heads: split 3 a rank at 2 ranks, gathered at 4, where every rank
+    attends every head, the path of the production mesh's 16), from the
+    seeded weights cast to float32: one AdamW step (TP_OC) at 2 x 1024
+    tokens against 2 x 1024 frames, each rank's FLOPs of it
+    (`FlopCounterMode`); at 2 ranks the same step in the config's bf16
+    (TP_BF16_OC); then the sharded prefill of 2 x 512 prompts against
+    the 1024 frames into a cache of 1024 positions (self and cross, each
+    split along the sequence over "model") and 8 greedy decode steps.
+    (b) Qwen2-1.5B at full width and depth at opt level 3's decode cell
+    (the gated strap decode: `straps`, 2048-token straps, top 4), float32: the
+    sharded prefill of 2 x 10,240 prompts into a cache of 16,384
+    positions (GATED_TP: a cut of decode_32k's 32,768) and 8 greedy
+    decode steps; the cache's KV heads split at 2 ranks, its `head_dim`
+    at 4 (the production mesh's case), the strap ids each rank picks
+    recorded.
+
+    Rank 0 holds each against world 1 on this process: `make_train_step`
+    from the same weights and batch (and, for bf16, world 1 in float32
+    under the same optimizer: the control), and the model functions'
+    prefill and greedy decode (tokens, logits, strap ids)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.distributed import tensor_parallel as tp
+    from repro_torch.launch.mesh import make_train_mesh
+    from repro_torch.launch.optlevels import apply_opt_level
+    from repro_torch.models import registry as models
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.tree import tree_map
+
+    wrappers = _zero_launches()
+    set_precision()
+    dev = _member_device(device)
+    shape = tuple(mesh)
+    mesh = make_train_mesh(shape, device=device)
+    rank = dist.get_rank()
+    out = {"rank": rank, "mesh": list(shape), "wall_s": {}}
+
+    def free():
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+    # ---- (a) Whisper-tiny ---------------------------------------------------
+    t_part = time.perf_counter()
+    arch, b, s = whisper
+    bf = get_arch(arch)
+    f32 = dataclasses.replace(bf, param_dtype="float32",
+                              compute_dtype="float32")
+    start = models.init_params(bf, torch.Generator(dev).manual_seed(seed),
+                               dev)
+    p32 = tree_map(lambda t: t.float(), start)
+    batch = _encdec_batch(bf, b, s, seed, dev)
+    oc = OptConfig(**TP_OC)
+    rec, _ = _ssm_train_run(f32, mesh, oc, p32, [batch], dev, rank)
+    out["whisper"] = {"float32": rec, "attention_flops":
+                      encdec_attention_flops(f32, b, s, s),
+                      "heads_split": f32.n_heads % shape[-1] == 0}
+    if shape[-1] == 2:
+        oc16 = OptConfig(**TP_BF16_OC)
+        rec16, w16 = _ssm_train_run(bf, mesh, oc16, start, [batch], dev,
+                                    rank)
+        if rank == 0:
+            ctl, want32 = _world1_train(f32, oc16, p32, [batch], dev)
+            rec16["control"] = {
+                "metric_rel": [rel(x, y) for x, y in zip(
+                    w16[0]["metrics"], ctl["metrics"])],
+                "param_errs": _param_errs(w16[1], want32, oc16.lr)}
+            del want32
+        del w16
+        out["whisper"]["bfloat16"] = rec16
+    free()
+    np_, plen, steps = whisper_serve
+    gen = torch.Generator(dev).manual_seed(seed + 36)
+    inputs = {"tokens": torch.randint(0, bf.vocab_size, (np_, plen),
+                                      generator=gen, device=dev,
+                                      dtype=torch.int32),
+              "enc_embeds": batch["enc_embeds"][:np_]}
+    out["whisper"]["serve"] = _serve_record(f32, mesh, p32, inputs, 2 * s,
+                                            s, steps, dev, rank)
+    del start, p32
+    free()
+    out["wall_s"]["whisper"] = time.perf_counter() - t_part
+
+    # ---- (b) the gated decode -----------------------------------------------
+    t_part = time.perf_counter()
+    garch, gb, gs, length, gsteps = gated
+    gcfg = dataclasses.replace(
+        apply_opt_level(get_arch(garch), "decode_32k", 3),
+        param_dtype="float32", compute_dtype="float32",
+        decode_strap_tokens=straps[0], decode_top_straps=straps[1])
+    params = tree_map(lambda t: t.float(), models.init_params(
+        get_arch(garch), torch.Generator(dev).manual_seed(seed), dev))
+    free()
+    prompts = torch.randint(0, gcfg.vocab_size, (gb, gs), generator=gen,
+                            device=dev, dtype=torch.int32)
+    out["gated"] = _serve_record(gcfg, mesh, params, {"tokens": prompts},
+                                 length, length, gsteps, dev, rank)
+    out["gated"]["gated_dim"] = tp.cache_split(gcfg, mesh, gb,
+                                               length).gated_dim
+    del params
+    free()
+    out["wall_s"]["gated"] = time.perf_counter() - t_part
+    out["kernel_launches"] = {n: k.launches for n, k in wrappers.items()}
+    return out
+
+
+def _attn_tp_bad(results_by_mesh) -> list[str]:
+    """What fails of phase 36's readings against its bars: float32 at
+    TP_BAR (loss, grad norm, parameters, logits), bf16 at TP_BF16_*
+    beside its control, the same tokens and strap ids as world 1, and
+    each rank's FLOPs: 1 / m of world 1's where the heads split (2
+    ranks), else 1 / m of its projection, MLP and head FLOPs plus all of
+    its attention's (Whisper-tiny's 6 heads at 4 ranks)."""
+    bad = []
+    for shape, results in results_by_mesh.items():
+        m = shape[-1]
+        r0 = results[0]
+        tag = "x".join(map(str, shape))
+        w = r0["whisper"]
+        for name in ("float32", "bfloat16"):
+            if name not in w:
+                continue
+            rec = w[name]
+            mbar = ((TP_BAR, TP_BAR) if name == "float32"
+                    else (TP_BF16_LOSS_BAR, TP_BF16_GNORM_BAR))
+            for i, e in enumerate(rec["metric_rel"]):
+                if e > mbar[i % 2]:
+                    bad.append(f"{tag} whisper {name}: metric {i} rel "
+                               f"{e:.3e}")
+            ctl = rec.get("control", {}).get("param_errs")
+            for leaf, e in rec["param_errs"].items():
+                bar = (TP_BAR if ctl is None
+                       else max(TP_BF16_PARAM_BAR, 2 * ctl[leaf]))
+                if e > bar:
+                    bad.append(f"{tag} whisper {name}: {leaf} {e:.3e} (bar "
+                               f"{bar:.3e})")
+            world1 = rec["world1"]["flops"]
+            a = 0.0 if w["heads_split"] else w["attention_flops"]
+            want = (world1 - a) / m + a
+            for res in results:
+                got = res["whisper"][name]["train"]["flops"]
+                if got != want:
+                    bad.append(f"{tag} whisper {name}: rank {res['rank']} "
+                               f"counted {got} FLOPs, want {want} (world 1 "
+                               f"{world1}, attention {a})")
+        for part in ("whisper", "gated"):
+            rec = r0[part]["serve"] if part == "whisper" else r0[part]
+            bad += [f"{tag} {part}: logits of step {i} {e:.3e}" for i, e in
+                    enumerate(rec["logit_err"]) if e > TP_BAR]
+            for res in results:
+                got = res[part]["serve"] if part == "whisper" else res[part]
+                if got["tokens"] != rec["world1_tokens"]:
+                    bad.append(f"{tag} {part}: rank {res['rank']} tokens "
+                               "differ from world 1's")
+        g = r0["gated"]
+        if g["strap_differ"]:
+            bad.append(f"{tag} gated: strap picks differ from world 1's "
+                       f"(call, row, world 1's score gap): "
+                       f"{g['strap_differ']}")
+        if g["strap_calls"] != g["world1_strap_calls"] or not g["strap_calls"]:
+            bad.append(f"{tag} gated: {g['strap_calls']} selections, world "
+                       f"1 {g['world1_strap_calls']}")
+        want_dim = "kv" if m == 2 else "headdim"
+        if g["gated_dim"] != want_dim:
+            bad.append(f"{tag} gated: the cache splits {g['gated_dim']}")
+    return bad
+
+
+def attn_tp_phase(args, dev, card) -> dict:
+    """Phase 36 from the parent (see `attn_tp_member`): the groups at
+    (1, 1, 2) and (1, 1, 4) side by side on the card, the bars and the
+    log lines."""
+    import concurrent.futures
+
+    import torch
+
+    from repro_torch.launch.group import run_group
+
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    kw = dict(seed=args.seed, device=dev.type, whisper=list(ENCDEC_TP),
+              whisper_serve=list(ENCDEC_TP_SERVE), gated=list(GATED_TP),
+              straps=list(GATED_TP_STRAPS))
+    with concurrent.futures.ThreadPoolExecutor(len(ATTN_TP_MESHES)) as pool:
+        futures = {shape: pool.submit(run_group, "chip_smoke:attn_tp_member",
+                                      shape[-1], dict(kw, mesh=list(shape)),
+                                      DIST_TIMEOUT_S, [ROOT])
+                   for shape in ATTN_TP_MESHES}
+        results = {shape: f.result() for shape, f in futures.items()}
+    wall = time.perf_counter() - t0
+    for shape, res_list in results.items():
+        r0 = res_list[0]
+        tag = "x".join(map(str, shape))
+        w = r0["whisper"]
+        for name in ("float32", "bfloat16"):
+            if name not in w:
+                continue
+            for res in res_list:
+                t = res["whisper"][name]["train"]
+                log(f"[attn-tp] whisper-tiny {name}: rank {res['rank']} of "
+                    f"{shape[-1]} gloo on the card, mesh {tag}, "
+                    f"{ENCDEC_TP[1]} x {ENCDEC_TP[2]}: "
+                    f"{t['flops']:.6e} FLOPs (world 1 "
+                    f"{w[name]['world1']['flops']:.6e}, attention "
+                    f"{w['attention_flops']:.6e}), step ms "
+                    f"{[round(x, 1) for x in t['step_ms']]}, peak "
+                    f"{t['peak_gb']} GB ({card})")
+            rec = w[name]
+            worst = max(rec["param_errs"], key=rec["param_errs"].get)
+            log(f"[attn-tp] whisper-tiny {name} {tag}: world 1 step ms "
+                f"{[round(x, 1) for x in rec['world1']['step_ms']]}; loss / "
+                f"grad norm rel {[f'{x:.2e}' for x in rec['metric_rel']]}; "
+                f"worst parameter {rec['param_errs'][worst]:.2e} ({worst})"
+                + (f"; float32 control: metrics "
+                   f"{[f'{x:.2e}' for x in rec['control']['metric_rel']]}, "
+                   f"worst parameter "
+                   f"{max(rec['control']['param_errs'].values()):.2e}"
+                   if "control" in rec else "") + f" ({card})")
+        for label, get in (("whisper-tiny serve", lambda r: r["whisper"][
+                "serve"]), ("qwen2-1.5b gated", lambda r: r["gated"])):
+            for res in res_list:
+                v = get(res)
+                log(f"[attn-tp] {label} {tag}: rank {res['rank']}: prefill "
+                    f"{v['prefill_ms']:.1f} ms, decode ms "
+                    f"{[round(x, 1) for x in v['step_ms']]}, peak "
+                    f"{v['peak_gb']} GB ({card})")
+            v = get(r0)
+            log(f"[attn-tp] {label} {tag}: logits "
+                f"{max(v['logit_err']):.2e} of max, tokens "
+                f"{'equal' if v['tokens'] == v['world1_tokens'] else 'DIFFER'}"
+                + (f"; cache split {r0['gated']['gated_dim']}, "
+                   f"{v['strap_calls']} selections, picks differing "
+                   f"{v['strap_differ']}, world 1's smallest gap between "
+                   f"the k-th and (k+1)-th score "
+                   f"{v['world1_min_rel_gap']:.3e} of the larger, "
+                   f"{v['valid_straps']} valid straps"
+                   if "strap_differ" in v else "") + f" ({card})")
+        log(f"[attn-tp] {tag} wall s by part, rank 0: "
+            f"{ {k: round(x, 1) for k, x in r0['wall_s'].items()} }")
+    bad = _attn_tp_bad(results)
+    check(not bad, f"phase 36 (Whisper and the gated decode on \"model\"): "
+          f"{bad}")
+    return {"results": {"x".join(map(str, k)): v for k, v in results.items()},
+            "wall_s": wall}
 
 
 def main(argv=None) -> int:
@@ -4963,7 +5412,7 @@ def main(argv=None) -> int:
                     for key in ("pixtral", "olmo")}
     # strap_attend's kernels-line entry is timed here, with the serving
     # phases, from a profiled run whose recorded kernels match the
-    # launches (`strap_profiled`); phase 36 profiles it again after the
+    # launches (`strap_profiled`); phase 37 profiles it again after the
     # distributed phases, where earlier runs of this script read 0.0013-
     # 0.0051 ms against its 0.0051 ms byte bound (PERF.md)
     strap_entry = strap_line(
@@ -5074,7 +5523,24 @@ def main(argv=None) -> int:
         f"ported kernels launched there, the two members summed (none lies "
         f"on the path): {ssm_launches}")
 
-    # 36. the kernels line: row_cycle at the sized path's one launch over
+    # 36. Whisper's encoder-decoder and the gated strap decode on the
+    #    "model" axis: gloo groups of 2 and 4 processes on the card, side
+    #    by side (none of the ported kernels lies on the path)
+    t_attn = time.perf_counter()
+    record["attn_tp"] = attn_tp_phase(args, dev, card)
+    record["attn_tp_wall_s"] = time.perf_counter() - t_attn
+    attn_launches = {n: sum(r["kernel_launches"][n]
+                            for res in record["attn_tp"]["results"].values()
+                            for r in res) for n in dist_launches}
+    check(not any(attn_launches.values()),
+          f"phase 36 launched a ported kernel: {attn_launches}")
+    for n, c in attn_launches.items():
+        dist_launches[n] += c
+    log(f"[attn-tp] phase 36 wall time {record['attn_tp_wall_s']:.1f} s; "
+        f"ported kernels launched there, the six members summed (none lies "
+        f"on the path): {attn_launches}")
+
+    # 37. the kernels line: row_cycle at the sized path's one launch over
     #    299,008 rows and at one 2048-row chunk; rc_multistep at the phased
     #    path's ACT call; strap_attend at the full-width path's last
     #    exact-mode (and gated) step
@@ -5096,7 +5562,7 @@ def main(argv=None) -> int:
     late = [strap_profiled(strap_kernel, [(a, kw) for a, kw, _ in
                                           strap_calls["strap_exact"]], False)
             for _ in range(10)]
-    strap_entry["profiled_after_phase_35"] = {
+    strap_entry["profiled_after_phase_36"] = {
         "ms": [sum(ms.values()) if ms else None for ms, _ in late],
         "missed_runs": [m for _, ms in late for m in ms]}
     line = {"kernels": [{

@@ -37,15 +37,19 @@ the fused layout's uniform blocks of `in_proj` and the conv are
 all-gathered as weights and re-cut at those boundaries);
 its replicated per-head leaves (`A_log`, `D_skip`, `dt_bias`, `in_dt`)
 stay whole, each rank using its heads' part through `reduce_grad`.
-Out of scope, and so gathered whole: the encoder-decoder family, the
-gated strap decode, the router, the expert-parallel MoE (`cfg.moe_ep`,
-which splits its experts itself), the Mamba2 mixer under
-`seq_parallel` (the stream then holds the rank's sequence block and the
-mixer runs whole on it, as the reference's `head_ax = None`), and any
-module whose "model" dims do not divide the axis.  `cache_split` says
-whether the serve steps' decode cache holds the rank's block of
-positions and the rank's blocks of the SSM state; they pass its answer
-to `prefill` and `decode_step`.
+The encoder-decoder family (Whisper) splits as the attention families
+do, its cross-attention (`xw*`) included: the encoder's output is
+replicated over "model" and each rank projects it with its columns of
+`xwk` / `xwv`.
+Out of scope, and so gathered whole: the router, the expert-parallel
+MoE (`cfg.moe_ep`, which splits its experts itself), the Mamba2 mixer
+under `seq_parallel` (the stream then holds the rank's sequence block
+and the mixer runs whole on it, as the reference's `head_ax = None`),
+and any module whose "model" dims do not divide the axis.
+`cache_split` says whether the serve steps' decode cache holds the
+rank's block of positions (the self and cross K/V), the rank's blocks
+of the SSM state, or the gated decode's rank's block of KV heads or of
+`head_dim`; they pass its answer to `prefill` and `decode_step`.
 """
 
 from __future__ import annotations
@@ -63,6 +67,7 @@ from .collectives import (all_gather_cat, all_to_all, broadcast_from,
 
 ATTENTION_FAMILIES = ("dense", "moe", "vlm")
 SSM_FAMILIES = ("ssm", "hybrid")
+ENCDEC_FAMILIES = ("audio",)
 # the families whose stream `seq_parallel` puts on the rank's sequence block
 SEQ_FAMILIES = ATTENTION_FAMILIES + ("ssm",)
 
@@ -78,18 +83,20 @@ def _model_size(sizes: dict) -> int:
 def module_split(cfg, sizes: dict) -> dict[str, bool]:
     """{module: True where its ranks compute on their "model" blocks}
     for a mesh of axis `sizes`: "vocab" (embedding and head), "attn"
-    (wq / wk / wv / wo and the biases; Zamba2's shared block too), "mlp"
-    (the dense MLP), "experts" (`we_*`), "res" (Arctic's dense residual
-    MLP) and "ssm" (the Mamba2 mixer, `_ssm_splits`)."""
+    (wq / wk / wv / wo and the biases; Zamba2's shared block and
+    Whisper's cross-attention too, the gated decode's projections too),
+    "mlp" (the dense MLP), "experts" (`we_*`), "res" (Arctic's dense
+    residual MLP) and "ssm" (the Mamba2 mixer, `_ssm_splits`)."""
     m = _model_size(sizes)
     off = dict(vocab=False, attn=False, mlp=False, experts=False, res=False,
                ssm=False)
-    if m <= 1 or cfg.family not in ATTENTION_FAMILIES + SSM_FAMILIES:
+    if m <= 1 or cfg.family not in (ATTENTION_FAMILIES + SSM_FAMILIES
+                                    + ENCDEC_FAMILIES):
         return off
     hd = cfg.head_dim_
     return dict(
         vocab=cfg.padded_vocab % m == 0,
-        attn=(not cfg.strap_decode and (cfg.n_heads * hd) % m == 0
+        attn=((cfg.n_heads * hd) % m == 0
               and (cfg.n_kv_heads * hd) % m == 0),
         mlp=not cfg.n_experts and cfg.d_ff % m == 0,
         experts=(bool(cfg.n_experts) and not cfg.moe_ep
@@ -125,7 +132,8 @@ def seq_parallel(cfg) -> bool:
 
 _LEAF_MODULE = {
     "embed": "vocab", "lm_head": "vocab",
-    **{k: "attn" for k in ("wq", "wk", "wv", "wo", "bq", "bk", "bv")},
+    **{p + k: "attn" for p in ("", "x")
+       for k in ("wq", "wk", "wv", "wo", "bq", "bk", "bv")},
     **{k: "mlp" for k in ("w_gate", "w_up", "w_down", "w_in", "b_in",
                           "w_out")},
     **{k: "experts" for k in ("we_gate", "we_up", "we_down")},
@@ -288,35 +296,52 @@ class CacheSplit(NamedTuple):
     """How the serve steps lay the decode cache: `axes`, the mesh axes
     (major first) whose ranks each hold a block of the K/V positions
     (() : every rank the whole sequence); `length`, the cache's length,
-    to which prefill pads each layer's K/V (None: the prompt's);
+    to which prefill pads each layer's self K/V (None: the prompt's);
     `state`, the SSM state and conv tail are the rank's "model" blocks
     (its heads; its 1/m of the conv channels [x | B | C]), as the split
-    mixer computes them (False: whole on every rank).  `holds_block`
-    reads it."""
+    mixer computes them (False: whole on every rank); `gated_dim`, the
+    logical dim of the gated decode's `k` / `v` / `ksum` that their
+    spec puts on "model" ("kv": the rank's KV heads, "headdim": its
+    block of `head_dim`; None: whole).  `holds_block` reads it."""
     axes: tuple = ()
     length: int | None = None
     state: bool = False
+    gated_dim: str | None = None
 
 
 NO_SPLIT = CacheSplit()
+GATED_KEYS = ("k", "v", "ksum")
+
+
+def gated(cfg) -> bool:
+    """`cfg` decodes through the selector + strap gate (its cache holds
+    `ksum`, its sequence stays whole on each rank)."""
+    return bool(cfg.strap_decode and cfg.family in ATTENTION_FAMILIES)
 
 
 def cache_split(cfg, mesh, batch: int, seq: int) -> CacheSplit:
-    """The rule for the serve steps' cache of `batch` x `seq` positions.
-    The K/V (the attention families but for the gated decode, and the
-    hybrid's shared block) split along the sequence over the axes that
-    `cache_specs` puts on its "seq" dim, where more than one "model"
-    rank runs and the K/V's other dims, the batch aside, stay whole on
-    each rank; else whole.  The SSM state and conv tail are the rank's
-    blocks where the mixer splits (`module_split`'s "ssm"), which their
-    specs then split too (checked)."""
+    """The rule for the serve steps' cache of `batch` x `seq` positions
+    (the enc-dec family's: `seq // 2` decoder positions and encoder
+    frames, as `registry.cache_schema` lays it).  The K/V (the attention
+    families but for the gated decode, the hybrid's shared block, the
+    enc-dec self and cross K/V) split along the sequence over the axes
+    that `cache_specs` puts on its "seq" dim, where more than one
+    "model" rank runs and the K/V's other dims, the batch aside, stay
+    whole on each rank; else whole.  The gated decode's `k` / `v` /
+    `ksum` keep the sequence whole and split the dim their spec puts on
+    "model" (`gated_dim`), where the attention splits.  The SSM state
+    and conv tail are the rank's blocks where the mixer splits
+    (`module_split`'s "ssm"), which their specs then split too (every
+    such reading checked against the specs)."""
     from ..models import registry as M
     from .sharding import cache_specs, entry_axes
 
     sizes = mesh_ctx.mesh_axis_sizes(mesh)
     axes = M.cache_axes(cfg, batch, seq)
-    specs = cache_specs(cfg, axes, M.abstract_cache(cfg, batch, seq), mesh)
-    state = module_split(cfg, sizes)["ssm"]
+    abstract = M.abstract_cache(cfg, batch, seq)
+    specs = cache_specs(cfg, axes, abstract, mesh)
+    split = module_split(cfg, sizes)
+    state = split["ssm"]
     for k in ("ssm", "conv", "t_ssm", "t_conv"):
         if state and k in axes:
             dim = axes[k].index("heads" if k.endswith("ssm") else "ssm_out")
@@ -324,23 +349,48 @@ def cache_split(cfg, mesh, batch: int, seq: int) -> CacheSplit:
                 raise ValueError(f"{cfg.name}: the mixer splits over "
                                  f"\"model\" but the cache's {k} is stored "
                                  f"as {specs[k]}")
-    if (cfg.family not in ATTENTION_FAMILIES + ("hybrid",)
-            or cfg.strap_decode or _model_size(sizes) <= 1):
-        return CacheSplit((), seq, state)
+    length = abstract["k"].shape[2] if "k" in abstract else seq
+    if gated(cfg):
+        return CacheSplit((), length, state, _gated_dim(cfg, axes, specs,
+                                                        split["attn"]))
+    if (cfg.family not in ATTENTION_FAMILIES + ("hybrid",) + ENCDEC_FAMILIES
+            or _model_size(sizes) <= 1):
+        return CacheSplit((), length, state)
     spec, k_axes = specs["k"], axes["k"]
     if any(e for e, a in zip(spec, k_axes) if a not in ("seq", "batch")):
-        return CacheSplit((), seq, state)
-    return CacheSplit(entry_axes(spec[k_axes.index("seq")]), seq, state)
+        return CacheSplit((), length, state)
+    return CacheSplit(entry_axes(spec[k_axes.index("seq")]), length, state)
+
+
+def _gated_dim(cfg, axes, specs, attn_split: bool) -> str | None:
+    """The logical dim ("kv" or "headdim") that the specs of the gated
+    cache's `k`, `v` and `ksum` all put on "model", or None where none
+    does; the attention must then split over "model" too, as its blocks
+    are what the rank writes into its cache block."""
+    from .sharding import entry_axes
+
+    dims = {tuple(a for e, a in zip(specs[k], axes[k])
+                  if "model" in entry_axes(e)) for k in GATED_KEYS}
+    if dims == {()}:
+        return None
+    if len(dims) != 1 or len(next(iter(dims))) != 1 or not attn_split:
+        raise ValueError(f"{cfg.name}: the gated cache is stored as "
+                         f"{[specs[k] for k in GATED_KEYS]} (k, v, ksum), "
+                         f"the attention split over \"model\": {attn_split}")
+    return next(iter(dims))[0]
 
 
 def holds_block(key: str, split: CacheSplit) -> bool:
     """The serve steps' cache leaf `key` is the rank's block as the model
     functions return and take it under `split` (prefill's output,
-    decode's input and output): the K/V where their sequence splits, the
-    SSM state and conv tail where the mixer splits.  Any other leaf goes
-    whole through them and is cut to the rank's block after (and
-    gathered before decode)."""
-    if key in ("k", "v"):
+    decode's input and output): the self and cross K/V where their
+    sequence splits, the gated `k` / `v` / `ksum` where their KV heads
+    or `head_dim` split, the SSM state and conv tail where the mixer
+    splits.  Any other leaf goes whole through them and is cut to the
+    rank's block after (and gathered before decode)."""
+    if split.gated_dim is not None:
+        return key in GATED_KEYS
+    if key in ("k", "v", "xk", "xv"):
         return bool(split.axes)
     return split.state and key in ("ssm", "conv", "t_ssm", "t_conv")
 
@@ -372,11 +422,20 @@ def pad_seq(t, length: int | None, dim: int = 1):
 def to_cache_block(t, n_heads: int, split: CacheSplit = NO_SPLIT):
     """A layer's prefill K or V (B, S, H, hd) -> the rank's block of the
     cache laid out by `split`: H is all `n_heads` or the rank's block of
-    them over "model" (split at head boundaries).  With no sequence
+    them over "model" (split at head boundaries).  The gated cache keeps
+    the rank's KV heads (as the split attention gives them) or its block
+    of `head_dim` of every head (the KV heads then do not divide the
+    ranks, and the split attention gives them whole).  With no sequence
     split the heads are gathered whole."""
     groups, idx, n = cache_blocks(split)
     t = pad_seq(t, split.length)
     mesh = mesh_ctx.get_mesh()
+    if split.gated_dim == "kv":
+        return t
+    if split.gated_dim == "headdim":
+        model = mesh.get_group("model")
+        d = t.shape[3] // dist.get_world_size(model)
+        return t.narrow(3, dist.get_rank(model) * d, d).contiguous()
     split_heads = t.shape[2] != n_heads
     if split_heads and split.axes == ("model",):
         # one all-to-all: sequence chunks out, head blocks in
@@ -390,5 +449,8 @@ def to_cache_block(t, n_heads: int, split: CacheSplit = NO_SPLIT):
         t = all_gather_cat(t, mesh.get_group("model"), 2)
     if n == 1:
         return t
+    if t.shape[1] % n:
+        raise ValueError(f"a cache of {t.shape[1]} positions does not split "
+                         f"into {n} blocks")
     step = t.shape[1] // n
     return t.narrow(1, idx * step, step).contiguous()

@@ -18,15 +18,15 @@ allocates nothing, needs no card and never initializes CUDA.
 What each cell runs is the placement of the reference's GSPMD program:
 each rank holds its blocks of the parameters (`train_specs`) and
 computes on its "model" blocks (`distributed.tensor_parallel`): the
-attention's heads, the MLP's "ff" columns, the head's vocab rows, the
-experts, the Mamba2 mixer's heads (its projections' columns, conv
-channels and `out_proj` rows, into which the fused layout's `in_proj`
-and conv blocks are re-cut after one all-gather of those weights;
-Zamba2's shared block as the attention layers).  The rule
-`tensor_parallel.model_split` gathers those over
-"data" only, and gathers whole the leaves of the paths it leaves out
-(the record's `model_gathered`: the router, the enc-dec family, the
-gated decode's attention, the expert-parallel MoE, the Mamba2 mixer
+attention's heads (the enc-dec family's self and cross attention, the
+gated decode's projections too), the MLP's "ff" columns, the head's
+vocab rows, the experts, the Mamba2 mixer's heads (its projections'
+columns, conv channels and `out_proj` rows, into which the fused
+layout's `in_proj` and conv blocks are re-cut after one all-gather of
+those weights; Zamba2's shared block as the attention layers).  The
+rule `tensor_parallel.model_split` gathers those over "data" only, and
+gathers whole the leaves of the paths it leaves out (the record's
+`model_gathered`: the router, the expert-parallel MoE, the Mamba2 mixer
 under `seq_parallel` (opt level 8, where the stream is the rank's
 sequence block instead), and any module whose "model" dims do not
 divide):
@@ -35,15 +35,17 @@ divide):
     (`batch_specs`); the gradients summed over ("pod", "data") leaf by
     leaf, the rank's blocks clipped and updated;
   * prefill_32k: `make_sharded_serve_prefill` on the rank's rows, its
-    K/V written as its blocks of the cache (`cache_specs`: the sequence
-    over "model"), its SSM state and conv tail as its head and channel
-    blocks;
+    K/V (the enc-dec family's self and cross K/V) written as its blocks
+    of the cache (`cache_specs`: the sequence over "model"), its SSM
+    state and conv tail as its head and channel blocks;
   * decode_32k, long_500k: `make_sharded_serve_decode`, each rank
-    attending its block of the cache's positions and combining the
-    softmax statistics over "model" (and "data" at long_500k's one
-    sequence; Zamba2's shared block too) and advancing its heads' SSM
-    state; the gated decode and the enc-dec caches are gathered for the
-    rank's rows, as before.
+    attending its block of the cache's positions (the enc-dec family's
+    self and cross caches too) and combining the softmax statistics over
+    "model" (and "data" at long_500k's one sequence; Zamba2's shared
+    block too) and advancing its heads' SSM state; the gated decode
+    (opt level 3 and above) keeps the sequence whole and attends the
+    rank's KV heads or its block of `head_dim`, as `cache_specs` places
+    them, the selector's scores summed over "model".
 
 Usage:
   python -m repro_torch.launch.dryrun --arch deepseek-67b --cell train_4k --mesh single

@@ -13,6 +13,8 @@ with `causal=False` and `kv_override=` (the encoder's K/V), and
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.distributed as dist
 
@@ -125,15 +127,16 @@ def causal_attention(cfg, p, x, positions=None, prefix: str = "",
     (k, v)): out as `st` holds the stream; (k, v) the cache material,
     (B, S, Hkv, hd), or the rank's block of the heads when the heads
     split over "model" (`_attention_split`).  Query blocks of
-    `cfg.attn_chunk`.  With `kv_override=(k, v)` (cross-attention) the
-    projected K/V are replaced and no RoPE is applied; `causal=False`
-    drops the mask.
+    `cfg.attn_chunk`.  With `kv_override=(k, v)` (cross-attention: the
+    encoder's K/V as heads (B, S_enc, Hkv, hd) or, under a mesh, as the
+    rank's columns of the cross projection (B, S_enc, C)) the projected
+    K/V are replaced and no RoPE is applied; `causal=False` drops the
+    mask.
     """
-    group = None if kv_override is not None else tp.block_group(
-        p[prefix + "wq"], cfg.n_heads * cfg.head_dim_, -1)
+    group = tp.block_group(p[prefix + "wq"], cfg.n_heads * cfg.head_dim_, -1)
     if group is not None:
         return _attention_split(cfg, p, x, positions, prefix, causal, st,
-                                group)
+                                group, kv_override)
     x = tp.enter_whole(x, st)
     s = x.shape[1]
     if kv_override is not None:                 # cross-attention path
@@ -151,24 +154,33 @@ def causal_attention(cfg, p, x, positions=None, prefix: str = "",
     return tp.leave_whole(o @ p[prefix + "wo"], st), (k, v)
 
 
-def _attention_split(cfg, p, x, positions, prefix, causal, st, group):
+def _attention_split(cfg, p, x, positions, prefix, causal, st, group,
+                     kv_override=None):
     """`causal_attention` on the rank's "model" blocks: the columns of
     wq / wk / wv (and their biases) and the rows of wo.
 
     A projection whose heads split over "model" at head boundaries stays
     the rank's heads; one that does not (K/V at 16 ranks for 8 KV heads,
-    Qwen2-1.5B's 12 query heads) is all-gathered over "model" before
-    attending, where the reference's `constrain` gives up on the split
-    too.  With the query heads split the rank attends them against the
-    K/V heads they read (a gathered K/V is used in part, so its gradient
-    comes back summed, `gather_dim`); with the query gathered every rank
-    attends every head and keeps its block of the output columns.  wo's
-    partial products are summed over "model" (`tp.leave`)."""
+    Qwen2-1.5B's 12 query heads, Whisper-tiny's 6) is all-gathered over
+    "model" before attending, where the reference's `constrain` gives up
+    on the split too.  With the query heads split the rank attends them
+    against the K/V heads they read (a gathered K/V is used in part, so
+    its gradient comes back summed, `gather_dim`); with the query
+    gathered every rank attends every head and keeps its block of the
+    output columns.  wo's partial products are summed over "model"
+    (`tp.leave`).  Cross-attention (`kv_override`) projects only the
+    query and takes the K/V as the rank's columns of the cross
+    projection (or as the rank's heads), split or gathered as the self
+    K/V are."""
     hd, hq, hkv = cfg.head_dim_, cfg.n_heads, cfg.n_kv_heads
     m, r = dist.get_world_size(group), dist.get_rank(group)
     x = tp.enter(x, group, st)
     s = x.shape[1]
-    q, k, v = _project(cfg, p, x, prefix)
+    if kv_override is None:
+        q, k, v = _project(cfg, p, x, prefix)
+    else:
+        q = _project(cfg, p, x, prefix, "q")[0]
+        k, v = (t.flatten(2) for t in kv_override)
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
     q_split, kv_split = hq % m == 0, hkv % m == 0
@@ -180,7 +192,7 @@ def _attention_split(cfg, p, x, positions, prefix, causal, st, group):
         q = _heads(gather_replicated(q, group, -1), hd)
         k, v = gather_replicated(k, group, -1), gather_replicated(v, group, -1)
     k, v = _heads(k, hd), _heads(v, hd)
-    if cfg.rope_theta > 0:
+    if cfg.rope_theta > 0 and kv_override is None:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     ka, va = k, v
@@ -220,34 +232,32 @@ def decode_attention(cfg, p, x, k_cache, v_cache, pos, prefix: str = "",
 
     Under a mesh (inference only: these collectives carry no gradient):
     with the attention's "model" blocks (`tp.block_group`) the rank
-    projects its columns, gathers q and the new K/V over "model", and
+    projects its columns, gathers q (and the new K/V) over "model", and
     sums wo's partial products; with the cache's sequence split
-    (`split`, `tensor_parallel.cache_split`) the cache is the rank's
-    block of positions, the new token is written by the rank that owns
-    `pos`, and the partial softmax of each rank (its max, its sum of
-    exponentials, its weighted V) is combined over the split axes
-    (flash-decoding).
+    (`split`, `tensor_parallel.cache_split`; the cross cache's too) the
+    cache is the rank's block of positions, the new token is written by
+    the rank that owns `pos`, and the partial softmax of each rank (its
+    max, its sum of exponentials, its weighted V) is combined over the
+    split axes (flash-decoding).
     """
     b = x.shape[0]
     hd = cfg.head_dim_
     scale = hd ** -0.5
     s_cache = k_cache.shape[1]
-    group = None if cross else tp.block_group(
-        p[prefix + "wq"], cfg.n_heads * hd, -1)
-    if cross:                   # the encoder's K/V: only q is projected
-        q = _project_q(cfg, p, x, prefix)
+    group = tp.block_group(p[prefix + "wq"], cfg.n_heads * hd, -1)
+    seq_groups, blk, _ = tp.cache_blocks(split)
+    # the encoder's K/V are cached: cross-attention projects only q
+    ts = _project(cfg, p, x, prefix, "q" if cross else "qkv")
+    if group is not None:       # every head: the rank's columns gathered
+        ts = _gather_columns(ts, group)
+    q, *new = (_heads(t, hd) for t in ts)
+    if cross:
         valid = torch.ones((b, s_cache), dtype=torch.bool, device=x.device)
-        seq_groups = []
     else:
-        if group is None:
-            q, k_new, v_new = _project_qkv(cfg, p, x, prefix)
-        else:                   # every head: the rank's columns gathered
-            q, k_new, v_new = (_heads(all_gather_cat(t, group, -1), hd)
-                               for t in _project(cfg, p, x, prefix))
+        k_new, v_new = new
         if cfg.rope_theta > 0:
             q = apply_rope(q, pos[:, None], cfg.rope_theta)
             k_new = apply_rope(k_new, pos[:, None], cfg.rope_theta)
-        seq_groups, blk, _ = tp.cache_blocks(split)
         s0 = blk * s_cache
         rows = torch.arange(b, device=x.device)
         idx = pos.long() - s0
@@ -271,15 +281,32 @@ def decode_attention(cfg, p, x, k_cache, v_cache, pos, prefix: str = "",
         w = torch.softmax(logits, dim=-1)
         o = torch.einsum("bhgk,bkhd->bhgd", w, v_cache.float())
     o = o.reshape(b, 1, -1).to(x.dtype)
-    if group is None:
-        out = o @ p[prefix + "wo"]
-    else:                       # wo's rows: the rank's block of o's columns
-        rows_wo = p[prefix + "wo"].shape[0]
-        o = o[..., dist.get_rank(group) * rows_wo:][..., :rows_wo]
-        out = all_reduce(o @ p[prefix + "wo"], group)
+    out = _out_rows(o, p[prefix + "wo"], group)
     if cross:
         return out, None, None
     return out, k_cache, v_cache
+
+
+def _gather_columns(ts, group) -> list:
+    """The rank's column blocks of one token's projections -> the whole
+    projections, in one all-gather over `group` of their concatenation
+    (inference only)."""
+    widths = [t.shape[-1] for t in ts]
+    whole = all_gather_cat(torch.cat(ts, -1), group, -1)
+    per_rank = whole.reshape(*whole.shape[:-1], -1, sum(widths))
+    return [t.flatten(-2) for t in per_rank.split(widths, -1)]
+
+
+def _out_rows(o, wo, group, own: bool = False):
+    """o (B, 1, Hq * hd) through wo: whole, or under the "model" `group`
+    the rank's rows of wo on its block of o's columns (`own`: o is that
+    block already), the partial products summed over "model"."""
+    if group is None:
+        return o @ wo
+    if not own:
+        rows = wo.shape[0]
+        o = o[..., dist.get_rank(group) * rows:][..., :rows]
+    return all_reduce(o @ wo, group)
 
 
 def _combined_softmax_v(logits, v, groups):
@@ -301,7 +328,25 @@ def _combined_softmax_v(logits, v, groups):
     return both[..., :-1] / both[..., -1:]
 
 
-def decode_attention_gated(cfg, p, x, k_cache, v_cache, ksum, pos):
+_selections: list | None = None
+
+
+@contextlib.contextmanager
+def recording_selections():
+    """Within the block every `decode_attention_gated` call appends its
+    selection to the list yielded: (strap ids (B, K) int64, the
+    selector's scores (B, n_straps) float32, the newest strap's bonus
+    included), on the CPU, in call order."""
+    global _selections
+    prev, _selections = _selections, []
+    try:
+        yield _selections
+    finally:
+        _selections = prev
+
+
+def decode_attention_gated(cfg, p, x, k_cache, v_cache, ksum, pos,
+                           split: tp.CacheSplit = tp.NO_SPLIT):
     """Selector+strap gated decode (the paper's technique in the model).
 
     The KV cache is viewed as straps of `cfg.decode_strap_tokens` tokens.
@@ -316,15 +361,43 @@ def decode_attention_gated(cfg, p, x, k_cache, v_cache, ksum, pos):
     reference returns new arrays: a vmapped dynamic_update_slice and a
     one-hot blend, `ksum + onehot * k`, which for finite keys add 0 to
     every other strap and give the same numbers).
+
+    Under a mesh that gives the rank its columns of the projections
+    (`tp.block_group`; inference only) the caches are the rank's blocks
+    along `split.gated_dim`, the sequence whole on every rank:
+      * "kv": the rank projects its heads (whole) and attends them against
+        its KV heads; the selector's per-strap scores, a sum over every
+        head, are its partial sums, summed over "model" so that every rank
+        takes the same top-k; wo's rows are its heads, the output summed;
+      * "headdim" (the KV heads do not divide the ranks): q and the new
+        K/V are gathered over "model" (RoPE needs the whole head) and cut
+        to the rank's block of `head_dim`; the selector's scores and the
+        attention logits are partial dot products over `head_dim`, each
+        summed over "model" before the top-k and the softmax; w . v gives
+        the rank's block of every head's output, gathered, and wo's rows
+        take the rank's block of it, the output summed;
+      * None (whole cache): every rank decodes every head on the gathered
+        q / K / V and keeps its block of the output for wo's rows.
+    The summed scores add in another order than the whole einsum, so a
+    near-tie between the k-th and (k+1)-th strap may pick another strap.
     """
     b = x.shape[0]
     hd = cfg.head_dim_
     scale = hd ** -0.5
     T = cfg.decode_strap_tokens
-    q, k_new, v_new = _project_qkv(cfg, p, x)
+    group = tp.block_group(p["wq"], cfg.n_heads * hd, -1)
+    dim = split.gated_dim if group is not None else None
+    ts = _project(cfg, p, x)
+    if group is not None and dim != "kv":   # the rank's columns gathered
+        ts = _gather_columns(ts, group)
+    q, k_new, v_new = (_heads(t, hd) for t in ts)
     if cfg.rope_theta > 0:
         q = apply_rope(q, pos[:, None], cfg.rope_theta)
         k_new = apply_rope(k_new, pos[:, None], cfg.rope_theta)
+    if dim == "headdim":
+        d = hd // dist.get_world_size(group)
+        q, k_new, v_new = (t.narrow(-1, dist.get_rank(group) * d, d)
+                           for t in (q, k_new, v_new))
 
     s_cache = k_cache.shape[1]
     if s_cache % T:
@@ -341,10 +414,12 @@ def decode_attention_gated(cfg, p, x, k_cache, v_cache, ksum, pos):
     ksum[rows, strap_idx] += k_new[:, 0].float()
 
     # ---- selector: score straps by aggregated q . ksum ------------------
-    hkv = k_cache.shape[2]
+    hkv, dk = k_cache.shape[2], k_cache.shape[3]
     grp = q.shape[2] // hkv
-    qg = q.reshape(b, hkv, grp, hd).float()
+    qg = q.reshape(b, hkv, grp, dk).float()
     scores = torch.einsum("bhgd,bnhd->bn", qg, ksum)
+    if dim is not None:
+        scores = all_reduce(scores, group)
     base = torch.arange(nst, device=x.device) * T
     valid = base[None, :] <= pos[:, None]
     scores = torch.where(valid, scores, float("-inf"))
@@ -354,20 +429,27 @@ def decode_attention_gated(cfg, p, x, k_cache, v_cache, ksum, pos):
     # where k_sel exceeds the valid straps, some picks score -inf; every
     # token of such a strap lies past `pos` and is masked by tok_valid
     _, ids = torch.topk(scores, k_sel, dim=-1)                # (B, K)
+    if _selections is not None:
+        _selections.append((ids.cpu(), scores.cpu()))
 
     # ---- gather ONLY the selected straps ---------------------------------
-    kr = k_cache.reshape(b, nst, T, hkv, hd)
-    vr = v_cache.reshape(b, nst, T, hkv, hd)
-    k_g = kr[rows[:, None], ids].reshape(b, k_sel * T, hkv, hd)
-    v_g = vr[rows[:, None], ids].reshape(b, k_sel * T, hkv, hd)
+    kr = k_cache.reshape(b, nst, T, hkv, dk)
+    vr = v_cache.reshape(b, nst, T, hkv, dk)
+    k_g = kr[rows[:, None], ids].reshape(b, k_sel * T, hkv, dk)
+    v_g = vr[rows[:, None], ids].reshape(b, k_sel * T, hkv, dk)
     gpos = (ids[:, :, None] * T
             + torch.arange(T, device=x.device)[None, None, :]).reshape(
                 b, k_sel * T)
     tok_valid = gpos <= pos[:, None]
 
     logits = _gqa_scores(q, k_g, scale)[..., 0, :]           # (B,Hkv,grp,K*T)
+    if dim == "headdim":
+        logits = all_reduce(logits, group)
     logits = torch.where(tok_valid[:, None, None, :], logits, NEG_INF)
     w = torch.softmax(logits, dim=-1)
     o = torch.einsum("bhgk,bkhd->bhgd", w, v_g.float())
+    if dim == "headdim":
+        o = all_gather_cat(o.contiguous(), group, -1)
     o = o.reshape(b, 1, -1).to(x.dtype)
-    return o @ p["wo"], k_cache, v_cache, ksum
+    out = _out_rows(o, p["wo"], group, own=dim == "kv")
+    return out, k_cache, v_cache, ksum

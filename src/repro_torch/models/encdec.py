@@ -6,6 +6,13 @@ heads).  Decoder layers carry both self-attention (causal, cached at
 decode) and cross-attention over the encoder output (its K/V cached once
 at prefill, never written at decode).
 
+Under a registered mesh (the sharded steps of `train.step`) every layer
+computes on the "model" blocks it is given, as the decoder-only
+families' do (`distributed.tensor_parallel`): the heads of the self and
+cross attention, the MLP's "ff" columns, the vocab-parallel embedding,
+head and loss; the serve steps' self and cross caches are the rank's
+blocks of positions.
+
 Public entry points (functions of (cfg, params, ...)):
   init_params     -> params on the requested device
   encode          -> (B, S_enc, D) encoder output
@@ -20,12 +27,14 @@ from __future__ import annotations
 
 import torch
 
-from .attention import attn_schema, causal_attention, decode_attention
+from ..distributed import tensor_parallel as tp
+from .attention import (_heads, _project, attn_schema, causal_attention,
+                        decode_attention)
 from .common import (ParamSpec, Schema, abstract_from_schema, add_norm,
                      apply_norm, axes_from_schema, cross_entropy,
-                     embed_schema, embed_tokens, init_from_schema, lm_logits,
+                     embed_schema, embed_tokens, init_from_schema,
                      sinusoid_pos_emb, torch_dtype)
-from .lm import layer_params
+from .lm import _head, _vocab_group, layer_params
 from .mlp import mlp_apply, mlp_schema
 
 
@@ -77,56 +86,76 @@ def abstract_params(cfg):
 
 def encode(cfg, params, enc_embeds):
     """(B, S_enc, D) frame embeddings -> the encoder's output, in the
-    compute dtype."""
+    compute dtype; under a mesh each layer computes on the rank's heads
+    and "ff" columns (`distributed.tensor_parallel`), the output whole
+    on every "model" rank."""
     dtype = torch_dtype(cfg.compute_dtype)
+    st = tp.stream(cfg)
     b, s, d = enc_embeds.shape
     h = (enc_embeds.to(dtype)
          + sinusoid_pos_emb(s, d, device=enc_embeds.device).to(dtype)[None])
     for li in range(cfg.n_enc_layers):
         lp = layer_params(params, li, key="enc_layers")
         a_in = apply_norm(cfg, h, lp, "ln1")
-        h = h + causal_attention(cfg, lp, a_in, causal=False)[0]
+        h = h + causal_attention(cfg, lp, a_in, causal=False, st=st)[0]
         m_in = apply_norm(cfg, h, lp, "ln2")
-        h = h + mlp_apply(cfg, lp, m_in)
+        h = h + mlp_apply(cfg, lp, m_in, st=st)
     return apply_norm(cfg, h, params, "enc_final")
 
 
 def _cross_kv(cfg, lp, enc_out):
-    """Project encoder output to one decoder layer's cross K/V."""
-    b, s, _ = enc_out.shape
-    hd, hkv = cfg.head_dim_, cfg.n_kv_heads
-    k = (enc_out @ lp["xwk"]).reshape(b, s, hkv, hd)
-    v = (enc_out @ lp["xwv"]).reshape(b, s, hkv, hd)
-    if cfg.qkv_bias:
-        k = k + lp["xbk"].reshape(hkv, hd)
-        v = v + lp["xbv"].reshape(hkv, hd)
-    return k, v
+    """Project encoder output to one decoder layer's cross K/V: (B, S_enc,
+    Hkv, hd) each, or, where `lp` holds the rank's columns of xwk / xwv,
+    those columns (B, S_enc, C), not always whole heads
+    (`attention._attention_split` gathers them where the heads do not
+    split)."""
+    k, v = _project(cfg, lp, enc_out, "x", "kv")
+    if tp.block_group(lp["xwk"], cfg.n_kv_heads * cfg.head_dim_, -1):
+        return k, v
+    return _heads(k, cfg.head_dim_), _heads(v, cfg.head_dim_)
 
 
-def decode_train(cfg, params, tokens, enc_out, collect_cache: bool = False):
+def decode_train(cfg, params, tokens, enc_out, collect_cache: bool = False,
+                 cache_split: tp.CacheSplit = tp.NO_SPLIT):
     """The decoder over `tokens` (B, S) against `enc_out`: (h after the
     final norm, cache {"k", "v", "xk", "xv"} stacked over layers when
-    `collect_cache`, else None)."""
+    `collect_cache`, else None).  Under a mesh the layers compute on the
+    rank's blocks; `enc_out`, whole on every "model" rank, is projected
+    by each rank's cross columns, so its gradient is summed over "model"
+    (once, for every layer); the cache holds the rank's blocks of a
+    cache laid out by `cache_split` (the cross K/V the encoder's
+    positions, not padded: every cached position is attended)."""
     dtype = torch_dtype(cfg.compute_dtype)
+    st = tp.stream(cfg)
     b, s = tokens.shape
-    h = embed_tokens(params, tokens, dtype)
+    h = embed_tokens(params, tokens, dtype, _vocab_group(cfg, params))
     h = h + sinusoid_pos_emb(s, cfg.d_model,
                              device=tokens.device).to(dtype)[None]
     positions = torch.arange(s, device=tokens.device)[None, :]
+    group = tp.block_group(params["dec_layers"]["xwk"],
+                           cfg.n_kv_heads * cfg.head_dim_, -1)
+    if group is not None:
+        enc_out = tp.enter(enc_out, group, st)
+    cross_split = cache_split._replace(length=None)
     ys = []
     for li in range(cfg.n_layers):
         lp = layer_params(params, li, key="dec_layers")
         a_in = apply_norm(cfg, h, lp, "ln1")
-        attn, (k, v) = causal_attention(cfg, lp, a_in, positions)
+        attn, (k, v) = causal_attention(cfg, lp, a_in, positions, st=st)
         h = h + attn
         x_in = apply_norm(cfg, h, lp, "lnx")
-        xk, xv = _cross_kv(cfg, lp, enc_out)
-        h = h + causal_attention(cfg, lp, x_in, prefix="x", causal=False,
-                                 kv_override=(xk, xv))[0]
+        xattn, (xk, xv) = causal_attention(
+            cfg, lp, x_in, prefix="x", causal=False,
+            kv_override=_cross_kv(cfg, lp, enc_out), st=st)
+        h = h + xattn
         m_in = apply_norm(cfg, h, lp, "ln2")
-        h = h + mlp_apply(cfg, lp, m_in)
+        h = h + mlp_apply(cfg, lp, m_in, st=st)
         if collect_cache:
-            ys.append((k, v, xk, xv))
+            hkv = cfg.n_kv_heads
+            ys.append((tp.to_cache_block(k, hkv, cache_split),
+                       tp.to_cache_block(v, hkv, cache_split),
+                       tp.to_cache_block(xk, hkv, cross_split),
+                       tp.to_cache_block(xv, hkv, cross_split)))
     h = apply_norm(cfg, h, params, "final")
     if not collect_cache:
         return h, None
@@ -137,27 +166,40 @@ def decode_train(cfg, params, tokens, enc_out, collect_cache: bool = False):
 
 def forward_train(cfg, params, batch):
     """((B, S, V) float32 logits of `batch["tokens"]` against the encoded
-    `batch["enc_embeds"]`, aux loss 0.0)."""
+    `batch["enc_embeds"]`, aux loss 0.0).  Under a mesh that splits the
+    head over "model" the logits are the rank's vocab block."""
     enc_out = encode(cfg, params, batch["enc_embeds"])
     h, _ = decode_train(cfg, params, batch["tokens"], enc_out)
-    return (lm_logits(cfg, params, h),
+    return (_head(cfg, params, h),
             torch.zeros((), dtype=torch.float32, device=h.device))
 
 
 def loss_fn(cfg, params, batch, aux_weight: float = 0.0):
-    """Cross entropy against `batch["targets"]` (no aux term)."""
+    """Cross entropy against `batch["targets"]` (no aux term),
+    vocab-parallel where the head is split."""
     logits, _ = forward_train(cfg, params, batch)
-    return cross_entropy(logits, batch["targets"], cfg.padded_vocab)
+    return cross_entropy(logits, batch["targets"], cfg.padded_vocab,
+                         _vocab_group(cfg, params))
 
 
-def prefill(cfg, params, batch):
+def prefill(cfg, params, batch, cache_split: tp.CacheSplit = tp.NO_SPLIT):
     """Encode `batch["enc_embeds"]` (B, S_enc, D) and run the decoder over
-    `batch["tokens"]` (B, S): (last-token logits (B, V) float32, cache
-    {"k", "v": (L, B, S, H, hd), "xk", "xv": (L, B, S_enc, H, hd)})."""
+    `batch["tokens"]` (B, S): (last-token logits (B, V) float32 (the
+    rank's vocab block where the head is split), cache {"k", "v": (L, B,
+    S, H, hd), "xk", "xv": (L, B, S_enc, H, hd)}).  Under a mesh the
+    cache holds the rank's blocks of a cache laid out by `cache_split`
+    (`tensor_parallel.cache_split`): the self K/V padded to its length,
+    the cross K/V as the encoder gave them, which must then fill the
+    cache's cross positions exactly (the reference pads no cross cache,
+    and `decode_attention(cross=True)` attends every cached position)."""
+    s_enc = batch["enc_embeds"].shape[1]
+    if cache_split.length is not None and s_enc != cache_split.length:
+        raise ValueError(f"{cfg.name}: the cache holds {cache_split.length} "
+                         f"cross positions, the encoder gave {s_enc}")
     enc_out = encode(cfg, params, batch["enc_embeds"])
     h, cache = decode_train(cfg, params, batch["tokens"], enc_out,
-                            collect_cache=True)
-    return lm_logits(cfg, params, h[:, -1:, :])[:, 0], cache
+                            collect_cache=True, cache_split=cache_split)
+    return _head(cfg, params, h[:, -1:, :])[:, 0], cache
 
 
 def cache_schema(cfg, batch: int, seq: int) -> Schema:
@@ -174,12 +216,15 @@ def cache_schema(cfg, batch: int, seq: int) -> Schema:
     }
 
 
-def decode_step(cfg, params, cache, token, pos):
+def decode_step(cfg, params, cache, token, pos,
+                cache_split: tp.CacheSplit = tp.NO_SPLIT):
     """One decode step: (B, 1) token ids at positions `pos` (B,) -> ((B, V)
     float32 logits, cache).  The token's self K/V are written into
-    `cache["k"]` / `cache["v"]` in place; the cross K/V are only read."""
+    `cache["k"]` / `cache["v"]` in place; the cross K/V are only read.
+    `cache_split`: how a sharded serve step laid the cache (the rank's
+    block of the self and cross positions, or whole)."""
     dtype = torch_dtype(cfg.compute_dtype)
-    h = embed_tokens(params, token, dtype)
+    h = embed_tokens(params, token, dtype, _vocab_group(cfg, params))
     # per-sequence sinusoidal position for the new token
     d = cfg.d_model
     inv = 1e4 ** (-torch.arange(0, d, 2, dtype=torch.float32,
@@ -191,12 +236,12 @@ def decode_step(cfg, params, cache, token, pos):
         lp = layer_params(params, li, key="dec_layers")
         a_in = apply_norm(cfg, h, lp, "ln1")
         h = h + decode_attention(cfg, lp, a_in, cache["k"][li],
-                                 cache["v"][li], pos)[0]
+                                 cache["v"][li], pos, split=cache_split)[0]
         x_in = apply_norm(cfg, h, lp, "lnx")
         h = h + decode_attention(cfg, lp, x_in, cache["xk"][li],
                                  cache["xv"][li], pos, prefix="x",
-                                 cross=True)[0]
+                                 cross=True, split=cache_split)[0]
         m_in = apply_norm(cfg, h, lp, "ln2")
         h = h + mlp_apply(cfg, lp, m_in)
     h = apply_norm(cfg, h, params, "final")
-    return lm_logits(cfg, params, h)[:, 0], cache
+    return _head(cfg, params, h)[:, 0], cache

@@ -272,7 +272,7 @@ def prefill(cfg, params, batch, cache_split: tp.CacheSplit = tp.NO_SPLIT):
     logits (B, V) float32, cache).  The attention families' cache is
     {"k", "v"}: (L, B, Nv + S, Hkv, hd); a gated config (`strap_decode`)
     gets the same cache: as in the reference, the caller adds the
-    per-strap key sums `ksum`.  The ssm and hybrid caches are as
+    per-strap key sums `ksum` (`strap_key_sums`).  The ssm and hybrid caches are as
     `cache_schema` gives them (the SSM state in float32).  Under a mesh
     the K/V are the rank's blocks of a cache laid out by `cache_split`
     (`tensor_parallel.cache_split`), and the SSM state and conv tail the
@@ -436,6 +436,15 @@ def cache_schema(cfg, batch: int, seq: int) -> Schema:
     }
 
 
+def strap_key_sums(k, strap: int):
+    """The gated decode's `ksum` of a K cache (..., S, Hkv, hd): each
+    strap's `strap` keys summed in float32 -> (..., S / strap, Hkv, hd),
+    as the reference's callers build it from the prefill's (padded)
+    keys."""
+    *lead, s, h, d = k.shape
+    return k.reshape(*lead, s // strap, strap, h, d).float().sum(-3)
+
+
 def _ssm_decode_stack(cfg, params, h, ssm, conv, *lead, key="layers"):
     """One token through the Mamba2 layers of `params[key]` (under the
     leading index `lead`); each layer's state written into `ssm[i]` and
@@ -456,8 +465,9 @@ def decode_step(cfg, params, cache, token, pos,
     float32 logits, cache).  The token's K/V (gated: and its key sum) or
     the SSM and conv states are written into `cache` in place; the same
     dict is returned.  `cache_split`: how a sharded serve step laid the
-    cache (the rank's block of the K/V positions, or whole; the SSM state
-    and conv tail the rank's blocks where the mixer splits)."""
+    cache (the rank's block of the K/V positions, or whole; the gated
+    cache's block of KV heads or of `head_dim`; the SSM state and conv
+    tail the rank's blocks where the mixer splits)."""
     dtype = torch_dtype(cfg.compute_dtype)
     h = embed_tokens(params, token, dtype,
                      _vocab_group(cfg, params))              # (B,1,D)
@@ -485,7 +495,7 @@ def decode_step(cfg, params, cache, token, pos,
             if gated:
                 attn_out = decode_attention_gated(
                     cfg, lp, a_in, cache["k"][li], cache["v"][li],
-                    cache["ksum"][li], pos)[0]
+                    cache["ksum"][li], pos, cache_split)[0]
             else:
                 attn_out = decode_attention(cfg, lp, a_in, cache["k"][li],
                                             cache["v"][li], pos,

@@ -44,18 +44,13 @@ def loss_fn(cfg, params, batch):
 
 
 def prefill(cfg, params, batch, cache_split=NO_SPLIT):
-    """`cache_split`: how the sharded serve steps lay the decoder-only
-    families' cache (`tensor_parallel.cache_split`); the enc-dec cache is
-    never split."""
-    if cfg.is_encdec:
-        return encdec.prefill(cfg, params, batch)
-    return lm.prefill(cfg, params, batch, cache_split)
+    """`cache_split`: how the sharded serve steps lay the cache
+    (`tensor_parallel.cache_split`)."""
+    return _mod(cfg).prefill(cfg, params, batch, cache_split)
 
 
 def decode_step(cfg, params, cache, token, pos, cache_split=NO_SPLIT):
-    if cfg.is_encdec:
-        return encdec.decode_step(cfg, params, cache, token, pos)
-    return lm.decode_step(cfg, params, cache, token, pos, cache_split)
+    return _mod(cfg).decode_step(cfg, params, cache, token, pos, cache_split)
 
 
 def cache_schema(cfg, batch: int, seq: int):

@@ -32,6 +32,7 @@ from ..distributed.collectives import (all_gather_cat, all_reduce,
 from ..distributed.sharding import (cache_specs, entry_axes, gather_block,
                                     local_block, tree_specs)
 from ..models import registry as M
+from ..models.lm import strap_key_sums
 from ..tree import leaves, tree_map, unflatten
 from .optimizer import (OptConfig, abstract_opt_state, make_optimizer,
                         opt_state_axes)
@@ -263,11 +264,16 @@ def make_sharded_serve_prefill(cfg, mesh, batch: int, seq: int):
     so that `make_sharded_serve_decode(cfg, mesh, batch, seq)` takes the
     blocks as they are.  Each rank computes on its blocks
     (`tensor_parallel.model_split`); where the cache's sequence splits
-    over "model" each layer's K/V leave as the rank's block (an
-    all-to-all from head blocks to sequence blocks), and the SSM state
-    and conv tail leave as the rank's blocks where the mixer splits
-    (`tensor_parallel.holds_block`); elsewhere the cache is cut from the
-    whole."""
+    over "model" each layer's K/V (the enc-dec family's self and cross
+    K/V) leave as the rank's block (an all-to-all from head blocks to
+    sequence blocks), the gated cache's K/V as the rank's KV heads or
+    its block of `head_dim`, and the SSM state and conv tail as the
+    rank's blocks where the mixer splits (`tensor_parallel.holds_block`);
+    elsewhere the cache is cut from the whole.  A gated config's cache
+    also gets `ksum`, the strap sums of the rank's block of the padded
+    keys (`lm.strap_key_sums`), as the reference's callers add it.  The
+    enc-dec family's `seq` is the cell's: `seq // 2` decoder positions
+    and encoder frames (`registry.cache_schema`)."""
     gather_specs, rows, split = _serve_geometry(cfg, mesh, batch, seq)
 
     @torch.no_grad()
@@ -276,8 +282,11 @@ def make_sharded_serve_prefill(cfg, mesh, batch: int, seq: int):
         with mesh_ctx.mesh_scope(mesh):
             logits, cache = M.prefill(cfg, full, inputs, split)
         del full
-        return (_whole_logits(cfg, mesh, logits),
-                _cache_blocks(cache, rows, mesh, split))
+        cache = _cache_blocks(cache, rows, mesh, split)
+        if tp.gated(cfg):
+            cache["ksum"] = strap_key_sums(cache["k"],
+                                           cfg.decode_strap_tokens)
+        return _whole_logits(cfg, mesh, logits), cache
 
     return serve_prefill
 
@@ -306,13 +315,18 @@ def make_sharded_serve_decode(cfg, mesh, batch: int, seq: int):
     blocks).  `params` are the rank's blocks, `cache` its blocks under
     `cache_specs` (global batch `batch`, length `seq`), `token` / `pos`
     its rows.  Where the cache's sequence splits over "model" (the
-    attention families, not gated, and the hybrid's shared block) each
-    rank attends its block of positions and the softmax statistics are
-    combined over the split axes; the rank owning `pos` writes the
-    token's K/V, in place.  Where the Mamba2 mixer splits, each rank
-    advances its heads' state and its block of the conv tail, in place.
-    Elsewhere (the gated decode, the enc-dec cache, a mixer that does not
-    split) the rank's rows of the leaf are gathered whole, decoded, and
+    attention families, not gated, the hybrid's shared block, the
+    enc-dec family's self and cross caches) each rank attends its block
+    of positions and the softmax statistics are combined over the split
+    axes; the rank owning `pos` writes the token's K/V, in place (the
+    cross cache is only read).  The gated decode's cache keeps the
+    sequence whole and splits its KV heads or `head_dim` over "model":
+    each rank selects the same straps from the summed scores and attends
+    its block (`attention.decode_attention_gated`), writing the token's
+    K/V and key sum into its block, in place.  Where the Mamba2 mixer
+    splits, each rank advances its heads' state and its block of the
+    conv tail, in place.  Elsewhere (a cache or mixer whose dims do not
+    divide) the rank's rows of the leaf are gathered whole, decoded, and
     its block cut back out, as the reference's GSPMD gathers them."""
     gather_specs, rows, split = _serve_geometry(cfg, mesh, batch, seq)
 

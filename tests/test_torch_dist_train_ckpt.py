@@ -3,9 +3,13 @@
 hybrid and enc-dec smoke configs against the port's single-process step
 and the reference's jitted `make_train_step` on the whole batch
 (tests/torch_dist_parity.py).  Where the mesh has more than one "model"
-rank the ssm and hybrid families compute on their blocks (the Mamba2
-mixer's heads, Zamba2's shared block, the vocab-parallel embedding and
-head); the enc-dec family gathers its leaves whole over "model".
+rank every family here computes on its blocks (the Mamba2 mixer's
+heads, Zamba2's shared block, Whisper's self and cross attention and
+MLP, the vocab-parallel embedding and head): whisper-tiny-smoke at
+(1, 1, 2) splits its query and KV heads, at (1, 1, 4) its query heads,
+the 2 KV heads gathered; its encoder's gradients (the encoder output is
+projected by each rank's cross K/V columns, the gradient summed over
+"model") are among the parameters held.
 mamba2-smoke also runs at opt level 7 (`ssm_split_proj`) and 8 (plus
 `seq_parallel`: 4 x 128 tokens, the SSD's 4 chunks of 32 over up to 4
 "model" ranks), against the reference at the same level.  Level 8 takes

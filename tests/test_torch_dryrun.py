@@ -4,9 +4,12 @@
   rank 0 of 256 runs `make_sharded_train_step` on 16 x 4,096 tokens and
   its "model" blocks, 4.43e13 matmul FLOPs (one 16th of the dense
   step's), its collectives derived from the block shapes;
-- Mamba2-780M's train_4k cell on the "single" mesh at full width and
-  depth: every leaf on its "model" block (`model_gathered` empty), rank
-  0's FLOPs reckoned from the block shapes;
+- Mamba2-780M's and Whisper-tiny's train_4k cells on the "single" mesh
+  at full width and depth: every leaf on its "model" block
+  (`model_gathered` empty), rank 0's FLOPs reckoned from the block
+  shapes;
+- Qwen2-1.5B's decode_32k cell at opt level 3 (the gated strap decode)
+  on the "single" mesh: its attention on the "model" blocks;
 - the "model" axis splits the dense compute: the per-rank FLOPs on a
   (1, 1, m) mesh are 1 / m of a one-rank mesh's at the same batch; for
   the ssm and hybrid families 1 / m but for the SSD's C·Bᵀ scores, which
@@ -119,6 +122,51 @@ def test_mamba2_780m_train_4k_on_the_single_mesh_at_full_width():
         + 3 * head
     assert r["flops_per_device"] == want == 26346403135488
     assert r["memory"]["peak_memory_in_bytes"] < 78.9e9 / 4
+
+
+def test_whisper_tiny_train_4k_on_the_single_mesh_at_full_width():
+    """Whisper-tiny's leaves all split over 16 "model" ranks (the
+    projections' 384 columns, 24 a rank; d_ff 1536; the padded vocab
+    51,968), the cross-attention's included: `model_gathered` is empty.
+    Its 6 heads do not divide 16, so every rank attends every head on
+    the gathered q / K / V.  Rank 0's FLOPs, from its block shapes (16
+    rows of 2,048 frames and 2,048 tokens): in each of the 4 encoder and
+    4 decoder layers the projections on 24 columns (the cross K/V
+    projecting the encoder's output), wo on 24 rows, the MLP on 96
+    columns, the whole attention (the scores and w . v of 6 heads), and
+    the head on its 3,248 vocab rows; each matmul three times (the
+    forward and two backward products; no remat; the first layer's
+    normed input needs its gradient for the norm's weights).  The
+    attention's probabilities of all 6 heads, kept for the backward on
+    every rank, set the peak: 30.8 GB, from 65.6 GB with every leaf
+    gathered."""
+    r = dryrun.run_cell("whisper-tiny", "train_4k", "single")
+    assert r["ok"] and r["model_gathered"] == []
+    cfg = registry.get_arch("whisper-tiny")
+    b, s, m = 16, 2048, 16
+    d, f, hd, h = cfg.d_model, cfg.d_ff, cfg.head_dim_, cfg.n_heads
+    proj = 2 * b * s * d * (d // m)          # one of wq / wk / wv / wo
+    mlp = 2 * 2 * b * s * d * (f // m)
+    attn = 2 * 2 * b * h * s * s * hd        # scores and w . v, S x S
+    enc = 4 * proj + attn + mlp
+    dec = 2 * (4 * proj + attn) + mlp        # self and cross
+    head = 2 * b * s * d * cfg.padded_vocab // m
+    want = 3 * (cfg.n_enc_layers * enc + cfg.n_layers * dec + head)
+    assert r["flops_per_device"] == want == 4159004737536
+    assert r["memory"]["peak_memory_in_bytes"] < 40e9
+
+
+def test_gated_decode_at_level_3_splits_its_attention():
+    """Qwen2-1.5B's decode_32k at opt level 3 (the gated strap decode) on
+    the "single" mesh: the projections on their "model" blocks
+    (`model_gathered` empty) and the cache's `head_dim` split over
+    "model" (2 KV heads do not divide 16), the selector's scores and the
+    logits summed over "model"."""
+    cfg = optlevels.apply_opt_level(registry.get_arch("qwen2-1.5b"),
+                                    "decode_32k", 3)
+    r = dryrun.run(cfg, "decode_32k", "single", dryrun.MESHES["single"], 3)
+    assert r["ok"] and r["model_gathered"] == []
+    assert 0 < r["collectives"]["by_axis"]["model"] < 0.5e9
 
 
 @pytest.mark.parametrize("m", [2, 4])

@@ -5,8 +5,9 @@ its per-pair plain version, the SSM scan and the ssm, hybrid and
 enc-dec decode steps on the card, and training: a train step on the card
 against the CPU, the SSD backward where its decay overflows, a
 checkpoint of the card's state restored on the CPU, the sharded
-train step on a one-rank NCCL mesh, bit for bit the train step, and the
-Mamba2 mixer split over two "model" ranks sharing the card.
+train step on a one-rank NCCL mesh, bit for bit the train step, and,
+over two "model" ranks sharing the card, the Mamba2 mixer, Whisper's
+cross-attention and the gated strap decode.
 
 Marked `gpu`: without a GPU every test here skips (the kernel has no CPU
 mode).  This file imports neither JAX nor the reference package, so it
@@ -1004,6 +1005,32 @@ def test_split_mamba2_mixer_on_two_ranks_sharing_the_card(cuda):
     assert [r["rank"] for r in results] == [0, 1]
     for res in results:
         assert len(res["errors"]) == 4, sorted(res["errors"])
+        for piece, errs in res["errors"].items():
+            for what, err in errs.items():
+                assert err <= 2e-5, (res["rank"], piece, what, err)
+
+
+def test_split_cross_attention_and_gated_decode_on_two_ranks(cuda):
+    """Whisper's cross-attention on the rank's heads (output and every
+    gradient, the encoder output's summed over "model") and its decode on
+    the rank's block of the cross cache's positions, and three gated
+    decode steps on the rank's KV heads (qwen2-1.5b-smoke, 4-token straps,
+    top 2: the same strap picks, the rank's blocks of K / V / key sums),
+    each of two gloo ranks on cuda:0 (`tests/torch_tp_children.py:
+    attn_card`), against the same function on one rank: 2e-5 of the
+    largest value (float32, TF32 off)."""
+    from pathlib import Path
+
+    from repro_torch.launch.group import run_group
+
+    results = run_group("torch_tp_children:attn_card", 2,
+                        dict(shape=(1, 1, 2)), 300,
+                        [Path(__file__).resolve().parent])
+    assert [r["rank"] for r in results] == [0, 1]
+    for res in results:
+        assert sorted(res["errors"]) == [
+            "qwen2-1.5b-smoke/gated_kv", "whisper-tiny-smoke/cross",
+            "whisper-tiny-smoke/cross_decode"]
         for piece, errs in res["errors"].items():
             for what, err in errs.items():
                 assert err <= 2e-5, (res["rank"], piece, what, err)

@@ -28,7 +28,7 @@ from repro_torch.distributed.sharding import (batch_specs, gather_tree,
                                               local_block, shard_tree)
 from repro_torch.launch.mesh import make_train_mesh
 from repro_torch.distributed.collectives import all_gather_cat
-from repro_torch.models import attention, common, lm, mlp, moe, ssm
+from repro_torch.models import attention, common, encdec, lm, mlp, moe, ssm
 from repro_torch.train.step import (make_sharded_serve_decode,
                                     make_sharded_serve_prefill,
                                     make_train_step, train_specs)
@@ -623,23 +623,36 @@ def _indivisible(mesh) -> dict:
 SERVE_B, SERVE_PROMPT, SERVE_STEPS, SERVE_LEN = 4, 16, 4, 32
 
 
-def serve_lengths(prompt: int | None) -> tuple[int, int]:
+def serve_lengths(prompt: int | None,
+                  steps: int = SERVE_STEPS) -> tuple[int, int]:
     """(prompt length, cache length) of a serve case: SERVE_PROMPT and
     SERVE_LEN, or a longer prompt (a `seq_parallel` prefill's, whose SSD
     chunks align with the ranks' blocks) and room for its steps."""
     if prompt is None:
         return SERVE_PROMPT, SERVE_LEN
-    return prompt, prompt + SERVE_STEPS
+    return prompt, prompt + steps
 
 
-def serve_inputs(cfg, seed: int = SEED, prompt: int = SERVE_PROMPT) -> dict:
-    """The prompts (and a VLM's vision embeddings) of the serve tests."""
+def cache_seq(cfg, length: int) -> int:
+    """The serve steps' `seq` for a cache of `length` positions: the
+    enc-dec family's cell holds `seq // 2` decoder positions and as many
+    encoder frames (`registry.cache_schema`)."""
+    return 2 * length if cfg.is_encdec else length
+
+
+def serve_inputs(cfg, seed: int = SEED, prompt: int = SERVE_PROMPT,
+                 frames: int = SERVE_LEN) -> dict:
+    """The prompts (and a VLM's vision embeddings, or an enc-dec model's
+    `frames` encoder frames) of the serve tests."""
     rng = np.random.default_rng(seed)
     batch = {"tokens": rng.integers(0, cfg.vocab_size,
                                     (SERVE_B, prompt)).astype(np.int32)}
     if cfg.n_vision_tokens:
         batch["vision_embeds"] = rng.standard_normal(
             (SERVE_B, cfg.n_vision_tokens, cfg.d_model), dtype=np.float32)
+    if cfg.is_encdec:
+        batch["enc_embeds"] = rng.standard_normal(
+            (SERVE_B, frames, cfg.d_model), dtype=np.float32)
     return {k: torch.as_tensor(v) for k, v in batch.items()}
 
 
@@ -654,56 +667,311 @@ def pad_seq(cache: dict, to: int) -> dict:
     return out
 
 
-def serve(shape, cases, out_dir: str) -> dict:
+def serve(shape, cases, out_dir: str, steps: int = SERVE_STEPS) -> dict:
     """Each case (label, arch, replace[, prompt length]): the sharded
     prefill of `serve_inputs` into the blocks of a cache of
-    `serve_lengths` positions and SERVE_STEPS greedy decode steps on them
+    `serve_lengths` positions and `steps` greedy decode steps on them
     at mesh `shape`.  Every rank's logits (its rows, the whole
     vocabulary) are gathered over the dp axes; rank 0 writes them and the
-    tokens to `out_dir/<shape>-<label>.npz`."""
+    tokens to `out_dir/<shape>-<label>.npz`, with a gated config's strap
+    ids (`attention.recording_selections`: rank 0's rows, one (B, K)
+    array a layer and step, the prefill's none).  Returns each case's
+    `tensor_parallel.cache_split` and which cache leaves the rank holds
+    as its blocks."""
     torch.set_num_threads(1)
     mesh = make_train_mesh(tuple(shape), device="cpu")
     rank = dist.get_rank()
     tag = "x".join(map(str, shape))
     groups = mesh_ctx.dp_groups(mesh)
+    out = {"rank": rank}
     for label, arch, rep, *prompt in cases:
         cfg = config(arch, rep)
-        prompt, length = serve_lengths(prompt[0] if prompt else None)
+        prompt, length = serve_lengths(prompt[0] if prompt else None, steps)
         p_specs, _ = train_specs(cfg, mesh)
         params = tree_map(torch.clone, shard_tree(K.start_params(cfg),
                                                   p_specs, mesh))
-        full = serve_inputs(cfg, prompt=prompt)
+        full = serve_inputs(cfg, prompt=prompt, frames=length)
         specs = batch_specs(full, mesh)
         inputs = {k: local_block(v, specs[k], mesh).contiguous()
                   for k, v in full.items()}
         s = prompt + cfg.n_vision_tokens
+        seq = cache_seq(cfg, length)
         logits, cache = make_sharded_serve_prefill(
-            cfg, mesh, SERVE_B, length)(params, inputs)
-        dec = make_sharded_serve_decode(cfg, mesh, SERVE_B, length)
+            cfg, mesh, SERVE_B, seq)(params, inputs)
+        dec = make_sharded_serve_decode(cfg, mesh, SERVE_B, seq)
         token = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
         all_logits, tokens = [logits], [token]
-        for i in range(SERVE_STEPS):
-            pos = torch.full((token.shape[0],), s + i, dtype=torch.int32)
-            token, logits, cache = dec(params, cache, token, pos)
-            all_logits.append(logits)
-            tokens.append(token)
+        with attention.recording_selections() as picks:
+            for i in range(steps):
+                pos = torch.full((token.shape[0],), s + i, dtype=torch.int32)
+                token, logits, cache = dec(params, cache, token, pos)
+                all_logits.append(logits)
+                tokens.append(token)
         lg = torch.stack(all_logits)
         tk = torch.cat(tokens, dim=1)
         for g in groups:
             lg = _gather_rows(lg, g, 1)
             tk = _gather_rows(tk, g, 0)
+        split = tp.cache_split(cfg, mesh, SERVE_B, seq)
+        out[label] = {"split": list(split),
+                      "blocks": sorted(k for k in cache
+                                       if tp.holds_block(k, split))}
         if rank == 0:
-            np.savez(Path(out_dir) / f"{tag}-{label}.npz",
-                     logits=lg.numpy(), tokens=tk.numpy())
-    return {"rank": rank}
+            arrays = {"logits": lg.numpy(), "tokens": tk.numpy()}
+            if picks:
+                arrays["strap_ids"] = np.stack([i.numpy() for i, _ in picks])
+            np.savez(Path(out_dir) / f"{tag}-{label}.npz", **arrays)
+    return out
 
 
-def several_serve(shapes, cases, out_dir: str) -> dict:
+def several_serve(shapes, cases, out_dir: str,
+                  steps: int = SERVE_STEPS) -> dict:
     """`serve` at each mesh shape in turn, in one group."""
-    return {"x".join(map(str, sh)): serve(sh, cases, out_dir)
+    return {"x".join(map(str, sh)): serve(sh, cases, out_dir, steps)
             for sh in shapes}
 
 
 def _gather_rows(t, group, dim):
     from repro_torch.distributed.collectives import all_gather_cat
     return all_gather_cat(t, group, dim)
+
+
+# ---------------------------------------------------------------------------
+# the encoder-decoder family over "model"
+# ---------------------------------------------------------------------------
+
+WHISPER = "whisper-tiny-smoke"
+# six heads: at 4 ranks neither the query nor the KV heads split, and
+# every rank attends every head (the path Whisper-tiny takes at 4 and 16)
+WHISPER_H6 = {"n_heads": 6, "n_kv_heads": 6}
+ENC_B, ENC_S, DEC_S = 2, 32, 64
+
+
+def _flat(tree) -> dict:
+    return {"/".join(path): x for path, x in leaves_with_paths(tree)}
+
+
+def _nest(flat: dict) -> dict:
+    out: dict = {}
+    for key, x in flat.items():
+        node = out
+        *head, last = key.split("/")
+        for part in head:
+            node = node.setdefault(part, {})
+        node[last] = x
+    return out
+
+
+def _tree_compare(cfg, mesh, name, fn, inputs: dict, wy) -> dict:
+    """`_compare` of fn(params, **inputs) -> y over the whole parameter
+    tree and `inputs` (their gradients too), the rank's form of the
+    parameters (`compute_form`) under the mesh."""
+    full = K.start_params(cfg)
+    whole = _flat(full)
+    mine = _flat(compute_form(cfg, mesh, full))
+    block_p = _param_block(cfg, mesh, whole, mine)
+    names = set(inputs)
+
+    def run(args, split):
+        def f(**kw):
+            params = _nest({k: v for k, v in kw.items() if k not in names})
+            return fn(params, **{k: kw[k] for k in names})
+        return _objective(f, args, wy)
+
+    return _compare(mesh, name, run, {**inputs, **whole},
+                    lambda k, t: t if k in names else block_p(k, t))
+
+
+def encdec_pieces(shape) -> dict:
+    """Whisper on the rank's blocks at mesh `shape` (1, 1, m): `encode`,
+    `decode_train` (from a given encoder output) and the loss, each's
+    output and the rank's blocks of every gradient (the encoder output's
+    and the frames' included) against the single-rank function, {piece:
+    {what: err of max}}; and the FLOPs of one loss and backward,
+    `_encdec_flops`, of whisper-tiny-smoke and, at 4 ranks, of its
+    six-head variant."""
+    torch.set_num_threads(1)
+    mesh = make_train_mesh(tuple(shape), device="cpu")
+    rng = np.random.default_rng(SEED + 12)
+    cfg = config(WHISPER, None)
+    frames = _rng_tensor(rng, (ENC_B, ENC_S, cfg.d_model))
+    enc_out = _rng_tensor(rng, (ENC_B, ENC_S, cfg.d_model))
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (ENC_B, DEC_S)))
+    batch = K.train_batch(cfg, ENC_B)
+    res = {}
+    res.update(_tree_compare(
+        cfg, mesh, f"{WHISPER}/encode",
+        lambda p, frames: encdec.encode(cfg, p, frames),
+        {"frames": frames}, _rng_tensor(rng, (ENC_B, ENC_S, cfg.d_model))))
+    res.update(_tree_compare(
+        cfg, mesh, f"{WHISPER}/decode_train",
+        lambda p, enc_out: encdec.decode_train(cfg, p, tokens, enc_out)[0],
+        {"enc_out": enc_out}, _rng_tensor(rng, (ENC_B, DEC_S, cfg.d_model))))
+    res.update(_tree_compare(
+        cfg, mesh, f"{WHISPER}/loss",
+        lambda p, frames: encdec.loss_fn(cfg, p, {**batch,
+                                                  "enc_embeds": frames}),
+        {"frames": batch["enc_embeds"]}, torch.ones(())))
+    flops = {WHISPER: _encdec_flops(cfg, mesh, batch)}
+    if shape[-1] == 4:
+        h6 = config(WHISPER, WHISPER_H6)
+        flops[WHISPER + "-h6"] = _encdec_flops(h6, mesh, batch)
+    return {"rank": dist.get_rank(), "errors": res, "flops": flops}
+
+
+def attention_flops(cfg, b: int, s_enc: int, s_dec: int) -> int:
+    """The attention's own matmul FLOPs in one loss and backward of the
+    enc-dec model: the scores q·kᵀ and w·v of every head, forward and
+    their two backward products each, in the encoder's self-attention
+    (S_enc x S_enc), the decoder's (S_dec x S_dec: every chunk against
+    the whole K/V, the mask applied after) and the cross-attention
+    (S_dec x S_enc)."""
+    per = 3 * 2 * 2 * b * cfg.n_heads * cfg.head_dim_
+    return per * (cfg.n_enc_layers * s_enc * s_enc
+                  + cfg.n_layers * (s_dec * s_dec + s_dec * s_enc))
+
+
+def _encdec_flops(cfg, mesh, batch) -> dict:
+    """`FlopCounterMode`'s FLOPs of one loss and backward on the whole
+    parameters (world 1) and on the rank's blocks under the mesh, and
+    the attention's share (`attention_flops`)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    full = K.start_params(cfg)
+
+    def count(params):
+        ps = leaves(params)
+        for t in ps:
+            t.requires_grad_(True)
+        with FlopCounterMode(display=False) as fc:
+            loss = encdec.loss_fn(cfg, params, batch)
+            torch.autograd.grad(loss, ps)
+        return float(fc.get_total_flops())
+
+    world1 = count(tree_map(torch.clone, full))
+    mine = tree_map(torch.clone, compute_form(cfg, mesh, full))
+    with mesh_ctx.mesh_scope(mesh):
+        rank = count(mine)
+    b, s_dec = batch["tokens"].shape
+    return {"world1": world1, "rank": rank,
+            "attention": float(attention_flops(
+                cfg, b, batch["enc_embeds"].shape[1], s_dec)),
+            "heads_split": cfg.n_heads % mesh_ctx.mesh_axis_sizes(
+                mesh)["model"] == 0}
+
+
+# ---------------------------------------------------------------------------
+# the split cross-attention and gated decode on the card
+# ---------------------------------------------------------------------------
+
+GATED = {"strap_decode": True, "decode_strap_tokens": 4,
+         "decode_top_straps": 2}
+
+
+def attn_card(shape, device: str = "cuda") -> dict:
+    """On `device` (the card: cuda:0 shared by the group's members, a gloo
+    group, TF32 off): Whisper's cross-attention on the rank's blocks
+    (`_cross`) and the gated decode on the rank's cache blocks
+    (`_gated`), each against the same function on one rank."""
+    if device == "cuda":
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(device, 0) if device == "cuda" else torch.device(device)
+    mesh = make_train_mesh(tuple(shape), device=device)
+    res = {}
+    res.update(_cross(config(WHISPER, None), mesh, dev))
+    res.update(_gated(config("qwen2-1.5b-smoke", GATED), mesh, dev))
+    return {"rank": dist.get_rank(), "errors": res}
+
+
+def _cross(cfg, mesh, dev) -> dict:
+    """Decoder layer 0's cross-attention: the prefill form on the rank's
+    heads (output and every gradient, the encoder output's summed over
+    "model"), and one decode step on the rank's block of the cross
+    cache's positions."""
+    rng = np.random.default_rng(SEED + 13)
+    full = K.start_params(cfg)
+    split = compute_form(cfg, mesh, full)
+    keys = ("xwq", "xwk", "xwv", "xwo")
+    whole, mine = _on(dev, *({k: t["dec_layers"][k][0] for k in keys}
+                             for t in (full, split)))
+    x = _rng_tensor(rng, (2, 16, cfg.d_model)).to(dev)
+    enc = _rng_tensor(rng, (2, 32, cfg.d_model)).to(dev)
+    wy = _rng_tensor(rng, (2, 16, cfg.d_model)).to(dev)
+    block_p = _param_block(cfg, mesh, whole, mine)
+    group = mesh.get_group("model")
+
+    def run(inputs, split_):
+        def fn(x, enc, **p):
+            if split_:
+                enc = tp.enter(enc, group, tp.stream(cfg))
+            return attention.causal_attention(
+                cfg, p, x, prefix="x", causal=False,
+                kv_override=encdec._cross_kv(cfg, p, enc))[0]
+        return _objective(fn, inputs, wy)
+
+    out = _compare(mesh, f"{WHISPER}/cross", run,
+                   {"x": x, "enc": enc, **whole},
+                   lambda k, t: t if k in ("x", "enc") else block_p(k, t))
+    hkv, hd = cfg.n_kv_heads, cfg.head_dim_
+    xk = _rng_tensor(rng, (4, 32, hkv, hd)).to(dev)
+    xv = _rng_tensor(rng, (4, 32, hkv, hd)).to(dev)
+    xt = _rng_tensor(rng, (4, 1, cfg.d_model)).to(dev)
+    pos = torch.full((4,), 20, dtype=torch.int32, device=dev)
+    spec = (None, "model", None, None)
+    with torch.no_grad():
+        y1 = attention.decode_attention(cfg, whole, xt, xk, xv, pos,
+                                        prefix="x", cross=True)[0]
+        with mesh_ctx.mesh_scope(mesh):
+            y2 = attention.decode_attention(
+                cfg, mine, xt, local_block(xk, spec, mesh).contiguous(),
+                local_block(xv, spec, mesh).contiguous(), pos, prefix="x",
+                cross=True, split=tp.CacheSplit(("model",)))[0]
+    out[f"{WHISPER}/cross_decode"] = {"y": _err(y2, y1)}
+    return out
+
+
+def _gated(cfg, mesh, dev) -> dict:
+    """Three `decode_attention_gated` steps on the rank's blocks of the
+    cache (its KV heads or its block of `head_dim`, as `cache_split`
+    reads the spec): each step's output and strap picks, and the rank's
+    blocks of the updated K / V / key sums, against the whole cache."""
+    rng = np.random.default_rng(SEED + 14)
+    full = K.start_params(cfg)
+    keys = [k for k in ("wq", "wk", "wv", "wo", "bq", "bk", "bv")
+            if k in full["layers"]]
+    whole, mine = _on(dev, *({k: t["layers"][k][0] for k in keys}
+                             for t in (full, compute_form(cfg, mesh, full))))
+    b, s = 4, 32
+    split = tp.cache_split(cfg, mesh, b, s)
+    dim = {"kv": 2, "headdim": 3}[split.gated_dim]
+    m = mesh_ctx.mesh_axis_sizes(mesh)["model"]
+    r = mesh_ctx.mesh_coords(mesh)["model"]
+
+    def blk(t):
+        n = t.shape[dim] // m
+        return t.narrow(dim, r * n, n).contiguous()
+
+    shape = (b, s, cfg.n_kv_heads, cfg.head_dim_)
+    k1, v1 = (_rng_tensor(rng, shape).to(dev) for _ in range(2))
+    ks1 = lm.strap_key_sums(k1, cfg.decode_strap_tokens)
+    k2, v2, ks2 = blk(k1), blk(v1), blk(ks1)
+    pos = torch.tensor([16, 19, 22, 27], dtype=torch.int32, device=dev)
+    errs = {}
+    with torch.no_grad():
+        for i in range(3):
+            x = _rng_tensor(rng, (b, 1, cfg.d_model)).to(dev)
+            with attention.recording_selections() as want:
+                y1 = attention.decode_attention_gated(cfg, whole, x, k1, v1,
+                                                      ks1, pos + i)[0]
+            with mesh_ctx.mesh_scope(mesh), \
+                    attention.recording_selections() as got:
+                y2 = attention.decode_attention_gated(cfg, mine, x, k2, v2,
+                                                      ks2, pos + i, split)[0]
+            errs[f"y{i}"] = _err(y2, y1)
+            errs[f"picks{i}"] = float(not torch.equal(
+                torch.sort(got[0][0], -1).values,
+                torch.sort(want[0][0], -1).values))
+    errs.update(k=_err(k2, blk(k1)), v=_err(v2, blk(v1)),
+                ksum=_err(ks2, blk(ks1)))
+    return {f"qwen2-1.5b-smoke/gated_{split.gated_dim}": errs}
