@@ -179,7 +179,8 @@ Phases (any failure exits non-zero and prints no result line):
    4 x 512 tokens, `moe_apply_ep` forward and backward in float32 and
    bf16 against `moe_apply` on each rank's own tokens (2e-5 of max in
    float32, 3e-2 in bf16), four all-to-alls (no fallback), the pairs
-   dropped and the times; the wall time of phases 29-31 and the ported
+   dropped and the times; the same call given the rank's expert block,
+   bit for bit (phase 37 (b)); the wall time of phases 29-31 and the ported
    kernels' launches there, this process's and each member's (its
    counts zeroed on entry and returned), summed and required to be 0
    (none lies on the path), on a log line;
@@ -199,7 +200,7 @@ Phases (any failure exits non-zero and prints no result line):
 34. the "model" axis: two gloo processes sharing the card, mesh
    (1, 1, 2), each computing on its "model" blocks
    (`distributed.tensor_parallel`): OLMo-1B at full width, its depth
-   cut to 8 of 16 layers for the script's time (`TP_OLMO`), weights
+   cut to 2 of 16 layers for the script's time (`TP_OLMO`), weights
    drawn as phase 29's, the first 2 x 2048 rows of its first two
    batches, twice: in float32 (the weights cast; the train bars'
    optimizer, eps 1e-3) and in bf16 (the config's dtype; phase 29's
@@ -220,7 +221,7 @@ Phases (any failure exits non-zero and prints no result line):
 35. the ssm and hybrid families on the "model" axis: two gloo processes
    sharing the card, mesh (1, 1, 2), each computing on its "model"
    blocks of the Mamba2 mixer (`models/ssm.py`), in float32 (the seeded
-   weights cast): (a) Mamba2-780M at full width, its depth cut to 16 of
+   weights cast): (a) Mamba2-780M at full width, its depth cut to 4 of
    48 layers for the script's time (`SSM_TP_MAMBA`), 2 x 1024
    tokens, one AdamW step at opt level 0 (the fused projection), 7 (the
    split projection) and 8 (plus `seq_parallel`: 512 tokens, 2 SSD
@@ -263,14 +264,43 @@ Phases (any failure exits non-zero and prints no result line):
    production mesh's path), one float32 step and the serving, each
    rank's FLOPs exactly a quarter of world 1's projection, MLP and head
    FLOPs plus all of its attention's (`encdec_attention_flops`); (c)
-   Qwen2-1.5B at full width and depth at opt level 3's gated strap
+   Qwen2-1.5B at full width, its depth cut to 4 of 28 layers
+   (`GATED_TP`), at opt level 3's gated strap
    decode (2048-token straps, top 4; float32) at both meshes: the
    sharded prefill of 2 x 10,240 prompts into a 16,384-position cache
    and 8 greedy steps, the cache's KV heads split at 2 ranks and its
    `head_dim` at 4, against the model functions (the same tokens,
    logits 2e-5 of max, the same strap ids at every layer and step);
    each rank's step times and peak logged; no ported kernel launched;
-37. one JSON line listing the ported kernels (row_cycle at the sweep's
+37. the MoE on the "model" axis: four gloo processes sharing the card,
+   mesh (1, 2, 2) (`moe_tp_member`), Phi-3.5-MoE at full width (d 4096,
+   16 experts of d_ff 6400, top 2), weights from `--seed`, every rank
+   its block of 8 experts: (a) one layer's mesh-global `moe_apply` on
+   the rank's 2 x 1024 tokens of a 4 x 1024 batch (each rank routes its
+   own tokens at the global capacity and exchanges the slots over
+   "data"), float32 at capacity factors 1.25 and 1.0 (pairs dropped
+   across the ranks) and bf16 at 1.25, against `moe_apply` on the whole
+   batch with every expert, run on rank 0 alone (each rank's pieces
+   gathered there): rows, aux and the gradients of x, the router and
+   the block's first and last experts within EP_BAR of max (EP_BF16_BAR
+   in bf16), the pairs dropped and the pairs the path kept (its slots,
+   summed over the ranks) equal to world 1's (and > 0 dropped at 1.0; a
+   top-k choice that differs is reported with world 1's probability
+   gap), each rank's `FlopCounterMode` FLOPs exactly a
+   quarter of world 1's expert products plus half of its router's
+   (`moe_layer_flops`); (b) `moe_apply_ep` given the rank's expert
+   block against the same call given the whole weights, bit for bit,
+   here at (1, 2, 2) in bf16 and in phase 31's group at (1, 1, 2) in
+   float32; (c) one
+   sharded train step of Phi-3.5-MoE cut to 1 of its 32 layers
+   (`MOE_TP_LAYERS`: world 1's float32 weights, gradients and AdamW
+   state on rank 0 must fit on the card beside the four ranks), float32,
+   opt level 0, 4 x 1024 tokens, against `make_train_step` on rank 0 at
+   phase 34's float32 bars (loss and grad norm 2e-5 relative,
+   parameters 2e-5 of max(max |want|, lr)), each rank's FLOPs exactly
+   `moe_train_flops` of its block shapes (world 1's too); each rank's
+   times and peak logged; no ported kernel launched;
+38. one JSON line listing the ported kernels (row_cycle at the sweep's
    one launch over 299,008 rows and at one 2048-row chunk, with the
    cycles of a step; rc_multistep at the phased path's ACT call, with
    cycles a step, its block as the library reports it and, in its
@@ -284,8 +314,8 @@ Phases (any failure exits non-zero and prints no result line):
    hybrid and enc-dec paths) and `by_shape` (the Pixtral and OLMo decode
    shapes); row_cycle's `launches_by_path` counts each path's launches,
    read around it; every entry's `launches_by_path` has `dist_train`,
-   its launches in phases 29-31 and 34-36, this process's and the
-   fourteen members' summed), then the card line, then the result line
+   its launches in phases 29-31 and 34-37, this process's and the
+   eighteen members' summed), then the card line, then the result line
    {"ok": true, "device": {...}}.
 
 It imports nothing of JAX and nothing of the JAX package.
@@ -3407,6 +3437,9 @@ def dist_member_ep(seed: int, arch: str, batch: int, seq: int,
         t2 = time.perf_counter()
         a2a = C.counts["all_to_all"] - before
         check(a2a == 4, f"C: {a2a} all-to-alls, expected 4 (EP fell back?)")
+        if dtype == torch.float32:          # phase 37 (b) at (1, 1, 2)
+            out["blocks"] = ep_blocks_vs_whole(cfg, mesh, p, x, wy, y,
+                                               grads, keys)
         # the reference semantics: moe_apply on this rank's tokens alone
         ps = {k: v.detach().requires_grad_() for k, v in p.items()}
         xs = x.detach()[:, r * sl:(r + 1) * sl].contiguous().requires_grad_()
@@ -3454,6 +3487,38 @@ def dist_member_ep(seed: int, arch: str, batch: int, seq: int,
             torch.cuda.empty_cache()
     out["kernel_launches"] = {n: k.launches for n, k in wrappers.items()}
     return out
+
+
+def ep_blocks_vs_whole(cfg, mesh, p, x, wy, y, grads, keys) -> dict:
+    """Phase 37 (b): `moe_apply_ep` given the rank's "model" block of
+    `we_*` (as the sharded steps give it) against the same call given the
+    whole weights (`p`, `x`; its output `y` and the gradients `grads` of
+    sum(y * wy) with respect to x and `p[k]` for k in `keys`): the output
+    and every gradient (the block's part of the whole weights'), each's
+    max |difference| of its max and whether all are equal bit for bit
+    (the arithmetic is the same)."""
+    import torch
+
+    from repro_torch.distributed import context as mesh_ctx
+    from repro_torch.models import moe
+
+    r = mesh_ctx.mesh_coords(mesh)["model"]
+    el = cfg.n_experts // mesh_ctx.mesh_axis_sizes(mesh)["model"]
+    block = {k: (v.detach()[r * el:(r + 1) * el].clone() if k.startswith(
+        "we_") else v.detach()).requires_grad_() for k, v in p.items()}
+    xb = x.detach().clone().requires_grad_()
+    with mesh_ctx.mesh_scope(mesh):
+        yb, _ = moe.moe_apply_ep(cfg, block, xb)
+        gb = torch.autograd.grad((yb.float() * wy).sum(),
+                                 [xb] + [block[k] for k in keys])
+    pairs = [("y", yb, y), ("grad_x", gb[0], grads[0])] + [
+        ("grad_" + k, g, w[r * el:(r + 1) * el] if k.startswith("we_")
+         else w) for k, g, w in zip(keys, gb[1:], grads[1:])]
+    errs = {n: ((a.detach().float() - b.detach().float()).abs().max()
+                / b.detach().float().abs().max()).item() for n, a, b in pairs}
+    same = all(torch.equal(a.detach(), b.detach()) for _, a, b in pairs)
+    return {"mesh": list(mesh_ctx.mesh_axis_sizes(mesh).values()),
+            "err_of_max": errs, "bit_identical": same}
 
 
 def dist_gloo_phase(args, dev, target: str, card: str, **kwargs) -> list:
@@ -3514,6 +3579,14 @@ def dist_ep_phase(args, dev, card) -> list:
                               arch=EP_ARCH, batch=EP_TOKENS[0],
                               seq=EP_TOKENS[1])
     for res in results:
+        blk = res["blocks"]
+        check(blk["bit_identical"], f"phase 37 (b) at (1, 1, 2): rank "
+              f"{res['rank']}: moe_apply_ep on its expert block differs from "
+              f"the whole weights' call: {blk['err_of_max']}")
+        log(f"[moe-tp] (b) rank {res['rank']} of 2 gloo, mesh (1, 1, 2), "
+            f"{res['arch']} float32: moe_apply_ep on the rank's expert block "
+            f"== on the whole weights bit for bit (worst "
+            f"{max(blk['err_of_max'].values()):.2e} of max) ({card})")
         for dt in ("float32", "bfloat16"):
             e = res[dt]
             log(f"[dist-C] rank {res['rank']} (model {res['model_coord']}) "
@@ -3697,10 +3770,10 @@ def twins_phase(dev) -> dict:
 # --------------------------------------------------------------------------
 
 # arch, global batch, seq (phase 29's rows), layers: OLMo-1B at full width
-# with its depth cut to 8 of 16 layers for the script's time (phase 36's
-# Whisper and gated decode took the room; the split is per layer, so half
-# the depth checks the same code)
-TP_OLMO = ("olmo-1b", 2, 2048, 8)
+# with its depth cut to 2 of 16 layers for the script's time (phases 36
+# and 37 took the room; the split is per layer, so two layers check the
+# same code)
+TP_OLMO = ("olmo-1b", 2, 2048, 2)
 TP_MESH = (1, 1, 2)
 TP_STEPS = 2
 # the float32 run's optimizer: the train bars' (tests/test_torch_train_step.py:
@@ -4097,9 +4170,9 @@ def tp_phase(args, dev, card) -> list:
 # --------------------------------------------------------------------------
 
 # arch, batch, seq (2 chunks a rank), layers: Mamba2-780M at full width
-# with its depth cut to 16 of 48 layers for the script's time (phase 36
-# took the room; every layer runs the same split schedule)
-SSM_TP_MAMBA = ("mamba2-780m", 2, 1024, 16)
+# with its depth cut to 4 of 48 layers for the script's time (phases 36
+# and 37 took the room; every layer runs the same split schedule)
+SSM_TP_MAMBA = ("mamba2-780m", 2, 1024, 4)
 SSM_TP_LEVELS = (0, 7, 8)                 # fused, split, split + seq_parallel
 SSM_TP_BF16_LEVEL = 7
 SSM_TP_SERVE = (2, 512, 8)                # prompts, prompt length, greedy steps
@@ -4480,11 +4553,13 @@ ATTN_TP_MESHES = ((1, 1, 2), (1, 1, 4))
 ENCDEC_TP = ("whisper-tiny", 2, 1024)    # arch, batch, tokens and frames
 ENCDEC_TP_SERVE = (2, 512, 8)            # prompts, prompt length, steps
 # Qwen2-1.5B at opt level 3's decode cell (2048-token straps, the top 4
-# kept): prompts, prompt length, cache positions, greedy steps.  A cut of
-# decode_32k's 32,768 positions: 16,384 (8 straps); the 10,240-token
-# prompts fill 5 and the decode writes the 6th, so the selector drops 2
-# of the 6 valid straps at every step
-GATED_TP = ("qwen2-1.5b", 2, 10240, 16384, 8)
+# kept): prompts, prompt length, cache positions, greedy steps, layers.
+# A cut of decode_32k's 32,768 positions: 16,384 (8 straps); the
+# 10,240-token prompts fill 5 and the decode writes the 6th, so the
+# selector drops 2 of the 6 valid straps at every step.  The depth is cut
+# to 4 of its 28 layers for the script's time (phase 37's MoE took the
+# room; every layer runs the same split gated decode)
+GATED_TP = ("qwen2-1.5b", 2, 10240, 16384, 8, 4)
 GATED_TP_STRAPS = (2048, 4)     # level 3's strap tokens and top straps
 
 
@@ -4641,7 +4716,8 @@ def attn_tp_member(seed: int, device: str, mesh: list, whisper: list,
     (TP_BF16_OC); then the sharded prefill of 2 x 512 prompts against
     the 1024 frames into a cache of 1024 positions (self and cross, each
     split along the sequence over "model") and 8 greedy decode steps.
-    (b) Qwen2-1.5B at full width and depth at opt level 3's decode cell
+    (b) Qwen2-1.5B at full width, its depth cut to 4 of 28 layers
+    (`GATED_TP`), at opt level 3's decode cell
     (the gated strap decode: `straps`, 2048-token straps, top 4), float32: the
     sharded prefill of 2 x 10,240 prompts into a cache of 16,384
     positions (GATED_TP: a cut of decode_32k's 32,768) and 8 greedy
@@ -4719,13 +4795,14 @@ def attn_tp_member(seed: int, device: str, mesh: list, whisper: list,
 
     # ---- (b) the gated decode -----------------------------------------------
     t_part = time.perf_counter()
-    garch, gb, gs, length, gsteps = gated
+    garch, gb, gs, length, gsteps, glayers = gated
+    gbase = dataclasses.replace(get_arch(garch), n_layers=glayers)
     gcfg = dataclasses.replace(
-        apply_opt_level(get_arch(garch), "decode_32k", 3),
+        apply_opt_level(gbase, "decode_32k", 3),
         param_dtype="float32", compute_dtype="float32",
         decode_strap_tokens=straps[0], decode_top_straps=straps[1])
     params = tree_map(lambda t: t.float(), models.init_params(
-        get_arch(garch), torch.Generator(dev).manual_seed(seed), dev))
+        gbase, torch.Generator(dev).manual_seed(seed), dev))
     free()
     prompts = torch.randint(0, gcfg.vocab_size, (gb, gs), generator=gen,
                             device=dev, dtype=torch.int32)
@@ -4879,6 +4956,472 @@ def attn_tp_phase(args, dev, card) -> dict:
           f"{bad}")
     return {"results": {"x".join(map(str, k)): v for k, v in results.items()},
             "wall_s": wall}
+
+
+# --------------------------------------------------------------------------
+# the MoE on the "model" axis
+# --------------------------------------------------------------------------
+
+MOE_TP_ARCH, MOE_TP_MESH = "phi3.5-moe-42b-a6.6b", (1, 2, 2)
+MOE_TP_TOKENS = (4, 1024)       # global batch x seq of (a) and (c)
+MOE_TP_CFS = (1.25, 1.0)        # the config's capacity factor; 1.0 drops
+# (c)'s depth, of Phi-3.5-MoE's 32 layers: world 1 on rank 0 (its float32
+# weights, gradients and AdamW state, 25 GB) must fit on the card beside
+# the four ranks' blocks
+MOE_TP_LAYERS = 1
+
+
+def moe_layer_flops(cfg, t: int, cap: int) -> tuple[int, int]:
+    """(router, expert products) FLOPs of one MoE layer's forward and
+    backward on `t` tokens at capacity `cap` (each product three times:
+    the forward and the two input gradients)."""
+    router = 3 * 2 * t * cfg.d_model * cfg.n_experts
+    experts = 3 * 3 * 2 * cfg.n_experts * cap * cfg.d_model * cfg.d_ff
+    return router, experts
+
+
+def moe_train_flops(cfg, b: int, s: int, dp: int, m: int) -> int:
+    """A rank's FLOPs of the MoE family's train step at opt level 0 on a
+    (1, dp, m) mesh, from its block shapes: t = b / dp x s tokens a rank;
+    in each layer the attention on its H / m query and KV / m KV heads
+    (the projections, wo, the S x S scores and w . v), the router whole
+    on its t tokens and the three expert products of its E / m experts
+    over its ceil(cap / dp) slots each, cap the whole batch's; each four
+    times under remat (the forward, its recompute, two backward
+    products); the head on its V / m vocab rows three times."""
+    from repro_torch.models.moe import _capacity
+
+    t, d, f, e = b // dp * s, cfg.d_model, cfg.d_ff, cfg.n_experts
+    hd, h, kv = cfg.head_dim_, cfg.n_heads, cfg.n_kv_heads
+    proj = 2 * t * d * (h + 2 * kv) * hd // m + 2 * t * (h * hd // m) * d
+    attn = 2 * 2 * (b // dp) * (h // m) * s * s * hd
+    c = -(-_capacity(cfg, b * s) // dp)
+    layer = proj + attn + 2 * t * d * e + 3 * 2 * (e // m) * c * d * f
+    head = 2 * t * d * cfg.padded_vocab // m
+    return cfg.n_layers * (4 if cfg.remat else 3) * layer + 3 * head
+
+
+def _rank_coords(mesh) -> list[dict]:
+    """Every rank's coordinates on `mesh`, by rank."""
+    grid = mesh.mesh.tolist()
+    names = mesh.mesh_dim_names
+    coords = {r: dict(zip(names, (i, j, k)))
+              for i, plane in enumerate(grid) for j, row in enumerate(plane)
+              for k, r in enumerate(row)}
+    return [coords[r] for r in range(len(coords))]
+
+
+def _to_rank0(tensors: dict) -> list | None:
+    """Every rank's `tensors` (the same names and shapes on every rank)
+    on rank 0's host, one gather a tensor: [{name: tensor} a rank] on
+    rank 0, None elsewhere."""
+    import torch
+    import torch.distributed as dist
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    out = [{} for _ in range(world)] if rank == 0 else None
+    for name, t in tensors.items():
+        t = t.detach().cpu().contiguous()
+        parts = [torch.empty_like(t) for _ in range(world)] if rank == 0 \
+            else None
+        dist.gather(t, parts, dst=0)
+        if rank == 0:
+            for r, part in enumerate(parts):
+                out[r][name] = part
+    return out
+
+
+def _moe_layer_vs_world1(cfg, mesh, p, x, wy, bar) -> dict:
+    """Phase 37 (a), one run: the mesh-global `moe_apply` on this rank's
+    batch rows and its "model" block of the experts, the gradients of
+    sum(y * wy) + aux (each rank's loss adds aux / dp).  Every rank's
+    rows, aux, x's gradient, the router's and the block's first and last
+    experts' gradients summed over "data", and its top-k choices go to
+    rank 0 (`_to_rank0`), which alone then runs `moe_apply` on the whole
+    batch with every expert (world 1) and holds each rank's against it
+    ("err_by_rank", the worst of each in "err_of_max"), each choice that
+    differs reported with world 1's k-th / (k+1)-th probability gap.
+    The pairs the path kept (its slots below `_global_slots`' sentinel,
+    summed over every rank) and the pairs dropped (the ranks' counts
+    summed over dp against the global capacity) against world 1's; the
+    FLOPs of each rank and of world 1."""
+    import torch
+    import torch.distributed as dist
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed import context as mesh_ctx
+    from repro_torch.models import moe
+
+    coords = mesh_ctx.mesh_coords(mesh)
+    sizes = mesh_ctx.mesh_axis_sizes(mesh)
+    n_dp = mesh_ctx.dp_size(mesh)
+    i, r = mesh_ctx.dp_index(mesh), coords["model"]
+    data = mesh.get_group("data")
+    el = cfg.n_experts // sizes["model"]
+    b = x.shape[0] // n_dp
+    rows = slice(i * b, (i + 1) * b)
+    d = x.shape[-1]
+    keys = sorted(p)
+    t_all = x.shape[0] * x.shape[1]
+    cap = moe._capacity(cfg, t_all)
+    # ---- the mesh: the rank's rows and expert block -------------------------
+    pm = {k: (v.detach()[r * el:(r + 1) * el].clone() if k.startswith("we_")
+              else v.detach()).requires_grad_() for k, v in p.items()}
+    xm = x.detach()[rows].clone().requires_grad_()
+    with recording(moe, "_global_slots", outputs=True) as calls:
+        with FlopCounterMode(display=False) as fm:
+            with mesh_ctx.mesh_scope(mesh):
+                y, aux = moe.moe_apply(cfg, pm, xm)
+                gm = torch.autograd.grad(
+                    (y.float() * wy[rows]).sum() + aux / n_dp,
+                    [xm] + [pm[k] for k in keys])
+    got = {"y": y.detach(), "grad_x": gm[0], "aux": aux.detach().reshape(1)}
+    for k, g in zip(keys, gm[1:]):
+        got["grad_" + k] = C.all_reduce(g if k == "router" else g[
+            [0, el - 1]], data)
+    with torch.no_grad():
+        _, _, got["idx"] = moe._route(cfg, p, xm.detach().reshape(-1, d))
+        counts = torch.bincount(got["idx"].reshape(-1),
+                                minlength=cfg.n_experts)
+        for g in mesh_ctx.dp_groups(mesh):
+            counts = C.all_reduce(counts, g)
+        kept = torch.tensor([sum(int((o[0] < a[2].shape[0] * a[7] * a[5])
+                                     .sum()) for a, _, o in calls)])
+        dist.all_reduce(kept)
+    router_w, experts_w = moe_layer_flops(cfg, t_all, cap)
+    out = {"bar": bar, "aux": aux.item(), "capacity": cap,
+           "dropped": int((counts - cap).clamp(min=0).sum()),
+           "kept": int(kept), "pairs": t_all * cfg.top_k,
+           "flops": float(fm.get_total_flops()),
+           "flops_formula": experts_w / 4 + router_w / 2}
+    ranks = _to_rank0(got)
+    del pm, xm, y, gm, got
+    if ranks is None:
+        return out
+    # ---- rank 0: world 1 ------------------------------------------------------
+    dev = x.device
+    pw = {k: v.detach().requires_grad_() for k, v in p.items()}
+    xw = x.detach().requires_grad_()
+    with FlopCounterMode(display=False) as fw:
+        yw, auxw = moe.moe_apply(cfg, pw, xw)
+        gw = torch.autograd.grad((yw.float() * wy).sum() + auxw,
+                                 [xw] + [pw[k] for k in keys])
+    gw = dict(zip(["x"] + keys, gw))
+    with torch.no_grad():
+        probs, _, idx_w = moe._route(cfg, p, x.reshape(-1, d))
+        top = torch.topk(probs, cfg.top_k + 1, dim=-1).values
+    counts_w = torch.bincount(idx_w.reshape(-1), minlength=cfg.n_experts)
+    per_rank, differ_n, gaps = [], 0, []
+    for rank_r, (co, g) in enumerate(zip(_rank_coords(mesh), ranks)):
+        i_r = co["pod"] * sizes["data"] + co["data"]
+        ends = [co["model"] * el, (co["model"] + 1) * el - 1]
+        want = {"y": yw.detach()[i_r * b:(i_r + 1) * b],
+                "grad_x": gw["x"][i_r * b:(i_r + 1) * b]}
+        for k in keys:
+            want["grad_" + k] = gw[k] if k == "router" else gw[k][ends]
+        errs = {n: ((g[n].to(dev).float() - w.float()).abs().max()
+                    / w.float().abs().max()).item() for n, w in want.items()}
+        errs["aux"] = rel(g["aux"].item(), auxw.item())
+        per_rank.append(errs)
+        tok = slice(i_r * b * x.shape[1], (i_r + 1) * b * x.shape[1])
+        differ = (torch.sort(g["idx"].to(dev), -1).values
+                  != torch.sort(idx_w[tok], -1).values).any(-1)
+        differ_n += int(differ.sum())
+        gaps += (top[tok, -2] - top[tok, -1])[differ].tolist()
+    out.update({
+        "err_by_rank": per_rank,
+        "err_of_max": {n: max(e[n] for e in per_rank) for n in per_rank[0]},
+        "aux_world1": auxw.item(),
+        "dropped_world1": int((counts_w - cap).clamp(min=0).sum()),
+        # the pairs world 1 computes: each expert's first cap, less the
+        # last expert's slot cap - 1 where it overflows (queue 3)
+        "kept_world1": int(counts_w.clamp(max=cap).sum())
+        - int(counts_w[-1] > cap),
+        "choices_differing": differ_n, "differing_gaps": gaps,
+        "flops_world1": float(fw.get_total_flops()),
+        "flops_world1_formula": router_w + experts_w})
+    return out
+
+
+def _blocks_to_rank0(params, mesh) -> list:
+    """Every rank's blocks of every parameter leaf on rank 0's host, in
+    flattening order: [[(the rank's mesh coordinates, its block), ...]
+    a leaf] on rank 0, [] elsewhere.  One gather a leaf to rank 0 (a
+    quarter of what gathering every leaf onto every rank moves)."""
+    from repro_torch.tree import leaves
+
+    coords = _rank_coords(mesh)
+    out = []
+    for n, x in enumerate(leaves(params)):
+        parts = _to_rank0({n: x})
+        if parts is not None:
+            out.append([(coords[r], part[n]) for r, part in enumerate(parts)])
+    return out
+
+
+def moe_tp_member(seed: int, device: str, arch: str, tokens: list,
+                  cfs: list, ep_tokens: list, layers: int) -> dict:
+    """Phase 37, in each of four gloo processes sharing cuda:0, mesh
+    (1, 2, 2): Phi-3.5-MoE at full width (d 4096, 16 experts of d_ff
+    6400, top 2), weights from `seed`, every rank its 8-expert block.
+
+    (a) one layer's mesh-global `moe_apply` on the rank's 2 x 1024 tokens
+    of a 4 x 1024 batch, float32, at each capacity factor of `cfs` (1.0
+    drops pairs across the ranks), then bf16 at the first, against world
+    1 on rank 0 (`_moe_layer_vs_world1`);
+    (b) `moe_apply_ep` given the rank's expert block against the same
+    call given the whole weights (`ep_blocks_vs_whole`), bf16 (phase 31
+    runs it in float32 at (1, 1, 2)), on the rank's rows of an
+    `ep_tokens` batch;
+    (c) one sharded train step of the model cut to `layers` layers,
+    float32, opt level 0, on the rank's rows of a 4 x 1024 batch (the
+    rank's FLOPs, step time, peak; every rank's parameter blocks sent to
+    rank 0, `_blocks_to_rank0`); rank 0 alone then runs
+    `make_train_step` on the whole batch (`_world1_train`) and holds
+    each rank's blocks against the same blocks of its parameters."""
+    import dataclasses as dc
+
+    import torch
+    import torch.distributed as dist
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.distributed import context as mesh_ctx
+    from repro_torch.distributed.sharding import local_block, shard_tree
+    from repro_torch.launch.mesh import make_train_mesh
+    from repro_torch.models import moe
+    from repro_torch.models import registry as models
+    from repro_torch.models.common import init_from_schema
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.step import make_sharded_train_step, train_specs
+    from repro_torch.tree import leaves, leaves_with_paths, tree_map
+
+    wrappers = _zero_launches()
+    set_precision()
+    dev = _member_device(device)
+    mesh = make_train_mesh(MOE_TP_MESH, device=device)
+    rank = dist.get_rank()
+    base = get_arch(arch)
+    out = {"rank": rank, "mesh": list(MOE_TP_MESH), "arch": base.name,
+           "coords": mesh_ctx.mesh_coords(mesh), "wall_s": {},
+           "experts_a_rank": base.n_experts // MOE_TP_MESH[2],
+           "rows_a_rank": tokens[0] // mesh_ctx.dp_size(mesh)}
+    # ---- (a) ------------------------------------------------------------------
+    t0 = time.perf_counter()
+    p32 = init_from_schema(moe.moe_schema(base),
+                           torch.Generator(dev).manual_seed(seed),
+                           torch.float32, dev)
+    gen = torch.Generator(dev).manual_seed(seed + 37)
+    b, s = tokens
+    x32 = torch.randn((b, s, base.d_model), generator=gen, device=dev)
+    wy = torch.randn((b, s, base.d_model), generator=gen, device=dev)
+    out["layer"] = {}
+    runs = [(f"float32 cf {cf}", torch.float32, cf, EP_BAR) for cf in cfs]
+    runs.append((f"bfloat16 cf {cfs[0]}", torch.bfloat16, cfs[0],
+                 EP_BF16_BAR))
+    for name, dtype, cf, bar in runs:
+        cfg = dc.replace(base, capacity_factor=cf)
+        p = {k: v.to(dtype) for k, v in p32.items()}
+        sync(dev)
+        t1 = time.perf_counter()
+        out["layer"][name] = _moe_layer_vs_world1(cfg, mesh, p, x32.to(dtype),
+                                                  wy, bar)
+        sync(dev)
+        out["layer"][name]["wall_s"] = time.perf_counter() - t1
+        del p
+    del x32, wy
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    out["wall_s"]["a"] = time.perf_counter() - t0
+    # ---- (b) ------------------------------------------------------------------
+    t0 = time.perf_counter()
+    gen = torch.Generator(dev).manual_seed(seed + 1)
+    b, s = ep_tokens
+    x = torch.randn((b, s, base.d_model), generator=gen, device=dev)
+    wy = torch.randn((b, s, base.d_model), generator=gen, device=dev)
+    n = b // mesh_ctx.dp_size(mesh)
+    rows = slice(mesh_ctx.dp_index(mesh) * n, (mesh_ctx.dp_index(mesh) + 1) * n)
+    x = x[rows].to(torch.bfloat16).requires_grad_()
+    wy = wy[rows].contiguous()
+    p = {k: v.to(torch.bfloat16).requires_grad_() for k, v in p32.items()}
+    keys = sorted(p)
+    with mesh_ctx.mesh_scope(mesh):
+        y, _ = moe.moe_apply_ep(base, p, x)
+        grads = torch.autograd.grad((y.float() * wy).sum(),
+                                    [x] + [p[k] for k in keys])
+    out["ep"] = ep_blocks_vs_whole(base, mesh, p, x, wy, y, grads, keys)
+    del p, p32, x, wy, y, grads
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    out["wall_s"]["b"] = time.perf_counter() - t0
+    # ---- (c) ------------------------------------------------------------------
+    t0 = time.perf_counter()
+    cfg = dc.replace(base, n_layers=layers, param_dtype="float32",
+                     compute_dtype="float32")
+    oc = OptConfig(**TP_OC)
+    start = models.init_params(cfg, torch.Generator(dev).manual_seed(seed),
+                               dev)
+    b, s = tokens
+    gen = torch.Generator(dev).manual_seed(seed + 38)
+    toks = torch.randint(0, cfg.vocab_size, (b, s + 1), generator=gen,
+                         device=dev, dtype=torch.int32)
+    whole = {"tokens": toks[:, :-1].contiguous(),
+             "targets": toks[:, 1:].contiguous()}
+    p_specs, _ = train_specs(cfg, mesh)
+    params = tree_map(torch.clone, shard_tree(start, p_specs, mesh))
+    del start                   # rank 0 draws it again for world 1
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    fn, opt = make_sharded_train_step(cfg, mesh, oc)
+    state = opt.init(params)
+    with FlopCounterMode(display=False) as flops:
+        params, state, metrics, ms = timed_run(
+            fn, params, state, [_local_batch(whole, mesh)])
+    step = {"flops": float(flops.get_total_flops()), "step_ms": ms,
+            "metrics": [m.item() for m in metrics], "peak_gb": _peak_gb(dev),
+            "flops_formula": moe_train_flops(
+                cfg, b, s, mesh_ctx.dp_size(mesh),
+                mesh_ctx.mesh_axis_sizes(mesh)["model"])}
+    got = _blocks_to_rank0(params, mesh)
+    del params, state, fn, opt
+    out["step"] = step
+    out["wall_s"]["c"] = time.perf_counter() - t0
+    out["kernel_launches"] = {n: k.launches for n, k in wrappers.items()}
+    if rank != 0:
+        # the other ranks' memory goes back to the card before rank 0's
+        # world 1 (their processes wait for it in the group's teardown)
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        return out
+    # ---- rank 0: world 1 of (c) ---------------------------------------------
+    t0 = time.perf_counter()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    start = models.init_params(cfg, torch.Generator(dev).manual_seed(seed),
+                               dev)
+    step["world1"], want = _world1_train(cfg, oc, start, [whole], dev)
+    step["world1"]["flops_formula"] = moe_train_flops(cfg, b, s, 1, 1)
+    step["metric_rel"] = [rel(a, w) for a, w in zip(
+        step["metrics"], step["world1"]["metrics"])]
+    errs = {}
+    for (path, w), sp, blocks in zip(leaves_with_paths(want),
+                                     leaves(p_specs), got):
+        scale = max(w.abs().max().item(), oc.lr)
+        errs["/".join(path)] = max(
+            (blk.to(dev) - local_block(w, sp, mesh, coords)).abs().max()
+            .item() for coords, blk in blocks) / scale
+    step["param_worst"] = max(errs.values())
+    step["param_worst_leaf"] = max(errs, key=errs.get)
+    out["wall_s"]["c_world1"] = time.perf_counter() - t0
+    out["kernel_launches"] = {n: k.launches for n, k in wrappers.items()}
+    return out
+
+
+def _moe_tp_bad(results) -> list[str]:
+    """What fails of phase 37's readings against its bars."""
+    bad = []
+    for name, w in results[0]["layer"].items():
+        bad += [f"(a) {name}: rank {r} {k} {e:.3e} of max (bar {w['bar']})"
+                for r, errs in enumerate(w["err_by_rank"])
+                for k, e in errs.items() if e > w["bar"]]
+        if w["flops_world1"] != w["flops_world1_formula"]:
+            bad.append(f"(a) {name}: world 1 FLOPs {w['flops_world1']} "
+                       f"(formula {w['flops_world1_formula']})")
+    for res in results:
+        tag = f"rank {res['rank']}"
+        for name, a in res["layer"].items():
+            w = results[0]["layer"][name]
+            if (a["dropped"], a["kept"]) != (w["dropped_world1"],
+                                             w["kept_world1"]):
+                bad.append(f"(a) {tag} {name}: dropped {a['dropped']}, kept "
+                           f"{a['kept']} against world 1's "
+                           f"{w['dropped_world1']}, {w['kept_world1']} "
+                           f"(choices differing {w['choices_differing']}, "
+                           f"world 1's gaps there {w['differing_gaps']})")
+            if name.startswith("float32 cf 1.0") and not a["dropped"]:
+                bad.append(f"(a) {tag} {name}: no pair dropped")
+            if a["flops"] != a["flops_formula"]:
+                bad.append(f"(a) {tag} {name}: FLOPs {a['flops']} (formula "
+                           f"{a['flops_formula']})")
+        if not res["ep"]["bit_identical"]:
+            bad.append(f"(b) {tag}: blocks vs whole {res['ep']['err_of_max']}")
+        st = res["step"]
+        if st["flops"] != st["flops_formula"]:
+            bad.append(f"(c) {tag}: FLOPs {st['flops']}, formula "
+                       f"{st['flops_formula']}")
+        if st["metrics"] != results[0]["step"]["metrics"]:
+            bad.append(f"(c) {tag}: metrics {st['metrics']} differ from "
+                       "rank 0's")
+    st = results[0]["step"]
+    if st["world1"]["flops"] != st["world1"]["flops_formula"]:
+        bad.append(f"(c) world 1 FLOPs {st['world1']['flops']}, formula "
+                   f"{st['world1']['flops_formula']}")
+    bad += [f"(c) metric {i} rel {e:.3e}" for i, e in
+            enumerate(st["metric_rel"]) if e > TP_BAR]
+    if st["param_worst"] > TP_BAR:
+        bad.append(f"(c) {st['param_worst_leaf']} {st['param_worst']:.3e}")
+    return bad
+
+
+def moe_tp_phase(args, dev, card) -> list:
+    """Phase 37 from the parent (see `moe_tp_member`): four gloo
+    processes sharing the card, the bars and the log lines."""
+    import torch
+
+    from repro_torch.launch.group import run_group
+
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    results = run_group("chip_smoke:moe_tp_member", math.prod(MOE_TP_MESH),
+                        dict(seed=args.seed, device=dev.type,
+                             arch=MOE_TP_ARCH, tokens=list(MOE_TP_TOKENS),
+                             cfs=list(MOE_TP_CFS),
+                             ep_tokens=list(EP_TOKENS),
+                             layers=MOE_TP_LAYERS),
+                        timeout_s=DIST_TIMEOUT_S, pythonpath=[ROOT])
+    for res in results:
+        for name, a in res["layer"].items():
+            w = results[0]["layer"][name]
+            errs = w["err_by_rank"][res["rank"]]
+            log(f"[moe-tp] (a) rank {res['rank']} {res['coords']} of 4 gloo "
+                f"on the card, {res['arch']} layer {name}, "
+                f"{res['rows_a_rank']} x {MOE_TP_TOKENS[1]} tokens and "
+                f"{res['experts_a_rank']} experts a rank: worst "
+                f"{max(errs.values()):.2e} of max ("
+                f"{max(errs, key=errs.get)}; bar {a['bar']}), dropped "
+                f"{a['dropped']} and kept {a['kept']} of {a['pairs']} "
+                f"(world 1 {w['dropped_world1']} and {w['kept_world1']}, cap "
+                f"{a['capacity']}), choices differing "
+                f"{w['choices_differing']}, FLOPs {a['flops']:.6e} = "
+                f"{a['flops_formula']:.6e} (world 1 {w['flops_world1']:.6e}"
+                f"), {a['wall_s']:.1f} s ({card})")
+        log(f"[moe-tp] (b) rank {res['rank']} mesh (1, 2, 2): moe_apply_ep "
+            f"on the rank's expert block "
+            + ("== on the whole weights bit for bit" if res["ep"][
+                "bit_identical"] else "DIFFERS from the whole weights'")
+            + f" (worst {max(res['ep']['err_of_max'].values()):.2e} of max) "
+            f"({card})")
+        st = res["step"]
+        log(f"[moe-tp] (c) rank {res['rank']}: {res['arch']} "
+            f"({MOE_TP_LAYERS} layer), float32, {MOE_TP_TOKENS[0]} x "
+            f"{MOE_TP_TOKENS[1]} global: {st['flops']:.6e} FLOPs (formula "
+            f"{st['flops_formula']:.6e}), step ms "
+            f"{[round(x, 1) for x in st['step_ms']]}, peak {st['peak_gb']} "
+            f"GB; wall s by part "
+            f"{ {k: round(v, 1) for k, v in res['wall_s'].items()} } "
+            f"({card})")
+    st = results[0]["step"]
+    log(f"[moe-tp] (c) world 1 on rank 0: step ms "
+        f"{[round(x, 1) for x in st['world1']['step_ms']]}, FLOPs "
+        f"{st['world1']['flops']:.6e}, peak {st['world1']['peak_gb']} GB; "
+        f"loss / grad norm rel {[f'{x:.2e}' for x in st['metric_rel']]}; "
+        f"worst parameter {st['param_worst']:.2e} "
+        f"({st['param_worst_leaf']}) ({card})")
+    bad = _moe_tp_bad(results)
+    check(not bad, f"phase 37 (the MoE on \"model\"): {bad}")
+    return results
 
 
 def main(argv=None) -> int:
@@ -5412,7 +5955,7 @@ def main(argv=None) -> int:
                     for key in ("pixtral", "olmo")}
     # strap_attend's kernels-line entry is timed here, with the serving
     # phases, from a profiled run whose recorded kernels match the
-    # launches (`strap_profiled`); phase 37 profiles it again after the
+    # launches (`strap_profiled`); phase 38 profiles it again after the
     # distributed phases, where earlier runs of this script read 0.0013-
     # 0.0051 ms against its 0.0051 ms byte bound (PERF.md)
     strap_entry = strap_line(
@@ -5540,7 +6083,25 @@ def main(argv=None) -> int:
         f"ported kernels launched there, the six members summed (none lies "
         f"on the path): {attn_launches}")
 
-    # 37. the kernels line: row_cycle at the sized path's one launch over
+    # 37. the MoE on the "model" axis: four gloo processes on the card,
+    #    mesh (1, 2, 2): Phi-3.5-MoE's layer (mesh-global moe_apply on the
+    #    rank's tokens and expert block; moe_apply_ep on its block) and one
+    #    train step, against world 1 (none of the ported kernels lies on
+    #    the path)
+    t_moe = time.perf_counter()
+    record["moe_tp"] = moe_tp_phase(args, dev, card)
+    record["moe_tp_wall_s"] = time.perf_counter() - t_moe
+    moe_launches = {n: sum(r["kernel_launches"][n] for r in record["moe_tp"])
+                    for n in dist_launches}
+    check(not any(moe_launches.values()),
+          f"phase 37 launched a ported kernel: {moe_launches}")
+    for n, c in moe_launches.items():
+        dist_launches[n] += c
+    log(f"[moe-tp] phase 37 wall time {record['moe_tp_wall_s']:.1f} s; "
+        f"ported kernels launched there, the four members summed (none lies "
+        f"on the path): {moe_launches}")
+
+    # 38. the kernels line: row_cycle at the sized path's one launch over
     #    299,008 rows and at one 2048-row chunk; rc_multistep at the phased
     #    path's ACT call; strap_attend at the full-width path's last
     #    exact-mode (and gated) step
@@ -5562,7 +6123,7 @@ def main(argv=None) -> int:
     late = [strap_profiled(strap_kernel, [(a, kw) for a, kw, _ in
                                           strap_calls["strap_exact"]], False)
             for _ in range(10)]
-    strap_entry["profiled_after_phase_36"] = {
+    strap_entry["profiled_after_phase_37"] = {
         "ms": [sum(ms.values()) if ms else None for ms, _ in late],
         "missed_runs": [m for _, ms in late for m in ms]}
     line = {"kernels": [{

@@ -21,6 +21,8 @@ explicit:
   ("pod", "data"), the gradients reduced with `hierarchical_psum_tree`
   and each rank updates only its own blocks
   (`train.step.make_sharded_train_step`);
-- the expert-parallel MoE (`models.moe.moe_apply_ep`, `cfg.moe_ep`)
-  splits its experts over "model" itself.
+- the MoE routes the rank's own tokens and computes the slots of its
+  experts (`models.moe`): the mesh-global `moe_apply` exchanges slots
+  over the dp ranks at the global capacity, the expert-parallel
+  `moe_apply_ep` (`cfg.moe_ep`) over "model" at the local one.
 """

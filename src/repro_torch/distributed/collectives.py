@@ -26,9 +26,10 @@ stays on the tensor's device (`_via_host`); a gloo group of one rank
 skips the round trip.  NCCL takes CUDA tensors directly.  16-bit floats
 travel as raw bytes (`_as_bytes`).
 
-The autograd functions below carry the model's collectives (the MoE's
-gathers and the expert-parallel all-to-all) with the backward each
-needs; `counts` counts the all-to-all calls made.
+The autograd functions below carry the model's collectives (the "model"
+axis's conjugate pairs, the MoE's slot exchanges) with the backward each
+needs; `counts` counts the all-to-all calls made, and the all-gathers
+with the bytes they return.
 """
 
 from __future__ import annotations
@@ -39,7 +40,7 @@ import torch.distributed as dist
 from ..tree import tree_map
 from .context import mesh_axis_sizes
 
-counts = {"all_to_all": 0}
+counts = {"all_to_all": 0, "all_gather": 0, "all_gather_bytes": 0}
 
 
 def _via_host(t: torch.Tensor, group) -> bool:
@@ -90,6 +91,9 @@ def all_gather_cat(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     """Every rank's `t`, concatenated along `dim` in group-rank order
     (under gloo each rank's part goes from the host straight into its
     slice of the result on `t`'s device)."""
+    counts["all_gather"] += 1
+    counts["all_gather_bytes"] += (t.numel() * t.element_size()
+                                   * dist.get_world_size(group))
     if _alone(t, group):
         return t.detach().clone()
     src = _src(t, group)
@@ -211,6 +215,24 @@ class _SumBoth(torch.autograd.Function):
         return all_reduce(g, ctx.group), None
 
 
+class _OneReplica(torch.autograd.Function):
+    """Forward: rank 0's value on every rank of the group.  Backward: the
+    gradient over the group's size on every rank.  The reference's
+    shard_map output taken from one replica unchecked (`out_specs=P()`,
+    `check_rep=False`): its value is one rank's, its gradient reaches
+    every rank's as the gradient of their mean."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.n = dist.get_world_size(group)
+        first = 1.0 if dist.get_rank(group) == 0 else 0.0
+        return all_reduce(x * first, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.n, None
+
+
 class _ReduceGrad(torch.autograd.Function):
     """Forward: identity.  Backward: all-reduce SUM (a replicated tensor
     whose ranks each compute a part of the gradient)."""
@@ -273,14 +295,6 @@ class _AllToAll(torch.autograd.Function):
         return all_to_all(g.contiguous(), ctx.group), None
 
 
-def gather_rows(x, groups):
-    """All-gather dim 0 over `groups` (minor axis first), differentiably:
-    the rows of a batch sharded over their product, major-first."""
-    for g in groups:
-        x = gather_dim(x, g, 0)
-    return x
-
-
 def gather_dim(x, group, dim: int):
     return _GatherDim.apply(x, group, dim % x.dim())
 
@@ -295,6 +309,10 @@ def sum_replicated(x, group):
 
 def sum_both(x, group):
     return _SumBoth.apply(x, group)
+
+
+def one_replica(x, group):
+    return _OneReplica.apply(x, group)
 
 
 def reduce_grad(x, group):

@@ -41,8 +41,13 @@ The encoder-decoder family (Whisper) splits as the attention families
 do, its cross-attention (`xw*`) included: the encoder's output is
 replicated over "model" and each rank projects it with its columns of
 `xwk` / `xwv`.
-Out of scope, and so gathered whole: the router, the expert-parallel
-MoE (`cfg.moe_ep`, which splits its experts itself), the Mamba2 mixer
+The MoE computes on the rank's "experts" block of `we_*` in both
+dispatches (`models/moe.py`: the mesh-global `moe_apply` on its slot
+ranges, `moe_apply_ep` on the slots its all-to-all brings), and Arctic's
+dense residual on its "ff" blocks.
+Gathered whole: the router (d x E, 256 KB a layer for Phi-3.5-MoE, 3.7
+MB for Arctic; splitting its columns would all-gather the (T, E) logits
+of the rank's tokens, more bytes than the weights), the Mamba2 mixer
 under `seq_parallel` (the stream then holds the rank's sequence block
 and the mixer runs whole on it, as the reference's `head_ax = None`),
 and any module whose "model" dims do not divide the axis.
@@ -99,10 +104,8 @@ def module_split(cfg, sizes: dict) -> dict[str, bool]:
         attn=((cfg.n_heads * hd) % m == 0
               and (cfg.n_kv_heads * hd) % m == 0),
         mlp=not cfg.n_experts and cfg.d_ff % m == 0,
-        experts=(bool(cfg.n_experts) and not cfg.moe_ep
-                 and cfg.n_experts % m == 0),
-        res=(cfg.moe_dense_residual and not cfg.moe_ep
-             and cfg.d_ff % m == 0),
+        experts=bool(cfg.n_experts) and cfg.n_experts % m == 0,
+        res=cfg.moe_dense_residual and cfg.d_ff % m == 0,
         ssm=cfg.family in SSM_FAMILIES and _ssm_splits(cfg, m))
 
 

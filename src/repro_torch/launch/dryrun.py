@@ -20,16 +20,18 @@ each rank holds its blocks of the parameters (`train_specs`) and
 computes on its "model" blocks (`distributed.tensor_parallel`): the
 attention's heads (the enc-dec family's self and cross attention, the
 gated decode's projections too), the MLP's "ff" columns, the head's
-vocab rows, the experts, the Mamba2 mixer's heads (its projections'
-columns, conv channels and `out_proj` rows, into which the fused
-layout's `in_proj` and conv blocks are re-cut after one all-gather of
-those weights; Zamba2's shared block as the attention layers).  The
-rule `tensor_parallel.model_split` gathers those over "data" only, and
+vocab rows, the experts (both MoE dispatches: the mesh-global
+`moe_apply` routes the rank's own tokens and exchanges the slots over
+the dp ranks, `moe_apply_ep` over "model"; Arctic's dense residual on
+its "ff" blocks), the Mamba2 mixer's heads (its projections' columns,
+conv channels and `out_proj` rows, into which the fused layout's
+`in_proj` and conv blocks are re-cut after one all-gather of those
+weights; Zamba2's shared block as the attention layers).  The rule
+`tensor_parallel.model_split` gathers those over "data" only, and
 gathers whole the leaves of the paths it leaves out (the record's
-`model_gathered`: the router, the expert-parallel MoE, the Mamba2 mixer
-under `seq_parallel` (opt level 8, where the stream is the rank's
-sequence block instead), and any module whose "model" dims do not
-divide):
+`model_gathered`: the router, the Mamba2 mixer under `seq_parallel`
+(opt level 8, where the stream is the rank's sequence block instead),
+and any module whose "model" dims do not divide):
   * train_4k: `make_sharded_train_step` on those blocks, the
     optimizer state's (`train_specs`) and the rank's shard of the batch
     (`batch_specs`); the gradients summed over ("pod", "data") leaf by

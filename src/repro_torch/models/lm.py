@@ -166,9 +166,11 @@ def _tf_block(cfg, lp, h, positions, st: tp.Stream = tp.WHOLE):
     h = h + attn_out
     m_in = apply_norm(cfg, h, lp, "ln2")
     if cfg.n_experts:
-        moe_fn = moe_apply_ep if cfg.moe_ep else moe_apply
-        mo, aux = moe_fn(cfg, lp, tp.enter_whole(m_in, st))
-        mo = tp.leave_whole(mo, st)
+        if cfg.moe_ep:          # routes the rank's sequence block as it is
+            mo, aux = moe_apply_ep(cfg, lp, m_in, st)
+        else:
+            mo, aux = moe_apply(cfg, lp, tp.enter_whole(m_in, st))
+            mo = tp.leave_whole(mo, st)
     else:
         mo = mlp_apply(cfg, lp, m_in, st=st)
         aux = torch.zeros((), dtype=torch.float32, device=h.device)

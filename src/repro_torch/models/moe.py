@@ -12,21 +12,30 @@ dense residual MLP in parallel with the MoE.
 The reference writes the dropped pairs' slot entries onto real slots
 (`slot_gate` at slot 0, `slot_token` at slot E*cap - 1), through scatters
 with duplicate indices whose last write in sorted order wins on XLA.  A
-torch scatter with duplicates leaves the winner undefined, so `moe_apply`
-writes the kept pairs only and then sets those two slots to what the
-reference's last write leaves there (ROADMAP.md, queue 3).
+torch scatter with duplicates leaves the winner undefined, so the one
+slot rule (`_global_slots`, on one dp rank or many) writes the kept pairs
+only and gives those two slots what the reference's last write leaves
+there: gate 0.0 for expert 0's first pair where any pair drops, and no
+pair in the last expert's last slot where its own pairs overflow
+(ROADMAP.md, queue 3).
 
-Under a registered mesh (`distributed.context`, set by the sharded train
-step) each rank holds its own batch shard.  `moe_apply` then keeps the
-reference's GSPMD semantics: it gathers the tokens of every dp rank
-(differentiably: the gather's backward is a reduce-scatter), routes the
-global tokens at the global capacity, takes the global aux loss and
-returns its own rows.  Given the rank's "experts" block of `we_*` (the
-sharded steps under `tensor_parallel.model_split`), every "model" rank
-still routes the global tokens, computes only its own experts' slots,
-and the outputs are summed over "model".  `moe_apply_ep` is the
-reference's expert-parallel dispatch over the "model" axis (local
-routing, capacity per rank and expert, one all-to-all each way); it
+Under a registered mesh (`distributed.context`, set by the sharded
+steps) each rank holds its own batch shard and computes only its share,
+with the reference's GSPMD numbers.  The mesh-global `moe_apply` routes
+the rank's own tokens: the per-expert counts of every dp rank's pairs
+(one all-gather of E integers) place each pair at its global position
+in its expert, so the global capacity, the global drops and the
+dropped-pair writes are the reference's; the aux loss comes from the
+ranks' sums of the router's probabilities and top-1 choices, summed
+over dp.  Each dp rank computes a fixed 1/dp range of the global slots
+of the experts it holds (all of them, or its "experts" block of `we_*`
+under `tensor_parallel.model_split`, the outputs then summed over
+"model"): one all-to-all over dp carries the kept pairs' inputs into
+the ranges, a second brings the outputs back (`_moe_mesh`).
+`moe_apply_ep` is the reference's expert-parallel dispatch over the
+"model" axis (local routing, capacity per rank and expert, one
+all-to-all each way) on the rank's expert blocks and, under
+`seq_parallel`, on the rank's sequence block as the stream holds it; it
 falls back to `moe_apply` where the reference does.
 """
 
@@ -38,9 +47,10 @@ import torch.nn.functional as F
 
 from ..distributed import context as mesh_ctx
 from ..distributed import tensor_parallel as tp
-from ..distributed.collectives import (all_to_all_grad, gather_replicated,
-                                       gather_rows, own_block, reduce_grad,
-                                       sum_both, sum_replicated)
+from ..distributed.collectives import (all_gather_cat, all_to_all_grad,
+                                       gather_replicated, one_replica,
+                                       own_block, reduce_grad, sum_both,
+                                       sum_replicated)
 from .common import ParamSpec, Schema
 from .mlp import mlp_apply, mlp_schema
 
@@ -82,14 +92,26 @@ def _expert_mlp(h_gate, h_up, w_down, dtype):
     return (F.silu(h_gate.float()).to(dtype) * h_up) @ w_down
 
 
+def _sorted_pairs(expert_idx, e: int):
+    """The rank's (token, k) pairs stably sorted by expert: (order, their
+    experts, the per-expert counts (E,))."""
+    flat = expert_idx.reshape(-1)
+    order = torch.argsort(flat, stable=True)   # jnp.argsort is stable
+    se = flat[order]
+    counts = torch.zeros(e, dtype=se.dtype, device=se.device).index_add_(
+        0, se, torch.ones_like(se))
+    return order, se, counts
+
+
 def _slot_table(cfg, p, xf):
     """Route the tokens xf (T, D) and lay them into expert slots: (aux,
     slot_token (E*cap,), slot_gate (E*cap,), cap); slot e * cap + j holds
-    expert e's j-th kept pair, slot_token T (a zero row) where none."""
-    t, d = xf.shape
-    e, k = cfg.n_experts, cfg.top_k
+    expert e's j-th kept pair, slot_token T (a zero row) where none.  The
+    slot rule is `_global_slots`' with one dp rank holding every
+    expert."""
+    t = xf.shape[0]
+    e = cfg.n_experts
     cap = _capacity(cfg, t)
-    dev = xf.device
 
     # --- routing (fp32) -------------------------------------------------
     probs, gate_vals, expert_idx = _route(cfg, p, xf)
@@ -100,37 +122,10 @@ def _slot_table(cfg, p, xf):
     aux = e * torch.sum(me * ce)
 
     # --- sort-based slotting --------------------------------------------
-    flat_expert = expert_idx.reshape(-1)                         # (T*k,)
-    flat_gate = gate_vals.reshape(-1)
-    flat_token = torch.arange(t, device=dev).repeat_interleave(k)
-    order = torch.argsort(flat_expert, stable=True)   # jnp.argsort is stable
-    se, st, sg = flat_expert[order], flat_token[order], flat_gate[order]
-    # position of each slot within its expert.  Every shape here is fixed
-    # by (T, E, cap), never by the routing, and nothing is read back to
-    # the host: the dry run traces this under fake tensors.
-    counts = torch.zeros(e, dtype=se.dtype, device=dev).index_add_(
-        0, se, torch.ones_like(se))
-    starts = torch.cumsum(counts, 0) - counts
-    pos_in_e = torch.arange(t * k, device=dev) - starts[se]
-    keep = pos_in_e < cap
-
-    # slot table: (E*cap,) -> source token (or T = dummy).  Kept slots are
-    # distinct; dropped pairs write into one extra slot E*cap, cut off.
-    slot = torch.where(keep, se * cap + pos_in_e, e * cap)
-    slot_token = torch.full((e * cap + 1,), t, dtype=torch.int64, device=dev)
-    slot_token[slot] = st
-    slot_token = slot_token[:-1]
-    slot_gate = torch.zeros((e * cap + 1,), dtype=torch.float32, device=dev)
-    slot_gate[slot] = sg
-    slot_gate = slot_gate[:-1]
-    # the reference's dropped-pair writes: every dropped pair writes gate
-    # 0.0 at slot 0 after expert 0's first pair (sorted order), and the
-    # dummy token at slot E*cap - 1, after the last expert's last kept
-    # pair only where that expert's own pairs overflow
-    any_drop = (~keep).any()
-    last_overflows = (~keep & (se == e - 1)).any()
-    slot_gate[0] = torch.where(any_drop, 0.0, slot_gate[0])
-    slot_token[-1] = torch.where(last_overflows, t, slot_token[-1])
+    order, se, counts = _sorted_pairs(expert_idx, e)
+    slot, zero = _global_slots(se, counts, counts[None], 0, cap, cap, 0, e)
+    slot_token, slot_gate = _fill_slots(slot, zero, order, gate_vals,
+                                        e * cap)
     return aux, slot_token, slot_gate, cap
 
 
@@ -174,142 +169,274 @@ def _check_top_k(cfg):
 
 
 def _moe_local(cfg, p, x):
-    """The MoE over the tokens of x (B, S, D) alone: (y, aux).  Given the
-    rank's "experts" block of `we_*` (`tp.block_group`) x is the same on
-    every "model" rank, the routing runs whole on each, and each rank
-    computes only its experts' slots (`_experts_split`)."""
+    """The MoE over the tokens of x (B, S, D) alone, every expert whole:
+    (y, aux)."""
     _check_top_k(cfg)
     b, s, d = x.shape
     t = b * s
-    group = tp.block_group(p["we_gate"], cfg.n_experts, -3)
-    if group is not None:
-        y, aux = _experts_split(cfg, p, x.reshape(t, d), group)
-    else:
-        aux, xe, slot_token, slot_gate = _dispatch(cfg, p, x.reshape(t, d))
-        # --- expert GEMMs -> scatter-add ---------------------------------
-        ye = _expert_mlp(xe @ p["we_gate"], xe @ p["we_up"], p["we_down"],
-                         x.dtype).reshape(-1, d)
-        y = _combine(ye, slot_token, slot_gate, t, x.dtype)
+    aux, xe, slot_token, slot_gate = _dispatch(cfg, p, x.reshape(t, d))
+    # --- expert GEMMs -> scatter-add ---------------------------------------
+    ye = _expert_mlp(xe @ p["we_gate"], xe @ p["we_up"], p["we_down"],
+                     x.dtype).reshape(-1, d)
+    y = _combine(ye, slot_token, slot_gate, t, x.dtype).reshape(b, s, d)
+    if cfg.moe_dense_residual:
+        y = y + mlp_apply(cfg, p, x, prefix="res_")
+    return y, aux
+
+
+def _dp_all_to_all(t, mesh):
+    """t (dp, ...), entry j bound for dp rank j (pod-major), -> (dp, ...),
+    entry j from dp rank j: one differentiable all-to-all over each dp
+    axis of more than one rank ("data", then "pod")."""
+    sizes = mesh_ctx.mesh_axis_sizes(mesh)
+    npod, ndata = sizes.get("pod", 1), sizes.get("data", 1)
+    rest = tuple(t.shape[1:])
+    t = t.reshape((npod, ndata) + rest)
+    if ndata > 1:
+        t = all_to_all_grad(t.transpose(0, 1),
+                            mesh.get_group("data")).transpose(0, 1)
+    if npod > 1:
+        t = all_to_all_grad(t, mesh.get_group("pod"))
+    return t.reshape((npod * ndata,) + rest)
+
+
+def _global_slots(se, counts, every, i: int, cap: int, c: int, e0: int,
+                  el: int):
+    """Where dp rank `i`'s sorted pairs (experts `se`, per-expert `counts`)
+    go, given every dp rank's counts `every` (dp, E): (slot, zero).
+
+    A pair's global position in its expert is the pairs of that expert
+    on the dp ranks before `i` plus its position among the rank's own; it
+    is kept below `cap`.  `slot` is its place in the (dp, el, c) layout of
+    the held experts [e0, e0 + el) by destination (dp rank `pos // c`,
+    slot `pos % c` of its range), or dp * el * c where it is dropped or
+    its expert is not held.  The reference's dropped-pair writes: where
+    any pair drops, expert 0's global slot 0 gets gate 0.0 (`zero`);
+    where the last expert overflows, its slot cap - 1 adds nothing (the
+    pair is not kept)."""
+    e = every.shape[1]
+    total = every.sum(0)
+    starts = torch.cumsum(counts, 0) - counts
+    pos = torch.arange(se.shape[0], device=se.device) \
+        + (every[:i].sum(0) - starts)[se]
+    keep = (pos < cap) & ~((se == e - 1) & (pos == cap - 1)
+                           & (total[-1] > cap))
+    zero = (se == 0) & (pos == 0) & (total > cap).any()
+    held = keep & (se >= e0) & (se < e0 + el)
+    dest = torch.div(pos, c, rounding_mode="floor")
+    slot = torch.where(held, (dest * el + se - e0) * c + pos - dest * c,
+                       every.shape[0] * el * c)
+    return slot, zero
+
+
+def _fill_slots(slot, zero, order, gate_vals, n_slots: int, model=None):
+    """The slot table of the rank's pairs at `slot` (`_global_slots`):
+    (slot_token (n_slots,), slot_gate (n_slots,)); token T (a zero row)
+    and gate 0 where no pair is kept.  Kept slots are distinct; the
+    others write into one extra slot n_slots, cut off.  With `model` the
+    gates' gradient is summed back over it (`reduce_grad`)."""
+    t, k = gate_vals.shape
+    dev = gate_vals.device
+    st = torch.arange(t, device=dev).repeat_interleave(k)[order]
+    sg = gate_vals.reshape(-1)[order]
+    sg = torch.where(zero, torch.zeros_like(sg), sg)
+    slot_token = torch.full((n_slots + 1,), t, dtype=torch.int64, device=dev)
+    slot_token[slot] = st
+    slot_gate = torch.zeros((n_slots + 1,), dtype=torch.float32, device=dev)
+    slot_gate[slot] = sg if model is None else reduce_grad(sg, model)
+    return slot_token[:-1], slot_gate[:-1]
+
+
+def _moe_mesh(cfg, p, x, mesh):
+    """The mesh-global MoE on this rank's tokens x (B, S, D): (y, aux),
+    the reference's numbers for the dp ranks' batch routed together.
+
+    Routing: the rank's pairs take their global positions from every dp
+    rank's per-expert counts (one all-gather), the capacity is the
+    global token count's, and the rank owning a dropped-pair write
+    applies it (`_global_slots`).  The aux loss takes the router's
+    probabilities and top-1 choices summed over dp (`sum_both`: every
+    rank's loss reads the sum, so each rank's tokens get the gradient of
+    the global aux).
+
+    Slots: dp rank r computes slots [r c, (r + 1) c) of each expert it
+    holds, c = ceil(cap / dp) (slots past cap are never filled).  Each
+    rank lays its kept pairs' inputs into a (dp, E_held, c, D) buffer at
+    their places in each destination's range (zeros elsewhere); one
+    all-to-all over dp delivers it and the receiver sums the dp pieces
+    (each slot comes from one rank, so adding the zeros leaves it
+    exact).  The experts run on (E_held, c, D); a second all-to-all
+    brings every range's outputs back to every dp rank, and each rank
+    combines its own pairs' outputs onto its rows.  Where `we_*` are the
+    rank's "experts" block (`tp.block_group`) E_held is that block, the
+    partial outputs are summed over "model", and the inputs' and gates'
+    gradients summed back over it (`reduce_grad`), so that x and the
+    router get their whole gradients on every "model" rank.  Every
+    shape is fixed by (tokens, E, cap, mesh), never by the routing, and
+    nothing is read back to the host."""
+    _check_top_k(cfg)
+    b, s, d = x.shape
+    t = b * s
+    e = cfg.n_experts
+    groups = mesh_ctx.dp_groups(mesh)
+    n_dp = mesh_ctx.dp_size(mesh)
+    cap = _capacity(cfg, t * n_dp)
+    c = -(-cap // n_dp)
+    model = tp.block_group(p["we_gate"], e, -3)
+    el = p["we_gate"].shape[-3]
+    e0 = dist.get_rank(model) * el if model is not None else 0
+    xf = x.reshape(t, d)
+    dev = x.device
+
+    # --- routing (fp32) and the global aux loss -----------------------------
+    probs, gate_vals, expert_idx = _route(cfg, p, xf)
+    sums = torch.stack([torch.sum(probs, dim=0), torch.sum(
+        F.one_hot(expert_idx[:, 0], e).float(), dim=0)])
+    for g in groups:
+        sums = sum_both(sums, g)
+    me, ce = sums / torch.full((), t * n_dp, dtype=sums.dtype, device=dev)
+    aux = e * torch.sum(me * ce)
+
+    # --- the rank's pairs in the global slot table -------------------------
+    order, se, counts = _sorted_pairs(expert_idx, e)
+    every = counts[None]                 # every dp rank's, pod-major
+    for g in groups:
+        every = all_gather_cat(every, g, 0)
+    slot, zero = _global_slots(se, counts, every, mesh_ctx.dp_index(mesh),
+                               cap, c, e0, el)
+    n_slots = n_dp * el * c
+    slot_token, slot_gate = _fill_slots(slot, zero, order, gate_vals,
+                                        n_slots, model)
+    xin = xf if model is None else reduce_grad(xf, model)
+
+    # --- exchange, experts, exchange back, combine --------------------------
+    xs = _slot_inputs(xin, slot_token, c).reshape(n_dp, el, c, d)
+    xe = _dp_all_to_all(xs, mesh).sum(0)                      # (E_held, c, D)
+    ye = _expert_mlp(xe @ p["we_gate"], xe @ p["we_up"], p["we_down"],
+                     x.dtype)
+    back = _dp_all_to_all(ye.expand(n_dp, el, c, d), mesh)
+    y = _combine(back.reshape(n_slots, d), slot_token, slot_gate, t, x.dtype)
+    if model is not None:
+        y = sum_replicated(y, model)
     y = y.reshape(b, s, d)
     if cfg.moe_dense_residual:
         y = y + mlp_apply(cfg, p, x, prefix="res_")
     return y, aux
 
 
-def _experts_split(cfg, p, xf, group):
-    """The experts' part of the MoE on the rank's "experts" block of
-    `we_*`: the global routing (the router whole, the same on every
-    rank), the slots of the rank's experts only, their outputs summed
-    over "model".  The slot gates' gradients are summed over "model"
-    (each rank's reach only its own slots), so the router's gradient
-    comes out whole on every rank, beside the aux loss's."""
-    t, d = xf.shape
-    el = p["we_gate"].shape[0]
-    aux, slot_token, slot_gate, cap = _slot_table(cfg, p, xf)
-    lo = dist.get_rank(group) * el * cap
-    own = slot_token[lo:lo + el * cap]
-    xe = _slot_inputs(reduce_grad(xf, group), own, cap)
-    ye = _expert_mlp(xe @ p["we_gate"], xe @ p["we_up"], p["we_down"],
-                     xf.dtype).reshape(-1, d)
-    gate = reduce_grad(slot_gate, group)[lo:lo + el * cap]
-    return sum_replicated(_combine(ye, own, gate, t, xf.dtype), group), aux
-
-
 def moe_apply(cfg, p, x):
     """x: (B, S, D) -> (y (B, S, D), aux_loss).
 
-    Under a registered mesh x is this rank's batch shard: the tokens of
-    every dp rank are gathered (pod-major), routed together at the global
-    capacity, and this rank's rows come back with the global aux loss,
-    the reference's GSPMD semantics."""
+    Under a registered mesh x is this rank's batch shard and the result
+    is the reference's for the dp ranks' batch routed together at the
+    global capacity: this rank's rows and the global aux loss
+    (`_moe_mesh`).  With no mesh, or a mesh of one dp rank and every
+    expert whole, the tokens are routed alone (`_moe_local`)."""
     mesh = mesh_ctx.get_mesh()
-    groups = mesh_ctx.dp_groups(mesh) if mesh is not None else []
-    if not groups:
+    if mesh is None or (not mesh_ctx.dp_groups(mesh) and tp.block_group(
+            p["we_gate"], cfg.n_experts, -3) is None):
         return _moe_local(cfg, p, x)
-    b = x.shape[0]
-    y, aux = _moe_local(cfg, p, gather_rows(x, groups))
-    i = mesh_ctx.dp_index(mesh)
-    return y[i * b:(i + 1) * b], aux
+    return _moe_mesh(cfg, p, x, mesh)
 
 
 # ---------------------------------------------------------------------------
 # Expert-parallel dispatch over the "model" axis
 # ---------------------------------------------------------------------------
 
-def _residual_tp(cfg, p, x, model):
+def _residual_tp(cfg, p, x, model, st: tp.Stream):
     """Arctic's dense residual in full on every "model" rank: each rank
-    multiplies its ff block of the SwiGLU weights and the partial products
-    are summed over "model"."""
-    if cfg.d_ff % dist.get_world_size(model):
-        # the reference's shard_map cannot split these weights either
-        raise ValueError(f"{cfg.name}: d_ff {cfg.d_ff} does not split over "
-                         f"{dist.get_world_size(model)} model ranks")
-    xin = reduce_grad(x, model)
-    g = xin @ own_block(p["res_w_gate"], model, 1)
-    u = xin @ own_block(p["res_w_up"], model, 1)
-    part = _expert_mlp(g, u, own_block(p["res_w_down"], model, 0), x.dtype)
-    return sum_replicated(part, model)
+    multiplies its "ff" block of the SwiGLU weights (as given, or cut
+    from whole ones) and the partial products are summed over "model"
+    (reduce-scattered along the sequence under `seq_parallel`)."""
+    if tp.block_group(p["res_w_gate"], cfg.d_ff, -1) is None:
+        if cfg.d_ff % dist.get_world_size(model):
+            # the reference's shard_map cannot split these weights either
+            raise ValueError(f"{cfg.name}: d_ff {cfg.d_ff} does not split "
+                             f"over {dist.get_world_size(model)} model ranks")
+        p = {"res_w_gate": own_block(p["res_w_gate"], model, 1),
+             "res_w_up": own_block(p["res_w_up"], model, 1),
+             "res_w_down": own_block(p["res_w_down"], model, 0)}
+    return mlp_apply(cfg, p, x, prefix="res_", st=st)
 
 
-def moe_apply_ep(cfg, p, x):
+def _expert_block(w, e: int, model):
+    """The rank's "model" block of an expert leaf: `w` where it is that
+    block already (`tp.block_group`), else cut from the whole leaf."""
+    if tp.block_group(w, e, -3) is not None:
+        return w
+    return own_block(w, model, 0)
+
+
+def moe_apply_ep(cfg, p, x, st: tp.Stream = tp.WHOLE):
     """Expert-parallel MoE over the registered mesh's "model" axis.
 
-    x (B, S, D) is this rank's batch shard, the same on every "model"
-    rank.  Each "model" rank routes its 1/ep slice of the sequence alone
-    (capacity per rank and expert, the standard EP semantics: local drops
-    instead of global), ONE all-to-all moves the dispatched slots to the
-    rank holding their expert (experts are split over "model" in
-    contiguous blocks), the expert products run there, a reverse
-    all-to-all brings them back and the slices are gathered into the full
-    (B, S, D) output.  Arctic's dense residual is computed in full (the
-    reference adds only this rank's ff block of it: ROADMAP queue 3).
+    x is the residual stream as `st` holds it: this rank's batch shard
+    (B, S, D), the same on every "model" rank, or under `seq_parallel`
+    its sequence block (B, S / ep, D), which is the slice this rank
+    routes.  Each "model" rank routes its 1/ep slice of the sequence
+    alone (capacity per rank and expert, the standard EP semantics: local
+    drops instead of global), ONE all-to-all moves the dispatched slots
+    to the rank holding their expert (experts are split over "model" in
+    contiguous blocks: `we_*` as given where they are the rank's block,
+    cut from whole ones otherwise), the expert products run there, a
+    reverse all-to-all brings them back; with the whole sequence the
+    slices are gathered into the full (B, S, D) output.  Arctic's dense
+    residual is computed in full, on its "ff" blocks (the reference adds
+    only this rank's ff block of it: ROADMAP queue 3).
 
     The aux loss is the reference's: the mean over the dp ranks of the
     local aux of the "model" coordinate-0 slice (its shard_map keeps one
-    replica of an unchecked replicated output).
+    replica of an unchecked replicated output), whose gradient is the
+    reference's too, that of the mean over every dp and "model" rank's
+    local aux (`one_replica`; ROADMAP queue 3).
 
     Falls back to `moe_apply` where the reference does: no mesh, a
     "model" axis of one rank, experts or sequence not divisible by it.
     The reference's batch test cannot fail here: the sharded step splits
-    the batch over every dp axis.  Every parameter's gradient comes out
-    whole and the same on every "model" rank."""
+    the batch over every dp axis.  The router's gradient comes out whole
+    and the same on every "model" rank, each expert block's gradient
+    that block's (whole on every rank where the weights were given
+    whole)."""
     mesh = mesh_ctx.get_mesh()
     sizes = mesh_ctx.axis_sizes()
     e = cfg.n_experts
     ep = sizes.get("model", 1)
-    if mesh is None or e % max(ep, 1) or ep <= 1:
-        return moe_apply(cfg, p, x)         # no mesh / indivisible: fallback
     b, s, d = x.shape
-    if s % ep:
-        return moe_apply(cfg, p, x)
+    if (mesh is None or e % max(ep, 1) or ep <= 1
+            or (not st.seq and s % ep)):
+        # no mesh / indivisible: fallback
+        y, aux = moe_apply(cfg, p, tp.enter_whole(x, st))
+        return tp.leave_whole(y, st), aux
     _check_top_k(cfg)
     model = mesh.get_group("model")
     el = e // ep
-    xl = own_block(x, model, 1)                     # (B, S/ep, D)
-    t = b * (s // ep)
+    xl = x if st.seq else own_block(x, model, 1)    # (B, S/ep, D)
+    sl = xl.shape[1]
+    t = b * sl
     aux, xe, slot_token, slot_gate = _dispatch(
         cfg, {"router": reduce_grad(p["router"], model)}, xl.reshape(t, d))
     cap = xe.shape[1]
     # ---- all-to-all: slots travel to their expert's rank ----------------
     xe = all_to_all_grad(xe.reshape(ep, el, cap, d), model)
     xe = xe.transpose(0, 1).reshape(el, ep * cap, d)
-    wg, wu, wd = (own_block(p[k], model, 0)
+    wg, wu, wd = (_expert_block(p[k], e, model)
                   for k in ("we_gate", "we_up", "we_down"))
     ye = _expert_mlp(xe @ wg, xe @ wu, wd, x.dtype)  # (E/ep, ep*cap, D)
     # ---- reverse all-to-all ------------------------------------------------
     ye = all_to_all_grad(ye.reshape(el, ep, cap, d).transpose(0, 1), model)
     y = _combine(ye.reshape(e * cap, d), slot_token, slot_gate, t, x.dtype)
-    y = gather_replicated(y.reshape(b, s // ep, d), model, 1)
+    y = y.reshape(b, sl, d)
+    if not st.seq:
+        y = gather_replicated(y, model, 1)
     if cfg.moe_dense_residual:
-        y = y + _residual_tp(cfg, p, x, model)
+        y = y + _residual_tp(cfg, p, x, model, st)
     groups = mesh_ctx.dp_groups(mesh)
     for g in groups:
         aux = sum_both(aux, g)
     if groups:
         aux = aux / torch.full((), mesh_ctx.dp_size(mesh),
                                dtype=aux.dtype, device=aux.device)
-    first = 1.0 if dist.get_rank(model) == 0 else 0.0
-    return y, sum_replicated(aux * first, model)
+    return y, one_replica(aux, model)
 
 
 def moe_apply_pairs(cfg, p, x):

@@ -11,7 +11,8 @@ in tests/test_torch_dist_train_ckpt.py.
 
 Each rank holds its blocks of the parameters and the optimizer state
 under the reference's specs and its batch shard; the MoE configs route
-the gathered global tokens (`models.moe.moe_apply` under a mesh).
+each rank's own tokens at the global capacity (`models.moe.moe_apply`
+under a mesh).  The MoE at opt level 6 is in tests/test_torch_tp_moe.py.
 Arctic's optimizer is AdamW8bit (its row max spans the ranks that split
 a row): one step of it, and two under AdamW (tests/torch_dist_parity.py
 says why).

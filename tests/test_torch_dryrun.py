@@ -10,6 +10,9 @@
   shapes;
 - Qwen2-1.5B's decode_32k cell at opt level 3 (the gated strap decode)
   on the "single" mesh: its attention on the "model" blocks;
+- phi-smoke's train_4k at a fake (1, 4, 2) mesh at levels 0 and 6:
+  the router alone gathered whole, each rank's FLOPs its block shapes'
+  (the rank's tokens and experts), no all-gather of the tokens;
 - the "model" axis splits the dense compute: the per-rank FLOPs on a
   (1, 1, m) mesh are 1 / m of a one-rank mesh's at the same batch; for
   the ssm and hybrid families 1 / m but for the SSD's C·Bᵀ scores, which
@@ -237,6 +240,58 @@ def test_seq_parallel_splits_the_ssm_compute_exactly(m):
     one = dryrun.run(cfg, "train_4k", "x", (1, 1, 1), 8, b=2, s=128)
     assert split["flops_per_device"] * m == one["flops_per_device"] > 0
     assert "layers/in_x" in split["model_gathered"]
+
+
+def _moe_flops(cfg, level: int, b: int, s: int, dp: int, m: int) -> int:
+    """phi-smoke's train step on one rank of a (1, dp, m) mesh, from its
+    block shapes: T = b / dp x s tokens a rank; in each layer the
+    attention on H / m query and KV / m KV heads (projections, wo, the
+    S x S scores and w . v), the router whole (on the rank's T tokens at
+    level 0; under `moe_ep` on its T / m sequence block), and the three
+    expert products of its E / m experts over c slots each (level 0: the
+    rank's 1/dp range of the global capacity; level 6: the m ranks'
+    local capacities of the experts' tokens); each four times (the
+    forward, the remat recompute, two backward products); the head on
+    its V / m vocab rows three times."""
+    from repro_torch.models.moe import _capacity
+    t, d, f, e = b // dp * s, cfg.d_model, cfg.d_ff, cfg.n_experts
+    hd, h, kv = cfg.head_dim_, cfg.n_heads, cfg.n_kv_heads
+    proj = 2 * t * d * (h + 2 * kv) * hd // m + 2 * t * (h * hd // m) * d
+    attn = 2 * 2 * (b // dp) * (h // m) * s * s * hd
+    if level == 0:
+        router, c = 2 * t * d * e, -(-_capacity(cfg, b * s) // dp)
+    else:
+        router, c = 2 * (t // m) * d * e, m * _capacity(cfg, t // m)
+    experts = 3 * 2 * (e // m) * c * d * f
+    head = 2 * t * d * cfg.padded_vocab // m
+    return cfg.n_layers * 4 * (proj + attn + router + experts) + 3 * head
+
+
+@pytest.mark.parametrize("level", [0, 6])
+def test_moe_computes_the_ranks_tokens_and_experts(level):
+    """phi-smoke's train_4k at a fake (1, 4, 2) mesh: the router alone is
+    gathered whole, every expert leaf on its "model" block; each rank's
+    FLOPs are its block shapes' (`_moe_flops`), at two batches.  No
+    all-gather of the tokens: at level 0 the all-gathers' bytes (the
+    parameters', the gradients' and the per-expert counts') do not grow
+    with the batch, and what grows over "data" is the slot exchange's
+    all-to-alls; at level 6 (`moe_ep`, its all-to-alls over "model")
+    nothing over "data" grows with the batch."""
+    cfg = optlevels.apply_opt_level(
+        registry.get_arch("phi3.5-moe-42b-a6.6b-smoke"), "train_4k", level)
+    runs = {b: dryrun.run(cfg, "train_4k", "x", (1, 4, 2), level, b=b, s=64)
+            for b in (4, 8)}
+    for b, r in runs.items():
+        assert r["ok"] and r["model_gathered"] == ["layers/router"]
+        assert r["flops_per_device"] == _moe_flops(cfg, level, b, 64, 4, 2)
+    (small, big) = (runs[4]["collectives"], runs[8]["collectives"])
+    if level == 0:
+        assert big["by_type"]["allgather_"] == small["by_type"]["allgather_"]
+        grew = big["by_type"]["alltoall_base_"] \
+            - small["by_type"]["alltoall_base_"]
+        assert big["by_axis"]["data"] - small["by_axis"]["data"] == grew > 0
+    else:
+        assert big["by_axis"]["data"] == small["by_axis"]["data"]
 
 
 def test_dry_run_never_initializes_cuda(monkeypatch):

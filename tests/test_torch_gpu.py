@@ -1034,3 +1034,37 @@ def test_split_cross_attention_and_gated_decode_on_two_ranks(cuda):
         for piece, errs in res["errors"].items():
             for what, err in errs.items():
                 assert err <= 2e-5, (res["rank"], piece, what, err)
+
+
+@pytest.mark.parametrize("cap", [30, 32])
+def test_global_slot_table_on_card_matches_cpu(cuda, cap):
+    """The mesh-global MoE's slot table (`moe._sorted_pairs`,
+    `moe._global_slots`) on CUDA tensors against the same on the CPU:
+    4 dp ranks of 64 tokens, 8 experts (top 2, expert 7 heavy so that it
+    overflows), the counts of the other ranks drawn alike; for every dp
+    rank and both blocks of 4 experts the slots and the zeroed gate bit
+    for bit.  cap 30 leaves a ragged last range (c = 8)."""
+    from repro_torch.models import moe
+
+    gen = torch.Generator().manual_seed(0)
+    e, n_dp, t = 8, 4, 64
+    weights = torch.ones(e)
+    weights[-1] = 6.0
+    idx = [torch.stack([torch.multinomial(weights, 2, generator=gen)
+                        for _ in range(t)]) for _ in range(n_dp)]
+    every = torch.stack([torch.bincount(i.reshape(-1), minlength=e)
+                         for i in idx])
+    assert int(every.sum(0)[-1]) > cap
+    c = -(-cap // n_dp)
+    for r in range(n_dp):
+        for e0 in (0, 4):
+            want = None
+            for dev in (torch.device("cpu"), cuda):
+                _, se, counts = moe._sorted_pairs(idx[r].to(dev), e)
+                assert torch.equal(counts.cpu(), every[r])
+                got = [x.cpu() for x in moe._global_slots(
+                    se, counts, every.to(dev), r, cap, c, e0, 4)]
+                if want is None:
+                    want = got
+                else:
+                    assert all(torch.equal(a, b) for a, b in zip(got, want))

@@ -19,11 +19,17 @@ holds batch rows [2d, 2d + 2); `moe_apply_ep` routes its sequence slice
 - the aux loss pinned to the reference's: the mean over the dp ranks of
   the "model" coordinate-0 shard's local aux;
 - the mesh-global `moe_apply` against the reference's on the whole batch
-  (rows, aux);
+  (rows, aux): each rank routes its own tokens at the global capacity
+  (phi_cf1 drops pairs across the ranks) and exchanges the slots;
 - gradients of sum(y * wy) (plus the aux for `moe_apply`) with respect
   to x and every weight against `jax.grad`, 2e-5 of max|ref|;
+- both paths again given the rank's "model" blocks of `we_*` and
+  `res_w_*` (as the sharded steps give them): rows, aux and every
+  gradient, each rank's block gradient against that block of the
+  reference's;
 - the EP path ran its all-to-alls (it did not fall back), the global
-  path none.
+  path its two slot exchanges over "data" and no all-gather of the
+  tokens (one of the per-expert counts).
 
 The slow test at the end pins the reference's own deviation on Arctic
 (its EP adds 1/ep of the dense residual) on 8 forced host devices.
@@ -229,12 +235,75 @@ def test_mesh_global_gradients_match_jax_grad(run, label):
 
 
 def test_ep_ran_its_all_to_alls_and_global_none(run):
-    ranks = run[-1]
+    """Forward one all-to-all each way, backward one each way, on both
+    paths (the global path's over "data", its one dp axis).  The global
+    path gathers only the per-expert counts (E int64 a dp rank), never
+    the tokens."""
+    _, inputs, _, ranks = run
     for res in ranks.values():
-        for label in res["cases"]:
-            # forward: one each way; backward: one each way
-            assert res["cases"][label]["ep"]["all_to_all"] == 4
-            assert res["cases"][label]["global"]["all_to_all"] == 0
+        for label, info in res["cases"].items():
+            e = inputs[label][0].n_experts
+            for name in ("ep", "ep_block"):
+                assert info[name]["all_to_all"] == 4
+            for name in ("global", "global_block"):
+                assert info[name]["all_to_all"] == 4
+                assert info[name]["all_gather"] == 1
+                assert info[name]["all_gather_bytes"] == SHAPE[1] * e * 8
+
+
+BLOCK_DIM = {"we_gate": 0, "we_up": 0, "we_down": 0, "res_w_gate": 1,
+             "res_w_up": 1, "res_w_down": 0}
+
+
+def block(a, k, m):
+    """Block m over the "model" axis of the weight (gradient) `a` of leaf
+    `k`, as `torch_dist_children.BLOCK_SPECS` cuts it."""
+    dim = BLOCK_DIM[k]
+    n = a.shape[dim] // SHAPE[2]
+    return np.take(a, np.arange(m * n, (m + 1) * n), axis=dim)
+
+
+@pytest.mark.parametrize("path", ["ep", "global"])
+@pytest.mark.parametrize("label", [c[0] for c in CASES])
+def test_expert_blocks_match_reference(run, label, path):
+    """Both paths given the rank's "model" blocks of the expert and
+    residual weights: the same rows and aux as given whole (held against
+    the reference as above), x's and the router's gradients whole, and
+    each rank's block gradient that block of the reference's: for the EP
+    path the sum over its dp row's shards, for the global path summed
+    over the dp ranks against the whole batch's."""
+    tmp, inputs, refs, ranks = run
+    lp = inputs[label][1]
+    name = path + "_block"
+    nb = B // SHAPE[1]
+    if path == "ep":
+        ref = refs[label]["shards"]
+        for (d, m), res in ranks.items():
+            got = port(tmp, label, res["rank"])
+            want = {k: sum(ref[(d, j)][2][k] for j in range(SHAPE[2]))
+                    for k in lp}
+            close(got[f"{name}/y"], np.concatenate(
+                [ref[(d, j)][0] for j in range(SHAPE[2])], 1), BAR)
+            close(got[f"{name}/grad/x"], np.concatenate(
+                [ref[(d, j)][2]["x"] for j in range(SHAPE[2])], 1), BAR)
+            assert res["cases"][label][name]["aux"] == pytest.approx(
+                res["cases"][label]["ep"]["aux"], rel=BAR)
+            for k in lp:
+                w = block(want[k], k, m) if k in BLOCK_DIM else want[k]
+                close(got[f"{name}/grad/{k}"], w, BAR)
+        return
+    y_ref, aux_ref, g_ref = refs[label]["global"]
+    total = {}
+    for (d, m), res in ranks.items():
+        got = port(tmp, label, res["rank"])
+        close(got[f"{name}/y"], y_ref[d * nb:(d + 1) * nb], BAR)
+        close(got[f"{name}/grad/x"], g_ref["x"][d * nb:(d + 1) * nb], BAR)
+        assert abs(res["cases"][label][name]["aux"] - aux_ref) \
+            <= BAR * abs(aux_ref)
+        for k in lp:
+            total[(k, m)] = total.get((k, m), 0) + got[f"{name}/grad/{k}"]
+    for (k, m), g in total.items():
+        close(g, block(g_ref[k], k, m) if k in BLOCK_DIM else g_ref[k], BAR)
 
 
 ARCTIC_SCRIPT = textwrap.dedent("""

@@ -10,6 +10,7 @@ summary.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from pathlib import Path
 
@@ -245,23 +246,42 @@ def collectives_group(shape, out_dir: str) -> dict:
 # MoE
 # ---------------------------------------------------------------------------
 
-def _moe_inputs(weights: str, label: str, mesh):
+# the rank's "model" block of each MoE leaf, as the sharded steps give it
+BLOCK_SPECS = {"we_gate": ("model", None, None), "we_up": ("model", None, None),
+               "we_down": ("model", None, None), "res_w_gate": (None, "model"),
+               "res_w_up": (None, "model"), "res_w_down": ("model", None)}
+
+
+def _moe_inputs(weights: str, label: str, mesh, blocks: bool = False):
+    """The weights (the rank's "model" blocks of `we_*` / `res_w_*` with
+    `blocks`), this rank's batch shard of x and of the output weights."""
     data = np.load(weights)
     pre = label + "/p/"
     p = {k[len(pre):]: torch.as_tensor(data[k]) for k in data.files
          if k.startswith(pre)}
+    if blocks:
+        p = {k: local_block(v, BLOCK_SPECS[k], mesh).clone()
+             if k in BLOCK_SPECS else v for k, v in p.items()}
     x = torch.as_tensor(data[label + "/x"])
     wy = torch.as_tensor(data[label + "/wy"])
     spec = ("data", None, None)
     return p, local_block(x, spec, mesh).clone(), local_block(wy, spec, mesh)
 
 
+MOE_RUNS = (("ep", "moe_apply_ep", False), ("global", "moe_apply", False),
+            ("ep_block", "moe_apply_ep", True),
+            ("global_block", "moe_apply", True))
+
+
 def moe_group(shape, cases, weights: str, out_dir: str) -> dict:
     """For each case (label, arch, capacity_factor): `moe_apply_ep` and
     the mesh-global `moe_apply` on this rank's batch shard of the
-    weights and x in `weights`, their outputs, aux and the gradients of
-    sum(y * wy) (+ aux / dp for `moe_apply`) with respect to x and every
-    weight, written to `out_dir/<label>-rank<r>.npz`."""
+    weights and x in `weights`, given every weight whole and given the
+    rank's "model" blocks of the expert and residual weights
+    (`MOE_RUNS`); their outputs, aux, the gradients of sum(y * wy)
+    (+ aux / dp for `moe_apply`) with respect to x and every weight
+    (block), written to `out_dir/<label>-rank<r>.npz`, and the
+    all-to-alls and all-gathers each made."""
     rank = _setup()
     mesh = make_train_mesh(tuple(shape), device="cpu")
     n_dp = mesh_ctx.dp_size(mesh)
@@ -270,19 +290,19 @@ def moe_group(shape, cases, weights: str, out_dir: str) -> dict:
         cfg = dataclasses.replace(get_arch(arch), capacity_factor=cf)
         arrays = {}
         info = {}
-        for name, fn, aux_w in (("ep", moe.moe_apply_ep, 0.0),
-                                ("global", moe.moe_apply, 1.0 / n_dp)):
-            p, x, wy = _moe_inputs(weights, label, mesh)
+        for name, fn, blocks in MOE_RUNS:
+            aux_w = 1.0 / n_dp if fn == "moe_apply" else 0.0
+            p, x, wy = _moe_inputs(weights, label, mesh, blocks)
             for t in (x, *p.values()):
                 t.requires_grad_(True)
-            before = C.counts["all_to_all"]
+            before = dict(C.counts)
             with mesh_ctx.mesh_scope(mesh):
-                y, aux = fn(cfg, p, x)
+                y, aux = getattr(moe, fn)(cfg, p, x)
                 obj = torch.sum(y * wy) + aux_w * aux
                 names = ["x"] + sorted(p)
                 grads = torch.autograd.grad(obj, [x] + [p[k] for k in
                                                         sorted(p)])
-            info[name] = {"all_to_all": C.counts["all_to_all"] - before,
+            info[name] = {**{k: C.counts[k] - before[k] for k in before},
                           "aux": aux.item()}
             arrays[f"{name}/y"] = y.detach().numpy()
             for k, g in zip(names, grads):
@@ -290,3 +310,123 @@ def moe_group(shape, cases, weights: str, out_dir: str) -> dict:
         _save(Path(out_dir) / f"{label}-rank{rank}.npz", arrays)
         res["cases"][label] = info
     return res
+
+
+def _dropped_pairs(cfg, p, x, mesh) -> int:
+    """Pairs beyond the global capacity: the rank's per-expert pair
+    counts summed over the dp ranks, against `_capacity` of the global
+    token count."""
+    xf = x.reshape(-1, x.shape[-1])
+    _, _, idx = moe._route(cfg, p, xf)
+    counts = torch.bincount(idx.reshape(-1), minlength=cfg.n_experts)
+    for g in mesh_ctx.dp_groups(mesh):
+        counts = C.all_reduce(counts, g)
+    cap = moe._capacity(cfg, xf.shape[0] * mesh_ctx.dp_size(mesh))
+    return int((counts - cap).clamp(min=0).sum())
+
+
+@contextlib.contextmanager
+def kept_pairs():
+    """The pairs the mesh-global `moe_apply` keeps, counted where it
+    places them: [the entries of each `moe._global_slots` call's slot
+    below its sentinel] over the calls made inside."""
+    rule = moe._global_slots
+    kept = []
+
+    def counting(se, counts, every, i, cap, c, e0, el):
+        slot, zero = rule(se, counts, every, i, cap, c, e0, el)
+        kept.append(int((slot < every.shape[0] * el * c).sum()))
+        return slot, zero
+
+    moe._global_slots = counting
+    try:
+        yield kept
+    finally:
+        moe._global_slots = rule
+
+
+def moe_routing_group(shapes, cases, weights: str, out_dir: str) -> dict:
+    """The mesh-global `moe_apply` on every mesh shape, for each case
+    (label, arch, capacity_factor): this rank's batch shard (dim 0 over
+    the dp axes, pod-major) of x, every weight whole; its rows and the
+    gradients of sum(y * wy) + aux / dp with respect to x and every
+    weight, written to `out_dir/<shape>-<label>-rank<r>.npz`; its aux,
+    dp index, the pairs dropped over the whole batch, the pairs the
+    rank's slot table kept (`kept_pairs`) and the all-to-alls made,
+    returned."""
+    rank = _setup()
+    out = {"rank": rank, "runs": {}}
+    for shape in shapes:
+        mesh = make_train_mesh(tuple(shape), device="cpu")
+        tag = "x".join(map(str, shape))
+        n_dp = mesh_ctx.dp_size(mesh)
+        for label, arch, cf in cases:
+            cfg = dataclasses.replace(get_arch(arch), capacity_factor=cf)
+            data = np.load(weights)
+            pre = label + "/p/"
+            p = {k[len(pre):]: torch.as_tensor(data[k]) for k in data.files
+                 if k.startswith(pre)}
+            full = {"x": torch.as_tensor(data[label + "/x"]),
+                    "wy": torch.as_tensor(data[label + "/wy"])}
+            specs = batch_specs(full, mesh)
+            x, wy = (local_block(full[k], specs[k], mesh).clone()
+                     for k in ("x", "wy"))
+            for t in (x, *p.values()):
+                t.requires_grad_(True)
+            before = C.counts["all_to_all"]
+            with mesh_ctx.mesh_scope(mesh), kept_pairs() as kept:
+                y, aux = moe.moe_apply(cfg, p, x)
+                obj = torch.sum(y * wy) + aux / n_dp
+                grads = torch.autograd.grad(obj, [x] + [p[k] for k in
+                                                        sorted(p)])
+            arrays = {"y": y.detach().numpy()}
+            for k, g in zip(["x"] + sorted(p), grads):
+                arrays[f"grad/{k}"] = g.numpy()
+            _save(Path(out_dir) / f"{tag}-{label}-rank{rank}.npz", arrays)
+            out["runs"][f"{tag}/{label}"] = {
+                "aux": aux.item(), "dp_index": mesh_ctx.dp_index(mesh),
+                "dropped": _dropped_pairs(cfg, p, x.detach(), mesh),
+                "kept": kept, "all_to_all": C.counts["all_to_all"] - before}
+    return out
+
+
+def tp_moe_group(shape, cases, steps: int, b: int, out_dir: str) -> dict:
+    """Each case (label, arch, opt level) on the mesh `shape`: `steps`
+    sharded steps from `start_params` on `train_batch(cfg, b)`, twice:
+    "blocks", the placement `tensor_parallel.model_split` gives (the
+    rank's "model" blocks of `we_*` and `res_w_*`), and "whole", with
+    `tensor_parallel.module_split` patched to gather those leaves whole
+    (the placement before the expert blocks).  Rank 0 writes each run's
+    gathered parameters and its losses and grad norms to
+    `out_dir/<shape>-<label>-<placement>.npz`; every rank returns its
+    `model_gathered` of each run."""
+    from repro_torch.distributed import tensor_parallel as tp
+
+    rank = _setup()
+    mesh = make_train_mesh(tuple(shape), device="cpu")
+    tag = "x".join(map(str, shape))
+    rule = tp.module_split
+
+    def whole_experts(cfg, sizes):
+        return {**rule(cfg, sizes), "experts": False, "res": False}
+
+    out = {"rank": rank, "model_gathered": {}}
+    for label, arch, level in cases:
+        cfg = case_config(arch, None, level)
+        for placement in ("blocks", "whole"):
+            tp.module_split = rule if placement == "blocks" \
+                else whole_experts
+            try:
+                params, _, (p_specs, _), metrics = sharded_run(
+                    cfg, mesh, steps, b)
+                fp = gather_tree(params, p_specs, mesh)
+                gathered = tp.model_gathered(cfg, mesh)
+            finally:
+                tp.module_split = rule
+            if rank == 0:
+                _save(Path(out_dir) / f"{tag}-{label}-{placement}.npz",
+                      {**_tree_arrays("params/", fp),
+                       "loss": np.array([m[0] for m in metrics]),
+                       "grad_norm": np.array([m[1] for m in metrics])})
+            out["model_gathered"][f"{label}/{placement}"] = gathered
+    return out
