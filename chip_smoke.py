@@ -986,14 +986,15 @@ def smoke_engine_phase(dev) -> dict:
                                 device=dev)
     prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 32))
     out, launches = {}, {}
+    strap = Counted(strap_gather.strap_attend_cuda, strap_gather.LAUNCHES)
     for backend in ("dense", "strap"):
         eng = ServeEngine(cfg, params, max_tokens=48, cache_backend=backend,
                           strap_cfg=StrapCacheConfig(8, 2), device=dev)
-        strap_gather.strap_attend_cuda.launches = 0
+        strap.launches = 0
         eng.prefill(prompts)
         out[backend] = torch.cat([eng.step()[0] for _ in range(6)], 1)
         torch.cuda.synchronize()
-        launches[backend] = strap_gather.strap_attend_cuda.launches
+        launches[backend] = strap.launches
     check(launches == {"dense": 0, "strap": cfg.n_layers * 6},
           f"smoke engine launches {launches}")
     check(torch.equal(out["dense"], out["strap"]),
@@ -3187,14 +3188,42 @@ def _restore_checks(kept, mesh, ckpt_dir, dev) -> dict:
     return res
 
 
+class Counted:
+    """A kernel wrapper, called as it is, with `launches`: its launches
+    since it was made or last set, read off the port's process-wide
+    counter of them (`runtime.trace`)."""
+
+    def __init__(self, fn, counter: str):
+        from repro_torch.runtime import trace
+
+        self.fn, self.counter, self._totals = fn, counter, trace.totals
+        self._base = self._count()
+
+    def _count(self) -> int:
+        return self._totals().get(self.counter, 0)
+
+    def __call__(self, *args, **kwargs):
+        return self.fn(*args, **kwargs)
+
+    @property
+    def launches(self) -> int:
+        return self._count() - self._base
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        self._base = self._count() - n
+
+
 def _kernel_wrappers() -> dict:
-    """The three ported kernels' wrappers, by name (their `launches`
-    counts are per process)."""
+    """The three ported kernels' wrappers, by name, each `Counted`."""
     from repro_torch.kernels import rc_transient, row_cycle, strap_gather
 
-    return {"row_cycle_fused": row_cycle.row_cycle_fused_cuda,
-            "rc_multistep": rc_transient.rc_multistep_cuda,
-            "strap_attend": strap_gather.strap_attend_cuda}
+    return {"row_cycle_fused": Counted(row_cycle.row_cycle_fused_cuda,
+                                       row_cycle.LAUNCHES),
+            "rc_multistep": Counted(rc_transient.rc_multistep_cuda,
+                                    rc_transient.LAUNCHES),
+            "strap_attend": Counted(strap_gather.strap_attend_cuda,
+                                    strap_gather.LAUNCHES)}
 
 
 def _zero_launches() -> dict:
@@ -5456,9 +5485,11 @@ def main(argv=None) -> int:
     wall0 = time.perf_counter()
     record: dict = {"seed": args.seed}
     dev = torch.device("cuda")
-    kernel = row_cycle.row_cycle_fused_cuda
-    rc_kernel = rc_transient.rc_multistep_cuda
-    strap_kernel = strap_gather.strap_attend_cuda
+    kernel = Counted(row_cycle.row_cycle_fused_cuda, row_cycle.LAUNCHES)
+    rc_kernel = Counted(rc_transient.rc_multistep_cuda,
+                        rc_transient.LAUNCHES)
+    strap_kernel = Counted(strap_gather.strap_attend_cuda,
+                           strap_gather.LAUNCHES)
     dt = transient.DT_NS
     caps = (transient.N_ACT_STEPS, transient.N_RESTORE_STEPS,
             transient.N_PRE_STEPS)

@@ -16,7 +16,8 @@ from dataclasses import dataclass, fields, replace
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import as_bool, as_f32, as_i32, resolve_device
+from ..runtime import trace
 
 
 @dataclass(frozen=True)
@@ -160,8 +161,12 @@ class DesignBatch:
         Selecting rows of a Monte-Carlo batch destroys the sample-major
         layout, so the MC aux is cleared to the `n_samples=0` sentinel.
         """
-        idx = torch.as_tensor(np.asarray(where) if not isinstance(
-            where, torch.Tensor) else where).to(self.device)
+        if isinstance(where, torch.Tensor):
+            idx = where.to(self.device)
+        else:
+            arr = np.asarray(where)
+            idx = (as_bool(arr, self.device) if arr.dtype == bool
+                   else as_i32(arr, self.device))
         if idx.dtype == torch.bool:
             idx = torch.nonzero(idx).reshape(-1)
         out = self._map(lambda a: a[idx.long()])
@@ -206,9 +211,8 @@ class DesignBatch:
             scheme_names += [n for n in b.scheme_names if n not in scheme_names]
         parts = []
         for b in batches:
-            remap = lambda names, table: torch.as_tensor(
-                [table.index(n) for n in names] or [0], dtype=torch.int32,
-                device=b.device)
+            remap = lambda names, table: as_i32(
+                [table.index(n) for n in names] or [0], b.device)
             parts.append(replace(
                 b,
                 tech_idx=remap(b.tech_names, tech_names)[b.tech_idx.long()],
@@ -326,7 +330,7 @@ class DesignBatch:
         n = s * base
         vals = getattr(self, field).to(torch.float32)[:n]
         valid = self.valid[:n].reshape(s, base)
-        q_arr = torch.as_tensor(np.asarray(q, np.float32), device=self.device)
+        q_arr = as_f32(np.asarray(q, np.float32), self.device)
         weights = self._mc_weights()
         if weights is None:
             vals = torch.where(valid, vals.reshape(s, base), torch.nan)
@@ -385,36 +389,37 @@ class DesignBatch:
         A design whose tail ESS is below `min_ess` (including zero
         observed failures) or with zero valid samples reports NaN.
         """
-        base = self._mc_base()
-        ok = self._spec_ok(margin_mv, trc_ns, disturbed)
-        fail = (self.valid & ~ok).to(torch.float32)
-        log_w = self.corners.get("mc_log_w")
-        if log_w is None:
-            wf = fail
-        else:
-            w = torch.exp(log_w.to(torch.float32))
-            wf = torch.where(self.valid, w, 0.0) * fail
-        ids = self._segment_ids(base)
-        n = _segment_sum(self.valid.to(torch.float32), ids, base)
-        n_safe = torch.clamp_min(n, 1.0)
-        s1 = _segment_sum(wf, ids, base)
-        s2 = _segment_sum(wf * wf, ids, base)
-        p_fail = s1 / n_safe
-        # unnormalized-IS variance:  Var(w f) / N
-        var = torch.clamp_min(s2 / n_safe - p_fail * p_fail, 0.0) / n_safe
-        sd = torch.sqrt(var)
-        ess = torch.where(s2 > 0.0,
-                          s1 * s1 / torch.where(s2 > 0.0, s2, 1.0), 0.0)
-        good = (n > 0.0) & (ess >= min_ess)
-        to_ppm = lambda p: torch.clamp(p, 0.0, 1.0) * 1e6
-        return {
-            "fail_ppm": torch.where(good, to_ppm(p_fail), torch.nan),
-            "fail_ppm_lo": torch.where(good, to_ppm(p_fail - z_conf * sd),
-                                       torch.nan),
-            "fail_ppm_hi": torch.where(good, to_ppm(p_fail + z_conf * sd),
-                                       torch.nan),
-            "ess": ess,
-        }
+        with trace.span("batch.reduce"):
+            base = self._mc_base()
+            ok = self._spec_ok(margin_mv, trc_ns, disturbed)
+            fail = (self.valid & ~ok).to(torch.float32)
+            log_w = self.corners.get("mc_log_w")
+            if log_w is None:
+                wf = fail
+            else:
+                w = torch.exp(log_w.to(torch.float32))
+                wf = torch.where(self.valid, w, 0.0) * fail
+            ids = self._segment_ids(base)
+            n = _segment_sum(self.valid.to(torch.float32), ids, base)
+            n_safe = torch.clamp_min(n, 1.0)
+            s1 = _segment_sum(wf, ids, base)
+            s2 = _segment_sum(wf * wf, ids, base)
+            p_fail = s1 / n_safe
+            # unnormalized-IS variance:  Var(w f) / N
+            var = torch.clamp_min(s2 / n_safe - p_fail * p_fail, 0.0) / n_safe
+            sd = torch.sqrt(var)
+            ess = torch.where(s2 > 0.0,
+                              s1 * s1 / torch.where(s2 > 0.0, s2, 1.0), 0.0)
+            good = (n > 0.0) & (ess >= min_ess)
+            to_ppm = lambda p: torch.clamp(p, 0.0, 1.0) * 1e6
+            return {
+                "fail_ppm": torch.where(good, to_ppm(p_fail), torch.nan),
+                "fail_ppm_lo": torch.where(good, to_ppm(p_fail - z_conf * sd),
+                                           torch.nan),
+                "fail_ppm_hi": torch.where(good, to_ppm(p_fail + z_conf * sd),
+                                           torch.nan),
+                "ess": ess,
+            }
 
     def mc_summary(self, margin_mv: float | None = None,
                    trc_ns: float | None = None, disturbed: bool = False,
@@ -429,22 +434,23 @@ class DesignBatch:
         margin_mv, trc_ns, disturbed)` and `corners["ess"]` the effective
         sample size.  The raw `mc_*` channels never survive the reduction.
         """
-        base = self._mc_base()
-        yf = self.yield_fraction(margin_mv=margin_mv, trc_ns=trc_ns,
-                                 disturbed=disturbed)
-        kwargs = {f: getattr(self, f)[:base] for f in ARRAY_FIELDS}
-        for f in MC_SAMPLED_FIELDS:
-            kwargs[f] = self.quantile(q, f).to(torch.float32)
-        feas_frac = self._segment_frac(self.feasible, base,
-                                       self._mc_weights())
-        kwargs["feasible"] = ((feas_frac >= min_feasible_frac)
-                              & kwargs["valid"])
-        corners = {k: v[:base] for k, v in self.corners.items()
-                   if not k.startswith("mc_")}
-        corners["yield_frac"] = yf.to(torch.float32)
-        corners["ess"] = self.ess().to(torch.float32)
-        return DesignBatch(corners=corners, tech_names=self.tech_names,
-                           scheme_names=self.scheme_names, **kwargs)
+        with trace.span("batch.reduce"):
+            base = self._mc_base()
+            yf = self.yield_fraction(margin_mv=margin_mv, trc_ns=trc_ns,
+                                     disturbed=disturbed)
+            kwargs = {f: getattr(self, f)[:base] for f in ARRAY_FIELDS}
+            for f in MC_SAMPLED_FIELDS:
+                kwargs[f] = self.quantile(q, f).to(torch.float32)
+            feas_frac = self._segment_frac(self.feasible, base,
+                                           self._mc_weights())
+            kwargs["feasible"] = ((feas_frac >= min_feasible_frac)
+                                  & kwargs["valid"])
+            corners = {k: v[:base] for k, v in self.corners.items()
+                       if not k.startswith("mc_")}
+            corners["yield_frac"] = yf.to(torch.float32)
+            corners["ess"] = self.ess().to(torch.float32)
+            return DesignBatch(corners=corners, tech_names=self.tech_names,
+                               scheme_names=self.scheme_names, **kwargs)
 
     # ------------------------------------------------------ legacy views --
     def point(self, i: int) -> DesignPoint:

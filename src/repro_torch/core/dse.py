@@ -25,7 +25,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..device import as_f32, resolve_device, to_host
+from ..device import as_bool, as_f32, as_i32, resolve_device, to_host
+from ..runtime import trace
 from . import calibration as cal
 from . import contracts, transient
 from .batch import DesignBatch, DesignPoint
@@ -82,19 +83,22 @@ def plan_sweep(space: DesignSpace | None = None,
     """
     if space is None:
         space = DesignSpace.paper_grid()
-    sp = space.lower(device=device)
-    unknown = [k for k in sp.corners
-               if k not in SUPPORTED_CORNER_AXES and k not in MC_AXES
-               and k != MC_LOG_W]
-    if unknown:
-        raise ValueError(f"unsupported corner axes {unknown}; sweep "
-                         f"understands {SUPPORTED_CORNER_AXES}")
-    par = bl_parasitics_lowered(sp)
-    operands = None
-    if with_transient:
-        ladder_c, ladder_g = build_ladder_lowered(sp, par)
-        operands = transient.lower_design_operands(
-            sp, ladder_c=ladder_c, ladder_g=ladder_g)
+    trace.count("dse.plans")
+    with trace.span("dse.plan"):
+        sp = space.lower(device=device)
+        unknown = [k for k in sp.corners
+                   if k not in SUPPORTED_CORNER_AXES and k not in MC_AXES
+                   and k != MC_LOG_W]
+        if unknown:
+            raise ValueError(f"unsupported corner axes {unknown}; sweep "
+                             f"understands {SUPPORTED_CORNER_AXES}")
+        par = bl_parasitics_lowered(sp)
+        operands = None
+        if with_transient:
+            with trace.span("transient.operands"):
+                ladder_c, ladder_g = build_ladder_lowered(sp, par)
+                operands = transient.lower_design_operands(
+                    sp, ladder_c=ladder_c, ladder_g=ladder_g)
     return SweepPlan(space=space, sp=sp, par=par, operands=operands)
 
 
@@ -169,12 +173,10 @@ def assemble_batch(sp: LoweredSpace, cols: dict) -> DesignBatch:
     into the contract-checked `DesignBatch`."""
     dev = sp.device
     batch = DesignBatch(
-        tech_idx=torch.as_tensor(sp.tech_idx, dtype=torch.int32, device=dev),
-        scheme_idx=torch.as_tensor(sp.scheme_idx, dtype=torch.int32,
-                                   device=dev),
-        layers=sp.layers, valid=torch.as_tensor(sp.valid, device=dev),
-        corners={k: torch.as_tensor(v, dtype=torch.float32, device=dev)
-                 for k, v in sp.corners.items()},
+        tech_idx=as_i32(sp.tech_idx, dev),
+        scheme_idx=as_i32(sp.scheme_idx, dev),
+        layers=sp.layers, valid=as_bool(sp.valid, dev),
+        corners={k: as_f32(v, dev) for k, v in sp.corners.items()},
         tech_names=sp.tech_names, scheme_names=sp.scheme_names,
         n_samples=sp.samples, base_len=sp.base_len, **cols)
     contracts.check_batch(batch, where="dse.sweep")
@@ -194,14 +196,19 @@ def finalize_sweep(plan: SweepPlan,
             "finalize_sweep needs the fused-engine result exactly when "
             "the plan lowered transient operands (with_transient="
             f"{plan.with_transient}, res={'set' if res is not None else 'None'})")
-    view = SpaceView.from_lowered(plan.sp)
-    cbl = plan.par.c_bl_total_ff
-    if res is None:
-        cols = score_columns(view, cbl)
-    else:
-        cols = score_from_events(view, cbl, plan.operands.sa_tau_ns,
-                                 plan.operands.t_overhead_ns, res.events)
-    return assemble_batch(plan.sp, cols)
+    with trace.span("dse.score"):
+        with trace.span("dse.score.view"):
+            view = SpaceView.from_lowered(plan.sp)
+        cbl = plan.par.c_bl_total_ff
+        with trace.span("dse.score.columns"):
+            if res is None:
+                cols = score_columns(view, cbl)
+            else:
+                cols = score_from_events(
+                    view, cbl, plan.operands.sa_tau_ns,
+                    plan.operands.t_overhead_ns, res.events)
+        with trace.span("dse.score.assemble"):
+            return assemble_batch(plan.sp, cols)
 
 
 def sweep(space: DesignSpace | None = None, with_transient: bool = True,
@@ -229,17 +236,21 @@ def sweep(space: DesignSpace | None = None, with_transient: bool = True,
             "with_transient=False sweep is elementwise scoring with "
             "nothing to shard — pass sharding=None")
     device = resolve_device(device)
-    plan = plan_sweep(space, with_transient=with_transient, device=device)
-    if plan.operands is not None and sharding is not None:
-        from ..launch import shard
-        cols = shard.sharded_sweep_columns(plan, sharding, backend=backend,
-                                           b_chunk=b_chunk)
-        return assemble_batch(plan.sp, cols)
-    res = None
-    if plan.operands is not None:
-        res = transient.simulate_row_cycle_many(
-            plan.operands, backend=backend, b_chunk=b_chunk, device=device)
-    return finalize_sweep(plan, res)
+    with trace.span("dse.sweep"):
+        plan = plan_sweep(space, with_transient=with_transient,
+                          device=device)
+        if plan.operands is not None and sharding is not None:
+            from ..launch import shard
+            cols = shard.sharded_sweep_columns(plan, sharding,
+                                               backend=backend,
+                                               b_chunk=b_chunk)
+            return assemble_batch(plan.sp, cols)
+        res = None
+        if plan.operands is not None:
+            res = transient.simulate_row_cycle_many(
+                plan.operands, backend=backend, b_chunk=b_chunk,
+                device=device)
+        return finalize_sweep(plan, res)
 
 
 # ---------------------------------------------------------------------------
@@ -263,21 +274,23 @@ def pareto_mask(batch: DesignBatch, require_feasible: bool = True,
     Dominance tests are exact comparisons and OR does not depend on
     order, so the sharded mask is bit-identical to the sequential one.
     """
-    cand = batch.valid
-    if require_feasible:
-        cand = cand & batch.feasible
-    dev = batch.device
-    hi = torch.stack([batch.density_gb_mm2, batch.margin_disturbed_mv,
-                      *(as_f32(x, dev) for x in extra_maximize)], dim=1)
-    lo = torch.stack([batch.trc_ns, batch.e_read_fj,
-                      *(as_f32(x, dev) for x in extra_minimize)], dim=1)
-    if sharding is not None:
-        from ..launch import shard
-        dominated = shard.sharded_pareto_dominated(hi, lo, cand, sharding,
-                                                   block=block)
-    else:
-        dominated = dominated_by(hi, lo, cand, hi, lo, cand, block)
-    return cand & ~dominated
+    trace.count("pareto.masks")
+    with trace.span("dse.pareto"):
+        cand = batch.valid
+        if require_feasible:
+            cand = cand & batch.feasible
+        dev = batch.device
+        hi = torch.stack([batch.density_gb_mm2, batch.margin_disturbed_mv,
+                          *(as_f32(x, dev) for x in extra_maximize)], dim=1)
+        lo = torch.stack([batch.trc_ns, batch.e_read_fj,
+                          *(as_f32(x, dev) for x in extra_minimize)], dim=1)
+        if sharding is not None:
+            from ..launch import shard
+            dominated = shard.sharded_pareto_dominated(hi, lo, cand,
+                                                       sharding, block=block)
+        else:
+            dominated = dominated_by(hi, lo, cand, hi, lo, cand, block)
+        return cand & ~dominated
 
 
 def dominated_by(hi_d, lo_d, cand_d, hi, lo, cand,
@@ -288,11 +301,14 @@ def dominated_by(hi_d, lo_d, cand_d, hi, lo, cand,
     The dominators run in blocks of `block` rows: each block is one
     masked broadcast against the whole batch.  `pareto_mask` passes the
     batch as its own dominators; the sharded mask passes each slot's
-    slab of them.
+    slab of them.  Counts its dominance tests (`pareto.pairs`: every
+    dominator row against every row).
     """
+    n_dom = hi_d.shape[0]
+    trace.count("pareto.pairs", n_dom * hi.shape[0])
     dominated = torch.zeros((hi.shape[0],), dtype=torch.bool,
                             device=hi.device)
-    for i0 in range(0, hi_d.shape[0], block):          # dominator blocks
+    for i0 in range(0, n_dom, block):                  # dominator blocks
         hi_i, lo_i = hi_d[i0:i0 + block], lo_d[i0:i0 + block]
         cand_i = cand_d[i0:i0 + block]
         ge = ((hi_i[:, None, :] >= hi[None, :, :]).all(-1)

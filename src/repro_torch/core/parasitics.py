@@ -19,6 +19,7 @@ from dataclasses import dataclass, replace
 import torch
 
 from ..device import as_bool, as_f32, resolve_device
+from ..runtime import trace
 from . import routing
 from .calibration import TechCal
 
@@ -122,35 +123,37 @@ def bl_parasitics_lowered(view) -> BLParasitics:
     on-resistance: r_on scales inversely with the gate overdrive, so a
     +dVth sample conducts less and slows the row cycle.
     """
-    par = _assemble(
-        view.layers,
-        baseline_2d=view.tech("baseline_2d"),
-        fixed_c_bl_ff=view.tech("fixed_c_bl_ff"),
-        c_bl_per_layer_ff=view.tech("c_bl_per_layer_ff"),
-        c_sel_junction_ff=view.tech("c_sel_junction_ff"),
-        c_global_strap_ff=view.tech("c_global_strap_ff"),
-        c_hcb_pad_ff=view.tech("c_hcb_pad_ff"),
-        c_blsa_in_ff=view.tech("c_blsa_in_ff"),
-        r_on_cell_kohm=view.tech("r_on_cell_kohm"),
-        r_sel_kohm=view.tech("r_sel_kohm"),
-        r_local_bl_kohm=view.tech("r_local_bl_kohm"),
-        r_global_kohm=view.tech("r_global_kohm"),
-        sel_junction=view.scheme("sel_junction"),
-        straps_per_global=view.scheme("straps_per_global"),
-        global_strap_metal=view.scheme("global_strap_metal"),
-        c_global_fixed_ff=view.scheme("c_global_fixed_ff"),
-        r_sel_in_path=view.scheme("r_sel_in_path"),
-        r_global_in_path=view.scheme("r_global_in_path"),
-    )
-    dvth_mv = view.corner("mc_delta_vth_mv", None)
-    if dvth_mv is not None:
-        # triode-region conductance ~ overdrive: r_on' = r_on * Vov/(Vov-dVth),
-        # with dVth clamped inside the overdrive so r_on stays finite/positive
-        vov = as_f32(view.tech("vth_overdrive_v"), view.device)
-        dvth_v = torch.clamp(as_f32(dvth_mv, view.device) * 1e-3,
-                             -0.5 * vov, 0.5 * vov)
-        par = replace(par, r_on_kohm=par.r_on_kohm * vov / (vov - dvth_v))
-    return par
+    with trace.span("parasitics"):
+        par = _assemble(
+            view.layers,
+            baseline_2d=view.tech("baseline_2d"),
+            fixed_c_bl_ff=view.tech("fixed_c_bl_ff"),
+            c_bl_per_layer_ff=view.tech("c_bl_per_layer_ff"),
+            c_sel_junction_ff=view.tech("c_sel_junction_ff"),
+            c_global_strap_ff=view.tech("c_global_strap_ff"),
+            c_hcb_pad_ff=view.tech("c_hcb_pad_ff"),
+            c_blsa_in_ff=view.tech("c_blsa_in_ff"),
+            r_on_cell_kohm=view.tech("r_on_cell_kohm"),
+            r_sel_kohm=view.tech("r_sel_kohm"),
+            r_local_bl_kohm=view.tech("r_local_bl_kohm"),
+            r_global_kohm=view.tech("r_global_kohm"),
+            sel_junction=view.scheme("sel_junction"),
+            straps_per_global=view.scheme("straps_per_global"),
+            global_strap_metal=view.scheme("global_strap_metal"),
+            c_global_fixed_ff=view.scheme("c_global_fixed_ff"),
+            r_sel_in_path=view.scheme("r_sel_in_path"),
+            r_global_in_path=view.scheme("r_global_in_path"),
+        )
+        dvth_mv = view.corner("mc_delta_vth_mv", None)
+        if dvth_mv is not None:
+            # triode-region conductance ~ overdrive:
+            # r_on' = r_on * Vov/(Vov-dVth), with dVth clamped inside the
+            # overdrive so r_on stays finite/positive
+            vov = as_f32(view.tech("vth_overdrive_v"), view.device)
+            dvth_v = torch.clamp(as_f32(dvth_mv, view.device) * 1e-3,
+                                 -0.5 * vov, 0.5 * vov)
+            par = replace(par, r_on_kohm=par.r_on_kohm * vov / (vov - dvth_v))
+        return par
 
 
 def wl_parasitics(tech: TechCal):

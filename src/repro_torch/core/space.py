@@ -35,7 +35,8 @@ from dataclasses import dataclass, field, replace
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import as_bool, as_f32, as_i32, resolve_device
+from ..runtime import trace
 from . import calibration as cal
 from . import routing
 
@@ -123,8 +124,7 @@ class LoweredSpace:
 
     @property
     def layers(self) -> torch.Tensor:
-        return torch.as_tensor(self.layers_np, dtype=torch.float32,
-                               device=self.device)
+        return as_f32(self.layers_np, self.device)
 
     def tech(self, fieldname: str) -> np.ndarray:
         """Per-point gather of a TechCal field."""
@@ -141,8 +141,7 @@ class LoweredSpace:
         """Per-point corner-axis values, or the scalar default when the
         space declared no such axis."""
         if name in self.corners:
-            return torch.as_tensor(self.corners[name], dtype=torch.float32,
-                                   device=self.device)
+            return as_f32(self.corners[name], self.device)
         return default
 
 
@@ -151,10 +150,14 @@ def _table(vals: list, idx: torch.Tensor) -> torch.Tensor:
     dtypes: float -> float32, int -> int32, bool -> bool."""
     arr = np.asarray(vals)
     if arr.dtype.kind == "f":
-        arr = arr.astype(np.float32)
+        table = as_f32(arr.astype(np.float32), idx.device)
     elif arr.dtype.kind in "iu":
-        arr = arr.astype(np.int32)
-    return torch.as_tensor(arr, device=idx.device)[idx]
+        table = as_i32(arr, idx.device)
+    elif arr.dtype.kind == "b":
+        table = as_bool(arr, idx.device)
+    else:
+        raise TypeError(f"no device table of {arr.dtype} values")
+    return table[idx]
 
 
 @dataclass(frozen=True)
@@ -180,13 +183,11 @@ class SpaceView:
         return cls(
             tech_names=tuple(sp.tech_names),
             scheme_names=tuple(sp.scheme_names),
-            tech_idx=torch.as_tensor(sp.tech_idx, dtype=torch.int32, device=dev),
-            scheme_idx=torch.as_tensor(sp.scheme_idx, dtype=torch.int32,
-                                       device=dev),
+            tech_idx=as_i32(sp.tech_idx, dev),
+            scheme_idx=as_i32(sp.scheme_idx, dev),
             layers=sp.layers,
-            valid=torch.as_tensor(sp.valid, device=dev),
-            corners={k: torch.as_tensor(v, dtype=torch.float32, device=dev)
-                     for k, v in sp.corners.items()},
+            valid=as_bool(sp.valid, dev),
+            corners={k: as_f32(v, dev) for k, v in sp.corners.items()},
             samples=sp.samples, replica=bool(sp.replica))
 
     @property
@@ -495,7 +496,10 @@ class DesignSpace:
         The arrays are numpy; `device` is where the lowered space hands
         its per-point tensors to the physics modules.
         """
-        device = resolve_device(device)
+        with trace.span("space.lower"):
+            return self._lower(resolve_device(device))
+
+    def _lower(self, device: torch.device) -> LoweredSpace:
         if not self.entries:
             raise ValueError(
                 "design space is empty — note that product() filters "
@@ -534,87 +538,89 @@ class DesignSpace:
 
         samples = 1
         if self.mc is not None:
-            mc = self.mc
-            samples = mc.samples
-            b0 = layers.shape[0]
-            rng = np.random.default_rng(mc.entropy)
+            with trace.span("space.lower.mc"):
+                mc = self.mc
+                samples = mc.samples
+                b0 = layers.shape[0]
+                rng = np.random.default_rng(mc.entropy)
 
-            def gather(fieldname):
-                vals = [getattr(cal.get_tech(n), fieldname)
-                        for n in tech_names]
-                return np.asarray(vals, np.float64)[tech_idx]
+                def gather(fieldname):
+                    vals = [getattr(cal.get_tech(n), fieldname)
+                            for n in tech_names]
+                    return np.asarray(vals, np.float64)[tech_idx]
 
-            # The local i.i.d. component comes FIRST and in one draw:
-            # with corr=0 and no tail proposal it is the entire draw and
-            # consumes the rng stream exactly like the original
-            # uncorrelated lowering — bit-for-bit the same samples.
-            z = rng.standard_normal((2, samples, b0))
-            log_w = None
-            if mc.is_active:
-                # Shifted/scaled proposal on the local standardized draws;
-                # the reserved mc_log_w channel carries the exact per-row
-                # density ratio  log N(z|0,1) - log N(z|shift, scale^2),
-                # summed over the SA-offset and Vth channels (per-channel
-                # shift/scale, so an unshifted channel contributes no
-                # weight variance).  Only the local component is
-                # reweighted; the correlated die/gradient components below
-                # stay target-distributed, so per-design estimators over
-                # the sample axis remain exact.
-                shift = np.asarray(mc.tail_shift,
-                                   np.float64).reshape(2, 1, 1)
-                scale = np.asarray(mc.tail_scale,
-                                   np.float64).reshape(2, 1, 1)
-                z = shift + scale * z
-                log_w = (-0.5 * z ** 2
-                         + 0.5 * ((z - shift) / scale) ** 2
-                         + np.log(scale)).sum(axis=0)
-            if mc.corr > 0.0:
-                # Correlated within-die decomposition: a die-level offset
-                # shared by every base row of a sample, plus a low-rank
-                # mat/strap gradient along the base-row axis (the lowering
-                # order is the mat order along the die span).
-                f_die = mc.corr * gather("mc_die_sigma_frac")
-                f_mat = mc.corr * gather("mc_mat_sigma_frac")
-                over = f_die + f_mat > 1.0 + 1e-9
-                if over.any():
-                    bad = sorted({tech_names[t] for t in tech_idx[over]})
-                    raise ValueError(
-                        f"correlated-MC variance fractions of {bad} exceed "
-                        "1 (mc_die_sigma_frac + mc_mat_sigma_frac scaled "
-                        f"by corr={mc.corr} must stay <= 1)")
-                z_die = rng.standard_normal((2, samples, 1))
-                w_fac = rng.standard_normal(
-                    (2, samples, MC_GRADIENT_FACTORS))
-                pos = np.arange(b0, dtype=np.float64) / max(b0 - 1, 1)
-                basis = _gradient_basis(pos, gather("mc_corr_length"))
-                grad = np.einsum("csk,bk->csb", w_fac, basis)
-                # clamp the local remainder: the guard above grants a
-                # 1e-9 tolerance, so a sum at 1.0+eps must not sqrt a
-                # negative number into NaN draws
-                f_loc = np.maximum(1.0 - f_die - f_mat, 0.0)
-                z = (np.sqrt(f_loc)[None, None] * z
-                     + np.sqrt(f_die)[None, None] * z_die
-                     + np.sqrt(f_mat)[None, None] * grad)
+                # The local i.i.d. component comes FIRST and in one draw:
+                # with corr=0 and no tail proposal it is the entire draw and
+                # consumes the rng stream exactly like the original
+                # uncorrelated lowering — bit-for-bit the same samples.
+                z = rng.standard_normal((2, samples, b0))
+                log_w = None
+                if mc.is_active:
+                    # Shifted/scaled proposal on the local standardized draws;
+                    # the reserved mc_log_w channel carries the exact per-row
+                    # density ratio  log N(z|0,1) - log N(z|shift, scale^2),
+                    # summed over the SA-offset and Vth channels (per-channel
+                    # shift/scale, so an unshifted channel contributes no
+                    # weight variance).  Only the local component is
+                    # reweighted; the correlated die/gradient components below
+                    # stay target-distributed, so per-design estimators over
+                    # the sample axis remain exact.
+                    shift = np.asarray(mc.tail_shift,
+                                       np.float64).reshape(2, 1, 1)
+                    scale = np.asarray(mc.tail_scale,
+                                       np.float64).reshape(2, 1, 1)
+                    z = shift + scale * z
+                    log_w = (-0.5 * z ** 2
+                             + 0.5 * ((z - shift) / scale) ** 2
+                             + np.log(scale)).sum(axis=0)
+                if mc.corr > 0.0:
+                    # Correlated within-die decomposition: a die-level offset
+                    # shared by every base row of a sample, plus a low-rank
+                    # mat/strap gradient along the base-row axis (the lowering
+                    # order is the mat order along the die span).
+                    f_die = mc.corr * gather("mc_die_sigma_frac")
+                    f_mat = mc.corr * gather("mc_mat_sigma_frac")
+                    over = f_die + f_mat > 1.0 + 1e-9
+                    if over.any():
+                        bad = sorted({tech_names[t] for t in tech_idx[over]})
+                        raise ValueError(
+                            f"correlated-MC variance fractions of {bad} "
+                            "exceed 1 (mc_die_sigma_frac + mc_mat_sigma_frac "
+                            f"scaled by corr={mc.corr} must stay <= 1)")
+                    z_die = rng.standard_normal((2, samples, 1))
+                    w_fac = rng.standard_normal(
+                        (2, samples, MC_GRADIENT_FACTORS))
+                    pos = np.arange(b0, dtype=np.float64) / max(b0 - 1, 1)
+                    basis = _gradient_basis(pos, gather("mc_corr_length"))
+                    grad = np.einsum("csk,bk->csb", w_fac, basis)
+                    # clamp the local remainder: the guard above grants a
+                    # 1e-9 tolerance, so a sum at 1.0+eps must not sqrt a
+                    # negative number into NaN draws
+                    f_loc = np.maximum(1.0 - f_die - f_mat, 0.0)
+                    z = (np.sqrt(f_loc)[None, None] * z
+                         + np.sqrt(f_die)[None, None] * z_die
+                         + np.sqrt(f_mat)[None, None] * grad)
 
-            mu_sa = gather("sa_offset_mv")
-            sig_sa = (gather("sa_offset_sigma_mv")
-                      if mc.sa_offset_sigma_mv is None
-                      else np.full(b0, float(mc.sa_offset_sigma_mv)))
-            sig_vth = (gather("vth_sigma_mv")
-                       if mc.vth_sigma_mv is None
-                       else np.full(b0, float(mc.vth_sigma_mv)))
-            # offset magnitudes: a sample below 0 has no physical meaning
-            mc_sa = np.maximum(mu_sa[None] + sig_sa[None] * z[0], 0.0)
-            mc_dvth = sig_vth[None] * z[1]
+                mu_sa = gather("sa_offset_mv")
+                sig_sa = (gather("sa_offset_sigma_mv")
+                          if mc.sa_offset_sigma_mv is None
+                          else np.full(b0, float(mc.sa_offset_sigma_mv)))
+                sig_vth = (gather("vth_sigma_mv")
+                           if mc.vth_sigma_mv is None
+                           else np.full(b0, float(mc.vth_sigma_mv)))
+                # offset magnitudes: a sample below 0 has no physical meaning
+                mc_sa = np.maximum(mu_sa[None] + sig_sa[None] * z[0], 0.0)
+                mc_dvth = sig_vth[None] * z[1]
 
-            tech_idx = np.tile(tech_idx, samples)
-            scheme_idx = np.tile(scheme_idx, samples)
-            layers = np.tile(layers, samples)
-            corners = {k: np.tile(v, samples) for k, v in corners.items()}
-            corners["mc_sa_offset_mv"] = mc_sa.reshape(-1).astype(np.float32)
-            corners["mc_delta_vth_mv"] = mc_dvth.reshape(-1).astype(np.float32)
-            if log_w is not None:
-                corners[MC_LOG_W] = log_w.reshape(-1).astype(np.float32)
+                tech_idx = np.tile(tech_idx, samples)
+                scheme_idx = np.tile(scheme_idx, samples)
+                layers = np.tile(layers, samples)
+                corners = {k: np.tile(v, samples) for k, v in corners.items()}
+                f32 = lambda a: a.reshape(-1).astype(np.float32)
+                corners["mc_sa_offset_mv"] = f32(mc_sa)
+                corners["mc_delta_vth_mv"] = f32(mc_dvth)
+                if log_w is not None:
+                    corners[MC_LOG_W] = f32(log_w)
 
         return LoweredSpace(
             tech_names=tuple(tech_names), scheme_names=tuple(scheme_names),

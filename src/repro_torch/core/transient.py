@@ -37,6 +37,7 @@ import torch
 from ..device import as_f32, rdiv, resolve_device, row_sum, scalar_f32
 from ..kernels import ops
 from ..kernels.ref import ROLE_MAIN, ROLE_REPLICA
+from ..runtime.trace import span
 from . import calibration as cal
 from . import contracts
 from .calibration import TechCal
@@ -322,7 +323,8 @@ def row_cycle_events(operands: FusedOperands, backend: str = "auto",
     sliced back per request before each request's own
     `result_from_events` rollup (where replica pairs collapse).
     """
-    evt, _ = _row_cycle_fused_chunked(operands[:6], backend, b_chunk)
+    with span("transient.engine"):
+        evt, _ = _row_cycle_fused_chunked(operands[:6], backend, b_chunk)
     return evt
 
 
@@ -355,7 +357,8 @@ def simulate_row_cycle_many(entries, backend: str = "auto",
     if isinstance(entries, FusedOperands):
         operands = FusedOperands(
             *(x.to(device) for x in entries[:8]), replica=entries.replica)
-        return simulate_row_cycle_lowered(operands, backend, b_chunk)
+        with span("transient.engine"):
+            return simulate_row_cycle_lowered(operands, backend, b_chunk)
 
     sizes, parts = [], []
     for tech, scheme, layers in entries:

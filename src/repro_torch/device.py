@@ -15,12 +15,19 @@ the host).  A plain copy from pageable host memory synchronizes the
 stream, draining the card's queue before the host can enqueue the next
 kernel; an array that a sync-free path takes goes through pinned memory
 without blocking instead (`as_f32(..., non_blocking=True)`).
+
+The helpers are the port's copies from the host to a device: each adds
+the bytes it moves to the counter `h2d.bytes` (`runtime.trace`).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .runtime import trace
+
+H2D_BYTES = "h2d.bytes"
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -45,6 +52,18 @@ def scalar_f32(x, device) -> torch.Tensor:
     return torch.full((), x, dtype=torch.float32, device=device)
 
 
+def _moved(t: torch.Tensor, from_host: bool = True) -> torch.Tensor:
+    """`t`, with its bytes counted when it was copied from the host to a
+    device."""
+    if from_host and t.device.type != "cpu":
+        trace.count(H2D_BYTES, t.numel() * t.element_size())
+    return t
+
+
+def _tensor_to(x: torch.Tensor, device, dtype) -> torch.Tensor:
+    return _moved(x.to(device=device, dtype=dtype), x.device.type == "cpu")
+
+
 def as_f32(x, device, non_blocking: bool = False) -> torch.Tensor:
     """Scalar / numpy array / tensor -> float32 tensor on `device`.
 
@@ -55,25 +74,36 @@ def as_f32(x, device, non_blocking: bool = False) -> torch.Tensor:
     the faster of the two for the sweep plan's large columns.
     """
     if isinstance(x, torch.Tensor):
-        return x.to(device=device, dtype=torch.float32)
+        return _tensor_to(x, device, torch.float32)
     arr = np.asarray(x)
     if arr.ndim == 0:
         return scalar_f32(arr.item(), device)
     if non_blocking and torch.device(device).type == "cuda":
         host = torch.as_tensor(arr, dtype=torch.float32).pin_memory()
-        return host.to(device, non_blocking=True)
-    return torch.as_tensor(arr, dtype=torch.float32, device=device)
+        return _moved(host.to(device, non_blocking=True))
+    return _moved(torch.as_tensor(arr, dtype=torch.float32, device=device))
 
 
 def as_bool(x, device) -> torch.Tensor:
     """Scalar / numpy array / tensor -> bool tensor on `device` (a scalar
     filled on the device)."""
     if isinstance(x, torch.Tensor):
-        return x.to(device=device, dtype=torch.bool)
+        return _tensor_to(x, device, torch.bool)
     arr = np.asarray(x, bool)
     if arr.ndim == 0:
         return torch.full((), bool(arr), dtype=torch.bool, device=device)
-    return torch.as_tensor(arr, device=device)
+    return _moved(torch.as_tensor(arr, device=device))
+
+
+def as_i32(x, device) -> torch.Tensor:
+    """Scalar / numpy array / tensor -> int32 tensor on `device` (a scalar
+    filled on the device)."""
+    if isinstance(x, torch.Tensor):
+        return _tensor_to(x, device, torch.int32)
+    arr = np.asarray(x, np.int32)
+    if arr.ndim == 0:
+        return torch.full((), int(arr), dtype=torch.int32, device=device)
+    return _moved(torch.as_tensor(arr, device=device))
 
 
 def to_host(x) -> np.ndarray:

@@ -48,9 +48,6 @@ import statistics
 import subprocess
 import sys
 import time
-import traceback
-import warnings
-from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -141,36 +138,17 @@ def profile(fn, warmup: bool = True) -> dict:
 
 
 def count_syncs(fn) -> tuple[int, dict]:
-    """Run `fn` once under `torch.cuda.set_sync_debug_mode("warn")`: the
-    number of synchronizing CUDA calls it makes, and where (the innermost
-    frame of the port for each, with its count)."""
-    sites: Counter = Counter()
-    previous = warnings.showwarning
-    inside = False
-
-    def note(message, category, filename, lineno, file=None, line=None):
-        if not inside or "synchroniz" not in str(message):
-            return previous(message, category, filename, lineno, file, line)
-        frames = [f for f in traceback.extract_stack()[:-1]
-                  if "repro_torch" in f.filename]
-        where = frames[-1] if frames else traceback.extract_stack()[-2]
-        sites[f"{Path(where.filename).name}:{where.lineno} {where.name}"] += 1
+    """Run `fn` once under a recording (`runtime.trace`, which sets
+    `torch.cuda.set_sync_debug_mode("warn")`): the number of synchronizing
+    CUDA calls it makes, and where (the innermost frame of the port for
+    each, with its count)."""
+    from repro_torch.runtime import trace
 
     torch.cuda.synchronize()
-    mode = torch.cuda.get_sync_debug_mode()
-    with warnings.catch_warnings():
-        warnings.simplefilter("always")
-        warnings.showwarning = note
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            inside = True
-            fn()
-        finally:
-            inside = False
-            torch.cuda.set_sync_debug_mode(mode)
-            warnings.showwarning = previous
+    with trace.record() as rec:
+        fn()
     torch.cuda.synchronize()
-    return sum(sites.values()), dict(sites)
+    return rec.counters[trace.SYNCS], dict(rec.sync_sites)
 
 
 def device_ms(fn, calls: int) -> float:

@@ -15,9 +15,11 @@ import ctypes
 
 import torch
 
+from ..runtime.trace import count
 from . import build as _build
 
 SOURCE = _build.CSRC / "rc_multistep.cu"
+LAUNCHES = "rc_multistep.launches"   # the counter of its launches
 KERNEL_NODES = (4, 6, 8)   # ladder sizes the kernel is instantiated for
 _ARGTYPES = ([ctypes.c_void_p] * 7
              + [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
@@ -62,9 +64,9 @@ def rc_multistep_cuda(c, g_branch, g_clamp, v_clamp, v0, ramp,
     """Launch the RC-ladder kernel -> trace (T, B, N).
 
     Same contract as `ref.rc_multistep_ref`, on contiguous float32 CUDA
-    tensors with N in `KERNEL_NODES`.  Adds one to
-    `rc_multistep_cuda.launches` per kernel launch (an empty batch or an
-    empty ramp launches nothing).
+    tensors with N in `KERNEL_NODES`.  Adds one to the counter
+    `LAUNCHES` per kernel launch (an empty batch or an empty ramp
+    launches nothing).
     """
     _check_inputs(c, g_branch, g_clamp, v_clamp, v0, ramp)
     b, n = c.shape
@@ -82,11 +84,8 @@ def rc_multistep_cuda(c, g_branch, g_clamp, v_clamp, v0, ramp,
     if err:
         raise RuntimeError(f"rc_multistep kernel launch failed: CUDA "
                            f"error {err}")
-    rc_multistep_cuda.launches += 1
+    count(LAUNCHES)
     return trace
-
-
-rc_multistep_cuda.launches = 0
 
 
 def chain_ops(n: int) -> int:

@@ -15,10 +15,12 @@ import ctypes
 
 import torch
 
+from ..runtime.trace import count
 from . import build as _build
 from .ref import N_EVENTS, PAR_ROLE, ROLE_MAIN
 
 SOURCE = _build.CSRC / "row_cycle.cu"
+LAUNCHES = "row_cycle.launches"   # the counter of its launches (`trace`)
 KERNEL_NODES = (4, 6, 8)   # ladder sizes the kernel is instantiated for
 _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int]
              + [ctypes.c_void_p] * 2
@@ -66,8 +68,8 @@ def row_cycle_fused_cuda(c, g_branch, gc_res, gc_pre, v0, params,
     """Launch the fused row-cycle kernel -> (events (B, 4), v_end (B, N)).
 
     Same contract as `ref.row_cycle_fused_ref`, on contiguous float32 CUDA
-    tensors with N in `KERNEL_NODES`.  Adds one to
-    `row_cycle_fused_cuda.launches` per kernel launch.
+    tensors with N in `KERNEL_NODES`.  Adds one to the counter
+    `LAUNCHES` per kernel launch.
     """
     _check_inputs(c, g_branch, gc_res, gc_pre, v0, params)
     fn = _build.load(SOURCE, "row_cycle_fused_launch",
@@ -84,8 +86,5 @@ def row_cycle_fused_cuda(c, g_branch, gc_res, gc_pre, v0, params,
     if err:
         raise RuntimeError(f"row_cycle_fused kernel launch failed: CUDA "
                            f"error {err}")
-    row_cycle_fused_cuda.launches += 1
+    count(LAUNCHES)
     return events, v_end
-
-
-row_cycle_fused_cuda.launches = 0

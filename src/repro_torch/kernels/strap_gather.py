@@ -20,9 +20,11 @@ from typing import NamedTuple
 
 import torch
 
+from ..runtime.trace import count
 from . import build as _build
 
 SOURCE = _build.CSRC / "strap_attend.cu"
+LAUNCHES = "strap_attend.launches"   # the counter of its calls (`trace`)
 MAX_HEAD_DIM = 256      # D the kernel takes (register accumulators)
 MAX_GROUP = 8           # query heads per kv head (the mma's N = 8)
 CHUNK_TOKENS = 128      # most tokens of one strap one block takes
@@ -126,7 +128,7 @@ def strap_attend_cuda(q, k_pages, v_pages, strap_ids, pages_per_strap: int,
     q, k_pages, v_pages float32 or bfloat16 (one dtype), strap_ids and
     lengths int32, D <= `MAX_HEAD_DIM`, Hq a multiple of Hkv with at most
     `MAX_GROUP` query heads per kv head.  One call runs two device kernels
-    (split, then combine) and adds one to `strap_attend_cuda.launches`.
+    (split, then combine) and adds one to the counter `LAUNCHES`.
     """
     _check_inputs(q, k_pages, v_pages, strap_ids, pages_per_strap, lengths)
     b, p, page, hkv, d = k_pages.shape
@@ -157,8 +159,5 @@ def strap_attend_cuda(q, k_pages, v_pages, strap_ids, pages_per_strap: int,
     if err:
         raise RuntimeError(f"strap_attend kernel launch failed: CUDA error "
                            f"{err}")
-    strap_attend_cuda.launches += 1
+    count(LAUNCHES)
     return out
-
-
-strap_attend_cuda.launches = 0

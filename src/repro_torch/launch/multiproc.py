@@ -85,7 +85,8 @@ def _checks(dev, num_processes: int, process_id: int, mc: int,
     import torch.distributed as dist
 
     from ..core import dse, transient
-    from ..kernels.row_cycle import row_cycle_fused_cuda
+    from ..kernels.row_cycle import LAUNCHES
+    from ..runtime import trace
     from . import shard
     from .mesh import SweepMesh
 
@@ -132,13 +133,13 @@ def _checks(dev, num_processes: int, process_id: int, mc: int,
                              f"to the single-process sweep: {bad}")
         # the cross-process dispatch: every rank its own slots, the
         # columns gathered, equal to the oracle on every rank
-        row_cycle_fused_cuda.launches = 0
+        before = trace.totals().get(LAUNCHES, 0)
         sync()
         t0 = time.perf_counter()
         sharded = dse.sweep(space, sharding=gmesh, device=dev)
         sync()
         sweep_s = time.perf_counter() - t0
-        launches = row_cycle_fused_cuda.launches
+        launches = trace.totals().get(LAUNCHES, 0) - before
         bad = shard.batch_mismatches(sharded, oracle)
         if bad:
             raise SystemExit(f"{label}: the sweep over the {gmesh.size}-slot "

@@ -1,1 +1,2 @@
-"""Runtime of the port: fault tolerance (`runtime.fault`)."""
+"""Runtime of the port: fault tolerance (`runtime.fault`), and spans and
+counters (`runtime.trace`)."""

@@ -42,6 +42,7 @@ from repro_torch.kernels.bench import (count_syncs,  # noqa: E402
                                        rc_adversarial_ladders)
 from repro_torch.memory.strap_cache import StrapCacheConfig  # noqa: E402
 from repro_torch.models import registry as models  # noqa: E402
+from repro_torch.runtime import trace  # noqa: E402
 from repro_torch.serving.engine import ServeEngine  # noqa: E402
 
 pytestmark = pytest.mark.gpu
@@ -49,6 +50,11 @@ pytestmark = pytest.mark.gpu
 DT = transient.DT_NS
 CAPS = (transient.N_ACT_STEPS, transient.N_RESTORE_STEPS,
         transient.N_PRE_STEPS)
+
+
+def launches(kernel_module) -> int:
+    """The process's launches of a kernel module's wrapper so far."""
+    return trace.totals().get(kernel_module.LAUNCHES, 0)
 
 
 @pytest.fixture()
@@ -97,9 +103,9 @@ def assert_match(evt_k, vend_k, evt_p, vend_p):
 @pytest.mark.parametrize("b,n", [(2048, 4), (2048, 6), (2048, 8), (200, 6)])
 def test_kernel_matches_plain(rng, cuda, b, n):
     args = random_operands(rng, b, n, cuda)
-    before = row_cycle.row_cycle_fused_cuda.launches
+    before = launches(row_cycle)
     evt_k, vend_k = ops.row_cycle_fused(*args, DT, *CAPS, backend="cuda")
-    assert row_cycle.row_cycle_fused_cuda.launches == before + 1
+    assert launches(row_cycle) == before + 1
     evt_p, vend_p = ops.row_cycle_fused(*args, DT, *CAPS, backend="ref")
     assert torch.isnan(evt_k[b // 2 + 3, 0])
     assert_match(evt_k, vend_k, evt_p, vend_p)
@@ -114,9 +120,9 @@ def test_kernel_matches_plain_legacy_params(rng, cuda):
 
 def test_auto_backend_launches_the_kernel_on_cuda(rng, cuda):
     args = random_operands(rng, 128, 6, cuda)
-    before = row_cycle.row_cycle_fused_cuda.launches
+    before = launches(row_cycle)
     ops.row_cycle_fused(*args, DT, *CAPS)
-    assert row_cycle.row_cycle_fused_cuda.launches == before + 1
+    assert launches(row_cycle) == before + 1
 
 
 def test_wrapper_rejects_main_row_at_even_index(rng, cuda):
@@ -142,9 +148,9 @@ def test_wrapper_rejects_unsupported_inputs(rng, cuda):
 
 def test_sweep_on_card_matches_plain_sweep(cuda):
     space = DesignSpace.paper_grid().with_replica()
-    before = row_cycle.row_cycle_fused_cuda.launches
+    before = launches(row_cycle)
     k = dse.sweep(space, device=cuda)
-    assert row_cycle.row_cycle_fused_cuda.launches == before + 1
+    assert launches(row_cycle) == before + 1
     p = dse.sweep(space, backend="ref", device=cuda)
     assert torch.equal(k.feasible, p.feasible)
     assert torch.equal(dse.pareto_mask(k), dse.pareto_mask(p))
@@ -160,10 +166,10 @@ def test_row_cycle_one_launch_equals_chunks_and_plain(rng, cuda):
     per-2048-row kernel calls and the plain version bit for bit."""
     b = 5000
     args = random_operands(rng, b, 6, cuda)
-    before = row_cycle.row_cycle_fused_cuda.launches
+    before = launches(row_cycle)
     evt, v_end = transient._row_cycle_fused_chunked(
         args, "auto", transient.DEFAULT_B_CHUNK)
-    assert row_cycle.row_cycle_fused_cuda.launches == before + 1
+    assert launches(row_cycle) == before + 1
     padded_rows, chunks = transient.fused_launch_plan(
         b, transient.DEFAULT_B_CHUNK, one_launch=False)
     padded = transient._pad_operands(args, padded_rows - b)
@@ -198,9 +204,9 @@ def random_ladder(rng, b, n, t, device):
                                    (129, 8, 100), (1, 6, 5)])
 def test_rc_multistep_kernel_matches_plain(rng, cuda, b, n, t):
     args = random_ladder(rng, b, n, t, cuda)
-    before = rc_transient.rc_multistep_cuda.launches
+    before = launches(rc_transient)
     out_k = ops.rc_multistep(*args, DT, backend="cuda")
-    assert rc_transient.rc_multistep_cuda.launches == before + 1
+    assert launches(rc_transient) == before + 1
     out_p = ops.rc_multistep(*args, DT, backend="ref")
     torch.cuda.synchronize()
     assert out_k.shape == (t, b, n)
@@ -262,10 +268,10 @@ def test_rc_multistep_wrapper_rejects_unsupported_inputs(rng, cuda):
 def test_phased_engine_on_card_matches_fused(cuda, tech, scheme, layers,
                                              replica):
     t = cal.get_tech(tech)
-    before = rc_transient.rc_multistep_cuda.launches
+    before = launches(rc_transient)
     p = transient.simulate_row_cycle(t, scheme, layers, traces=True,
                                      replica=replica, device=cuda)
-    assert rc_transient.rc_multistep_cuda.launches == before + (
+    assert launches(rc_transient) == before + (
         4 if replica else 3)
     f = transient.simulate_row_cycle(t, scheme, layers, replica=replica,
                                      device=cuda)
@@ -303,14 +309,14 @@ def test_phased_call_makes_no_host_sync(cuda, replica):
                                             device=cuda)
 
     want = call()
-    before = rc_transient.rc_multistep_cuda.launches
+    before = launches(rc_transient)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
         got = call()
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    assert rc_transient.rc_multistep_cuda.launches == before + (
+    assert launches(rc_transient) == before + (
         4 if replica else 3)
     assert count_syncs(call)[0] == 0
     for name in ("t_fire_ns", "trc_ns", "dv_sense_v"):
@@ -379,9 +385,9 @@ def strap_case(rng, b, p, page, hkv, d, hq, g, device, dtype=torch.float32,
                          ids=["x".join(map(str, s)) for s in STRAP_SHAPES])
 def test_strap_attend_kernel_matches_plain(rng, cuda, shape):
     q, k, v, ids, g, lengths = strap_case(rng, *shape, cuda)
-    before = strap_gather.strap_attend_cuda.launches
+    before = launches(strap_gather)
     out_k = ops.strap_attend(q, k, v, ids, g, lengths=lengths)
-    assert strap_gather.strap_attend_cuda.launches == before + 1
+    assert launches(strap_gather) == before + 1
     out_p = ops.strap_attend(q, k, v, ids, g, lengths=lengths, backend="ref")
     np.testing.assert_allclose(out_k.cpu().numpy(), out_p.cpu().numpy(),
                                rtol=3e-5, atol=3e-5)
@@ -462,9 +468,9 @@ def test_strap_attend_kernel_bf16_gated_selection(rng, cuda):
     q, k, v, ids, g, lengths = strap_case(rng, 8, 36, 64, 2, 128, 12, 4,
                                           cuda, torch.bfloat16)
     ids = ids[:, :4].contiguous()
-    before = strap_gather.strap_attend_cuda.launches
+    before = launches(strap_gather)
     out_k = ops.strap_attend(q, k, v, ids, g, lengths=lengths)
-    assert strap_gather.strap_attend_cuda.launches == before + 1
+    assert launches(strap_gather) == before + 1
     out_p = ops.strap_attend(q, k, v, ids, g, lengths=lengths, backend="ref")
     np.testing.assert_allclose(out_k.float().cpu().numpy(),
                                out_p.float().cpu().numpy(), rtol=2.0 ** -6,
@@ -506,11 +512,11 @@ def test_strap_engine_on_card_equals_dense(cuda):
     for backend in ("dense", "strap"):
         eng = ServeEngine(cfg, params, max_tokens=48, cache_backend=backend,
                           strap_cfg=StrapCacheConfig(8, 2), device=cuda)
-        before = strap_gather.strap_attend_cuda.launches
+        before = launches(strap_gather)
         eng.prefill(prompts)
         out[backend] = torch.cat([eng.step()[0] for _ in range(6)], 1)
-        launches = strap_gather.strap_attend_cuda.launches - before
-        assert launches == (cfg.n_layers * 6 if backend == "strap" else 0)
+        n = launches(strap_gather) - before
+        assert n == (cfg.n_layers * 6 if backend == "strap" else 0)
     assert torch.equal(out["dense"], out["strap"])
 
 
@@ -528,9 +534,9 @@ def test_strap_attend_kernel_bf16_family_decode_shapes(rng, cuda, name, top):
                                           cuda, torch.bfloat16)
     if top:
         ids = ids[:, :top].contiguous()
-    before = strap_gather.strap_attend_cuda.launches
+    before = launches(strap_gather)
     out_k = ops.strap_attend(q, k, v, ids, g, lengths=lengths)
-    assert strap_gather.strap_attend_cuda.launches == before + 1
+    assert launches(strap_gather) == before + 1
     out_p = ops.strap_attend(q, k, v, ids, g, lengths=lengths, backend="ref")
     got, want = out_k.float().cpu().numpy(), out_p.float().cpu().numpy()
     np.testing.assert_allclose(got, want, rtol=3e-2, atol=3e-2)
@@ -551,11 +557,11 @@ def test_family_strap_engine_on_card_equals_dense(cuda, name):
     for backend in ("dense", "strap"):
         eng = ServeEngine(cfg, params, max_tokens=48, cache_backend=backend,
                           strap_cfg=StrapCacheConfig(8, 2), device=cuda)
-        before = strap_gather.strap_attend_cuda.launches
+        before = launches(strap_gather)
         eng.prefill(prompts)
         out[backend] = torch.cat([eng.step()[0] for _ in range(6)], 1)
-        launches = strap_gather.strap_attend_cuda.launches - before
-        assert launches == (cfg.n_layers * 6 if backend == "strap" else 0)
+        n = launches(strap_gather) - before
+        assert n == (cfg.n_layers * 6 if backend == "strap" else 0)
     assert torch.equal(out["dense"], out["strap"])
 
 
@@ -677,18 +683,17 @@ def test_service_window_on_card_is_one_launch_and_equals_direct(cuda):
     from repro_torch.launch.serve import _batches_identical
     from repro_torch.serving.dse_service import DSEService
 
-    kernel = row_cycle.row_cycle_fused_cuda
     svc = DSEService(window_ms=0.0, device=cuda)
     svc.warm()
     s_grid = DesignSpace.paper_grid()
     s_mc = DesignSpace.paper_grid().with_mc(samples=512, key=2)
     torch.cuda.synchronize()
-    before = kernel.launches
+    before = launches(row_cycle)
     fa = svc.submit(s_grid)
     fy = svc.submit(s_mc, kind="yield", spec={"margin_mv": 80.0})
     assert svc.flush() == 2
     torch.cuda.synchronize()
-    assert kernel.launches == before + 1
+    assert launches(row_cycle) == before + 1
     assert _batches_identical(fa.result(timeout=60.0).batch,
                               dse.sweep(s_grid, device=cuda))
     ry = fy.result(timeout=60.0)
@@ -699,22 +704,22 @@ def test_service_window_on_card_is_one_launch_and_equals_direct(cuda):
     s_fixed = DesignSpace.product(techs=["aos"], layers=(64, 87))
     s_rep = DesignSpace.paper_grid().with_replica()
     torch.cuda.synchronize()
-    before = kernel.launches
+    before = launches(row_cycle)
     ff, fr = svc.submit(s_fixed), svc.submit(s_rep)
     svc.flush()
     torch.cuda.synchronize()
-    assert kernel.launches == before + 2
+    assert launches(row_cycle) == before + 2
     assert _batches_identical(ff.result(timeout=60.0).batch,
                               dse.sweep(s_fixed, device=cuda))
     assert _batches_identical(fr.result(timeout=60.0).batch,
                               dse.sweep(s_rep, device=cuda))
 
-    before = kernel.launches
+    before = launches(row_cycle)
     again = svc.submit(s_grid)
     svc.flush()
     torch.cuda.synchronize()
     assert again.result(timeout=60.0).memo_hit
-    assert kernel.launches == before
+    assert launches(row_cycle) == before
 
 
 def test_service_dispatcher_thread_on_card(cuda):
@@ -766,10 +771,10 @@ def test_sharded_sweep_on_card_one_launch_a_slot(cuda, slots):
     space = DesignSpace.paper_grid().with_mc(samples=512, key=0)
     want = dse.sweep(space, device=cuda)
     torch.cuda.synchronize()
-    before = row_cycle.row_cycle_fused_cuda.launches
+    before = launches(row_cycle)
     got = dse.sweep(space, sharding=mesh, device=cuda)
     torch.cuda.synchronize()
-    assert row_cycle.row_cycle_fused_cuda.launches == before + slots
+    assert launches(row_cycle) == before + slots
     assert shard.batch_mismatches(got, want) == []
 
 
@@ -795,7 +800,7 @@ def test_elastic_host_drop_on_card(cuda):
     space = DesignSpace.paper_grid().with_mc(samples=64, key=0)
     want = dse.sweep(space, device=cuda)
     torch.cuda.synchronize()
-    before = row_cycle.row_cycle_fused_cuda.launches
+    before = launches(row_cycle)
     batch, rep = elastic.elastic_sweep(
         space, make_test_mesh((8,), ("batch",), device=cuda), device=cuda,
         injector=FailureInjector(schedule={1: "drop:host3"}))
@@ -804,7 +809,7 @@ def test_elastic_host_drop_on_card(cuda):
     assert (rep.restarts, rep.dropped_hosts) == (1, ["host3"])
     assert rep.device_history == [8, 8, 7, 7, 7]
     assert rep.resume_overhead_frac == pytest.approx(0.25)
-    assert (row_cycle.row_cycle_fused_cuda.launches - before
+    assert (launches(row_cycle) - before
             == sum(rep.device_history))
 
 

@@ -42,6 +42,7 @@ from repro.kernels.rc_transient import rc_multistep_pallas  # noqa: E402
 from repro_torch.core import calibration as cal  # noqa: E402
 from repro_torch.core import transient  # noqa: E402
 from repro_torch.kernels import ops, rc_transient  # noqa: E402
+from repro_torch.runtime import trace  # noqa: E402
 
 DT = transient.DT_NS
 REGEN_SLACK_NS = 0.05
@@ -203,10 +204,10 @@ def test_auto_dispatch_never_routes_a_cuda_tensor_to_ref(monkeypatch):
 def test_wrapper_checks_inputs_before_building(rng):
     """The kernel wrapper refuses CPU tensors without touching nvcc."""
     args = [torch.as_tensor(a) for a in random_ladder(rng, 4, 6)]
-    before = rc_transient.rc_multistep_cuda.launches
+    before = trace.totals().get(rc_transient.LAUNCHES, 0)
     with pytest.raises(ValueError, match="CUDA tensors only"):
         rc_transient.rc_multistep_cuda(*args, torch.ones(3), DT)
-    assert rc_transient.rc_multistep_cuda.launches == before
+    assert trace.totals().get(rc_transient.LAUNCHES, 0) == before
 
 
 # ---------------------------------------------------------------------------
