@@ -6,9 +6,9 @@
 Phases (any failure exits non-zero and prints no result line):
 
 1. the card's name and power limit (nvidia-smi);
-2. build the three CUDA kernels (row_cycle.cu, rc_multistep.cu,
-   strap_attend.cu) from src/repro_torch/kernels/csrc/ with nvcc into
-   build/, in parallel;
+2. build the four CUDA kernels (row_cycle.cu, rc_multistep.cu,
+   strap_attend.cu, pareto.cu) from src/repro_torch/kernels/csrc/ with
+   nvcc into build/, in parallel;
 3. hold the row-cycle kernel (backend="cuda") against its plain PyTorch
    version (backend="ref") on the card, bit for bit (events, NaN pattern,
    v_end): N = 4, 6, 8, replica pairs, padding rows, timed-out rows,
@@ -23,6 +23,9 @@ Phases (any failure exits non-zero and prints no result line):
    warm-up, through the path (one launch at the default b_chunk=2048)
    and through explicit per-2048-row kernel calls (the earlier dispatch,
    146 launches); both equal bit for bit, and equal to the plain version;
+   the Pareto kernel on that batch: `pareto_mask`'s two launches and
+   pairs counted, its dominated mask held against the plain version's
+   bit for bit, both timed (the paper grid's mask too, in phase 4);
 6. the rc_multistep kernel against its plain version, bit for bit, on
    random ladders (N = 4, 6, 8, ragged B, clamp network and ramp) and on
    ladders at the edges of its exact quotient form
@@ -312,7 +315,8 @@ Phases (any failure exits non-zero and prints no result line):
    the same tokens, with
    `launches_by_path` (each served path's launches, 0 on the ssm,
    hybrid and enc-dec paths) and `by_shape` (the Pixtral and OLMo decode
-   shapes); row_cycle's `launches_by_path` counts each path's launches,
+   shapes); the Pareto kernel at phase 5's 299,008 rows; row_cycle's and
+   the Pareto kernel's `launches_by_path` count each path's launches,
    read around it; every entry's `launches_by_path` has `dist_train`,
    its launches in phases 29-31 and 34-37, this process's and the
    eighteen members' summed), then the card line, then the result line
@@ -516,6 +520,83 @@ def events_identical(a, b) -> bool:
 # --------------------------------------------------------------------------
 # rc_multistep and the phased engine
 # --------------------------------------------------------------------------
+
+def pareto_objectives(batch):
+    """(hi, lo, cand) as `dse.pareto_mask` stacks them: density and
+    disturbed margin maximized, tRC and read energy minimized, the valid
+    and feasible rows the candidates."""
+    import torch
+
+    return (torch.stack([batch.density_gb_mm2, batch.margin_disturbed_mv], 1),
+            torch.stack([batch.trc_ns, batch.e_read_fj], 1),
+            batch.valid & batch.feasible)
+
+
+def pareto_phase(pareto_kernel, batch) -> dict:
+    """The Pareto kernel on `batch` (phase 5's 299,008 rows):
+    `dse.pareto_mask`'s launches (two: the filter pass and the survivors)
+    and `pareto.pairs` counted around it; the kernel's dominated mask held
+    against the plain version's (`ref.pareto_dominated_ref`) bit for bit,
+    and the mask against it.  Returns the kernels-line entry: `ms` the
+    wrapper's call by CUDA events, median of 20 after a warm-up (the
+    compaction and its two synchronizations included), `device_ms` its
+    kernels' device time (torch.profiler), `plain_ms` the plain version on
+    the card, `bound_ms` the bytes (objectives, valid and feasible read
+    once, the mask written once) over the HBM rate."""
+    import torch
+
+    from repro_torch.core import dse
+    from repro_torch.kernels import ops, pareto, ref
+    from repro_torch.kernels.bench import cuda_ms, device_ms_by_kernel
+    from repro_torch.runtime import trace
+
+    hi, lo, cand = pareto_objectives(batch)
+    rows, k = hi.shape[0], hi.shape[1] + lo.shape[1]
+    pairs0 = trace.totals().get("pareto.pairs", 0)
+    pareto_kernel.launches = 0
+    mask = dse.pareto_mask(batch)
+    sync(hi.device)
+    launches = pareto_kernel.launches
+    pairs = trace.totals()["pareto.pairs"] - pairs0
+    check(launches == 2, f"pareto_mask over {rows} rows: {launches} kernel "
+          "launches, expected 2 (the filter pass and the survivors)")
+    plain_ms, want = cuda_ms(
+        lambda: ref.pareto_dominated_ref(hi, lo, cand, hi, lo, cand))
+    got = ops.pareto_dominated(hi, lo, cand, hi, lo, cand)
+    check(torch.equal(got, want), f"the Pareto kernel's dominated mask over "
+          f"{rows} rows differs from the plain version's in "
+          f"{int((got != want).sum())} rows")
+    check(torch.equal(mask, cand & ~want),
+          "pareto_mask differs from the plain version's mask")
+
+    def call():
+        return ops.pareto_dominated(hi, lo, cand, hi, lo, cand)
+
+    ms, _ = cuda_ms(call, 20, warmup=1)
+    by_kernel = device_ms_by_kernel(call, 1)
+    n_bytes = rows * (4 * k + 3)
+    return {"name": "pareto_dominated", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/pareto.cu",
+            "replaces": None,
+            "replaces_note": "none: the reference's pareto_mask "
+                             "(src/repro/core/dse.py) is plain jnp",
+            "launches": launches,
+            "max_abs_err": 0,
+            "max_abs_err_unit": "mask rows (the dominated mask bit for bit "
+                                "the plain version's)",
+            "ms": ms,
+            "device_ms": sum(v for n, v in by_kernel.items()
+                             if "pareto_kernel" in n),
+            "device_ms_by_kernel": by_kernel,
+            "plain_ms": plain_ms,
+            "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes",
+            "library_ms": None,
+            "shape": [rows, k],
+            "bound_work": {"bytes": n_bytes, "rows": rows, "objectives": k},
+            "candidates": int(pareto.pack(hi, lo, cand)[0].numel()),
+            "front": int(mask.sum()), "pairs": pairs}
+
 
 def random_ladder(rng, b, n, t):
     """Random ladders with a nonzero clamp network and a rising WL ramp."""
@@ -3215,15 +3296,18 @@ class Counted:
 
 
 def _kernel_wrappers() -> dict:
-    """The three ported kernels' wrappers, by name, each `Counted`."""
-    from repro_torch.kernels import rc_transient, row_cycle, strap_gather
+    """The port's four kernels' wrappers, by name, each `Counted`."""
+    from repro_torch.kernels import (pareto, rc_transient, row_cycle,
+                                     strap_gather)
 
     return {"row_cycle_fused": Counted(row_cycle.row_cycle_fused_cuda,
                                        row_cycle.LAUNCHES),
             "rc_multistep": Counted(rc_transient.rc_multistep_cuda,
                                     rc_transient.LAUNCHES),
             "strap_attend": Counted(strap_gather.strap_attend_cuda,
-                                    strap_gather.LAUNCHES)}
+                                    strap_gather.LAUNCHES),
+            "pareto_dominated": Counted(pareto.pareto_dominated_cuda,
+                                        pareto.LAUNCHES)}
 
 
 def _zero_launches() -> dict:
@@ -5467,7 +5551,8 @@ def main(argv=None) -> int:
         raise SmokeFailure("torch.cuda.is_available() is False: this script "
                            "runs the port on an NVIDIA GPU")
     if not all((SRC / "repro_torch" / "kernels" / "csrc" / f).is_file()
-               for f in ("row_cycle.cu", "rc_multistep.cu", "strap_attend.cu")):
+               for f in ("row_cycle.cu", "rc_multistep.cu", "strap_attend.cu",
+                         "pareto.cu")):
         raise SmokeFailure(f"the port's sources are not next to {__file__} "
                            "(run it from a checkout of the repository)")
     sys.path.insert(0, str(SRC))
@@ -5477,8 +5562,8 @@ def main(argv=None) -> int:
     from repro_torch.core import calibration as cal
     from repro_torch.core import dse, report, transient
     from repro_torch.core.space import DEFAULT_LAYER_GRID, DesignSpace
-    from repro_torch.kernels import (build, ops, rc_transient, row_cycle,
-                                     strap_gather)
+    from repro_torch.kernels import (build, ops, pareto, rc_transient, ref,
+                                     row_cycle, strap_gather)
     from repro_torch.kernels.bench import (count_syncs, cuda_ms, profile,
                                            rc_adversarial_ladders)
 
@@ -5490,6 +5575,7 @@ def main(argv=None) -> int:
                         rc_transient.LAUNCHES)
     strap_kernel = Counted(strap_gather.strap_attend_cuda,
                            strap_gather.LAUNCHES)
+    pareto_kernel = Counted(pareto.pareto_dominated_cuda, pareto.LAUNCHES)
     dt = transient.DT_NS
     caps = (transient.N_ACT_STEPS, transient.N_RESTORE_STEPS,
             transient.N_PRE_STEPS)
@@ -5500,9 +5586,9 @@ def main(argv=None) -> int:
     log(f"[card] {card} | torch {torch.__version__} cuda {torch.version.cuda}")
     record["card"] = card
 
-    # 2. build the three kernels, one nvcc each, started together
+    # 2. build the four kernels, one nvcc each, started together
     t0 = time.perf_counter()
-    kernel_modules = (row_cycle, rc_transient, strap_gather)
+    kernel_modules = (row_cycle, rc_transient, strap_gather, pareto)
     with ThreadPoolExecutor(max_workers=len(kernel_modules)) as pool:
         libs = list(pool.map(lambda m: m.build(), kernel_modules))
     build_s = time.perf_counter() - t0
@@ -5591,7 +5677,16 @@ def main(argv=None) -> int:
     plain = dse.sweep(space, backend="ref", device=dev)
     check(torch.equal(batch.feasible, plain.feasible),
           "feasible differs between kernel and plain sweeps")
-    check(torch.equal(dse.pareto_mask(batch), dse.pareto_mask(plain)),
+    pareto_kernel.launches = 0
+    grid_mask = dse.pareto_mask(batch)
+    grid_pareto_launches = pareto_kernel.launches
+    check(grid_pareto_launches == 1, f"the paper grid's pareto_mask: "
+          f"{grid_pareto_launches} kernel launches, expected 1")
+    g_hi, g_lo, g_cand = pareto_objectives(batch)
+    check(torch.equal(grid_mask, g_cand & ~ref.pareto_dominated_ref(
+        g_hi, g_lo, g_cand, g_hi, g_lo, g_cand)),
+          "the paper grid's Pareto mask differs from the plain version's")
+    check(torch.equal(grid_mask, dse.pareto_mask(plain)),
           "Pareto mask differs between kernel and plain sweeps")
     fire_err = (batch.t_fire_ns - plain.t_fire_ns).abs().nan_to_num().max().item()
     trc_err = (batch.trc_ns - plain.trc_ns).abs().nan_to_num().max().item()
@@ -5679,6 +5774,11 @@ def main(argv=None) -> int:
     log(f"[sized] one launch == {len(slices)} per-chunk launches == plain "
         "version, bit for bit (events, NaN pattern, v_end)")
     record["sized"] = sized
+    pareto_entry = pareto_phase(pareto_kernel, mc_batch)
+    log(f"[pareto] {rows} rows: {pareto_entry['launches']} launches, "
+        f"{pareto_entry['pairs']} pairs, kernel == plain version bit for "
+        f"bit; {pareto_entry['ms']:.4f} ms against the plain version's "
+        f"{pareto_entry['plain_ms']:.1f} ms")
 
     # 6. rc_multistep kernel vs its plain version, bit for bit, on random
     #    ladders and on ladders at the edges of its exact quotient form;
@@ -5944,7 +6044,9 @@ def main(argv=None) -> int:
     record["cli"] = cli_phase(dev, kernel)
 
     # 16. the sweep fabric, against phase 5's batch and mask
+    pareto_kernel.launches = 0
     record["fabric"] = fabric_phase(dev, kernel, mc_space, mc_batch, mask)
+    fabric_pareto_launches = pareto_kernel.launches
 
     # 17-20. the other attention families at full width: Pixtral-12B (VLM,
     #    GQA group 4) served through strap_attend, its vision prefill and
@@ -5999,7 +6101,7 @@ def main(argv=None) -> int:
     #    width and depth; the example twin's config with an injected
     #    crash and its step-100 checkpoint; the training CLI
     t_train = time.perf_counter()
-    for k in (kernel, rc_kernel, strap_kernel):
+    for k in (kernel, rc_kernel, strap_kernel, pareto_kernel):
         k.launches = 0
     record["train_parity"] = train_parity_phase(args, dev)
     record["train_olmo"] = olmo_train_phase(args, dev, card)
@@ -6010,7 +6112,8 @@ def main(argv=None) -> int:
     record["train_kernel_launches"] = {
         "row_cycle_fused": kernel.launches,
         "rc_multistep": rc_kernel.launches,
-        "strap_attend": strap_kernel.launches}
+        "strap_attend": strap_kernel.launches,
+        "pareto_dominated": pareto_kernel.launches}
     log(f"[train] phases 24-28 wall time {record['train_wall_s']:.1f} s; "
         f"ported kernels launched there (none lies on the training path): "
         f"{record['train_kernel_launches']}")
@@ -6019,7 +6122,7 @@ def main(argv=None) -> int:
     #    train step), two gloo processes sharing the card (ZeRO over
     #    "data"; expert parallelism over "model")
     t_dist = time.perf_counter()
-    for k in (kernel, rc_kernel, strap_kernel):
+    for k in (kernel, rc_kernel, strap_kernel, pareto_kernel):
         k.launches = 0
     record["dist_world1"] = dist_world1_phase(args, dev, card)
     record["dist_zero"] = dist_zero_phase(
@@ -6030,7 +6133,8 @@ def main(argv=None) -> int:
     # whose counts come back in their results
     dist_launches = {"row_cycle_fused": kernel.launches,
                      "rc_multistep": rc_kernel.launches,
-                     "strap_attend": strap_kernel.launches}
+                     "strap_attend": strap_kernel.launches,
+                     "pareto_dominated": pareto_kernel.launches}
     for res in record["dist_zero"] + record["dist_ep"]:
         for n, c in res["kernel_launches"].items():
             dist_launches[n] += c
@@ -6046,12 +6150,13 @@ def main(argv=None) -> int:
     #    roofline of OLMo-1B's one-rank step; the dry-run CLI at the
     #    production "single" mesh (none of the ported kernels lies on it)
     t_dry = time.perf_counter()
-    for k in (kernel, rc_kernel, strap_kernel):
+    for k in (kernel, rc_kernel, strap_kernel, pareto_kernel):
         k.launches = 0
     record["dryrun"] = dryrun_phase(args, dev, card)
     dry_launches = {"row_cycle_fused": kernel.launches,
                     "rc_multistep": rc_kernel.launches,
-                    "strap_attend": strap_kernel.launches}
+                    "strap_attend": strap_kernel.launches,
+                    "pareto_dominated": pareto_kernel.launches}
     record["dryrun"]["kernel_launches"] = dry_launches
     check(not any(dry_launches.values()),
           f"phase 32 launched a ported kernel: {dry_launches}")
@@ -6135,7 +6240,7 @@ def main(argv=None) -> int:
     # 38. the kernels line: row_cycle at the sized path's one launch over
     #    299,008 rows and at one 2048-row chunk; rc_multistep at the phased
     #    path's ACT call; strap_attend at the full-width path's last
-    #    exact-mode (and gated) step
+    #    exact-mode (and gated) step; the Pareto kernel at phase 5's batch
     full = [x.contiguous() for x in transient._pad_operands(
         mc_plan.operands[:6], padded_rows - rows)]
     kernel_ms, (evt_full, _) = cuda_ms(lambda: kernel(*full, dt, *caps), 10)
@@ -6198,13 +6303,19 @@ def main(argv=None) -> int:
         "sm_clock_mhz": sm_clock_mhz,
         "registers": {k: v for k, v in registers.items() if "row_cycle" in k},
     }, rc_line(rc_kernel, ops, phased_calls[0][0], phased_launches["fixed"],
-               rc_err, registers), strap_entry]}
+               rc_err, registers), strap_entry, dict(
+        pareto_entry,
+        launches_by_path={"pareto_mask_mc": pareto_entry["launches"],
+                          "pareto_mask_paper_grid": grid_pareto_launches,
+                          "fabric": fabric_pareto_launches},
+        registers={k: v for k, v in registers.items() if "pareto" in k})]}
     for entry in line["kernels"]:
         entry.setdefault("launches_by_path", {})["dist_train"] = \
             dist_launches[entry["name"]]
     log("[kernels] row_cycle_fused: " + json.dumps(line["kernels"][0]))
     log("[kernels] rc_multistep: " + json.dumps(line["kernels"][1]))
     log("[kernels] strap_attend: " + json.dumps(line["kernels"][2]))
+    log("[kernels] pareto_dominated: " + json.dumps(line["kernels"][3]))
     record["kernels"] = line["kernels"]
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from ..device import as_bool, as_f32, as_i32, resolve_device, to_host
+from ..kernels import ops
 from ..runtime import trace
 from . import calibration as cal
 from . import contracts, transient
@@ -45,7 +46,7 @@ __all__ = [
     "DesignBatch", "DesignPoint", "DesignSpace",
     "SweepPlan", "plan_sweep", "finalize_sweep",
     "score_columns", "score_from_events", "assemble_batch",
-    "sweep", "pareto_mask", "dominated_by", "pareto_front", "best_design",
+    "sweep", "pareto_mask", "pareto_front", "best_design",
     "as_batch",
     "full_sweep", "evaluate_grid", "sweep_combos",
 ]
@@ -261,11 +262,13 @@ def pareto_mask(batch: DesignBatch, require_feasible: bool = True,
                 block: int = 4096, extra_maximize=(),
                 extra_minimize=(), sharding=None) -> torch.Tensor:
     """Non-dominated mask maximizing density & disturbed margin, minimizing
-    tRC & read energy.  The O(B^2) pairwise comparison runs as masked
-    broadcasts over blocks of `block` dominators, so peak memory is
-    O(block * B).  `extra_maximize` / `extra_minimize` append further (B,)
-    objective columns.  NaN metrics never dominate and are never
-    dominated.
+    tRC & read energy (`kernels.ops.pareto_dominated`).  On the GPU the
+    dominance kernel tests the candidates only, with early exit; on the
+    CPU the O(B^2) pairwise comparison runs as masked broadcasts over
+    blocks of `block` dominators, so peak memory is O(block * B).
+    `extra_maximize` / `extra_minimize` append further (B,) objective
+    columns (at most 8 columns in all on the GPU).  NaN metrics never
+    dominate and are never dominated.
 
     `sharding` (SweepMesh / SweepSharding) distributes the dominator
     blocks over the mesh's slots instead of the host loop: each slot
@@ -289,34 +292,9 @@ def pareto_mask(batch: DesignBatch, require_feasible: bool = True,
             dominated = shard.sharded_pareto_dominated(hi, lo, cand,
                                                        sharding, block=block)
         else:
-            dominated = dominated_by(hi, lo, cand, hi, lo, cand, block)
+            dominated = ops.pareto_dominated(hi, lo, cand, hi, lo, cand,
+                                             block)
         return cand & ~dominated
-
-
-def dominated_by(hi_d, lo_d, cand_d, hi, lo, cand,
-                 block: int = 4096) -> torch.Tensor:
-    """Which rows of (hi, lo, cand) some candidate dominator row of
-    (hi_d, lo_d, cand_d) dominates -> (B,) bool, on hi's device.
-
-    The dominators run in blocks of `block` rows: each block is one
-    masked broadcast against the whole batch.  `pareto_mask` passes the
-    batch as its own dominators; the sharded mask passes each slot's
-    slab of them.  Counts its dominance tests (`pareto.pairs`: every
-    dominator row against every row).
-    """
-    n_dom = hi_d.shape[0]
-    trace.count("pareto.pairs", n_dom * hi.shape[0])
-    dominated = torch.zeros((hi.shape[0],), dtype=torch.bool,
-                            device=hi.device)
-    for i0 in range(0, n_dom, block):                  # dominator blocks
-        hi_i, lo_i = hi_d[i0:i0 + block], lo_d[i0:i0 + block]
-        cand_i = cand_d[i0:i0 + block]
-        ge = ((hi_i[:, None, :] >= hi[None, :, :]).all(-1)
-              & (lo_i[:, None, :] <= lo[None, :, :]).all(-1))
-        gt = ((hi_i[:, None, :] > hi[None, :, :]).any(-1)
-              | (lo_i[:, None, :] < lo[None, :, :]).any(-1))
-        dominated |= (ge & gt & cand_i[:, None] & cand[None, :]).any(dim=0)
-    return dominated
 
 
 def as_batch(points_or_batch, device="cuda") -> DesignBatch:

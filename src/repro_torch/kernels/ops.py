@@ -9,6 +9,7 @@ is no fallback: a CUDA tensor under "auto" launches the kernel or raises.
 from __future__ import annotations
 
 from . import ref
+from .pareto import pareto_dominated_cuda
 from .rc_transient import rc_multistep_cuda
 from .row_cycle import row_cycle_fused_cuda
 from .strap_gather import strap_attend_cuda
@@ -65,6 +66,26 @@ def strap_attend(q, k_pages, v_pages, strap_ids, pages_per_strap,
                                  pages_per_strap, scale, lengths=lengths)
     return ref.strap_attend_ref(q, k_pages, v_pages, strap_ids,
                                 pages_per_strap, scale, lengths=lengths)
+
+
+def pareto_dominated(hi_d, lo_d, cand_d, hi, lo, cand, block: int = 4096,
+                     backend: str = "auto"):
+    """Which rows of (hi, lo, cand) some candidate dominator row of
+    (hi_d, lo_d, cand_d) dominates -> (B,) bool, on hi's device.
+
+    `dse.pareto_mask` passes the batch as its own dominators; the sharded
+    mask passes each slot's slab of them.  CUDA tensors go to the
+    dominance kernel (`pareto.pareto_dominated_cuda`), CPU tensors to
+    its plain version (`ref.pareto_dominated_ref`), which runs the
+    dominators in blocks of `block` rows, each one masked broadcast
+    against the whole batch; `block` does not reach the kernel.  Both
+    count their dominance tests in `pareto.pairs`: the plain version
+    every dominator row against every row, the kernel the pairs it
+    schedules.
+    """
+    if resolve_backend(backend, hi) == "cuda":
+        return pareto_dominated_cuda(hi_d, lo_d, cand_d, hi, lo, cand)
+    return ref.pareto_dominated_ref(hi_d, lo_d, cand_d, hi, lo, cand, block)
 
 
 def tridiag_solve(dl, d, du, b):

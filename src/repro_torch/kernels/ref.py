@@ -4,7 +4,8 @@ Port of `repro.kernels.ref`.  `row_cycle_fused_ref` is what the CUDA
 kernel `csrc/row_cycle.cu` computes, `rc_multistep_ref` what
 `csrc/rc_multistep.cu` computes, `strap_attend_ref` what
 `csrc/strap_attend.cu` computes (`strap_attend_split_ref` computes it as
-the kernel splits it): the CPU path runs them, and `chip_smoke.py` holds
+the kernel splits it), `pareto_dominated_ref` what `csrc/pareto.cu`
+computes: the CPU path runs them, and `chip_smoke.py` holds
 each kernel against its plain version on the card.
 The row-cycle versions follow the reference oracles operation for
 operation, in float32; `strap_attend_ref` follows the TPU kernel
@@ -14,6 +15,8 @@ operation, in float32; `strap_attend_ref` follows the TPU kernel
 from __future__ import annotations
 
 import torch
+
+from ..runtime.trace import count
 
 # params / events column layouts (shared with kernels.row_cycle)
 (PAR_TAU_WL, PAR_THR_REL, PAR_VDD, PAR_VPRE, PAR_ACTIVE, PAR_ROLE) = range(6)
@@ -348,3 +351,37 @@ def strap_attend_split_ref(q: torch.Tensor, k_pages: torch.Tensor,
     o = (wt[..., None] * acc).sum(2)
     o = o / torch.where(l_sum > 0, l_sum, torch.ones_like(l_sum))[..., None]
     return o.reshape(b, hq, d).to(q.dtype)
+
+
+# --------------------------------------------------------------------------
+# Pareto dominance
+# --------------------------------------------------------------------------
+
+def pareto_dominated_ref(hi_d, lo_d, cand_d, hi, lo, cand,
+                         block: int = 4096) -> torch.Tensor:
+    """Which rows of (hi, lo, cand) some candidate dominator row of
+    (hi_d, lo_d, cand_d) dominates -> (B,) bool, on hi's device.
+
+    `hi` / `lo` are (B, K) maximized / minimized objective columns and
+    `cand` the (B,) candidate mask; a candidate row a dominates a
+    candidate row b where a >= b on every `hi` column, a <= b on every
+    `lo` column, and strictly better on one.  NaN compares False, so a
+    row with a NaN objective neither dominates nor is dominated.  The
+    dominators run in blocks of `block` rows: each block is one masked
+    broadcast against the whole batch, so peak memory is O(block * B).
+    Counts its dominance tests (`pareto.pairs`: every dominator row
+    against every row).
+    """
+    n_dom = hi_d.shape[0]
+    count("pareto.pairs", n_dom * hi.shape[0])
+    dominated = torch.zeros((hi.shape[0],), dtype=torch.bool,
+                            device=hi.device)
+    for i0 in range(0, n_dom, block):                  # dominator blocks
+        hi_i, lo_i = hi_d[i0:i0 + block], lo_d[i0:i0 + block]
+        cand_i = cand_d[i0:i0 + block]
+        ge = ((hi_i[:, None, :] >= hi[None, :, :]).all(-1)
+              & (lo_i[:, None, :] <= lo[None, :, :]).all(-1))
+        gt = ((hi_i[:, None, :] > hi[None, :, :]).any(-1)
+              | (lo_i[:, None, :] < lo[None, :, :]).any(-1))
+        dominated |= (ge & gt & cand_i[:, None] & cand[None, :]).any(dim=0)
+    return dominated

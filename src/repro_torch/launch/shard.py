@@ -53,6 +53,7 @@ import torch
 from ..core import contracts, transient
 from ..core.transient import B_ALIGN, FusedOperands, RowCycleResult
 from ..device import resolve_device
+from ..kernels import ops
 from .mesh import SweepMesh, make_sweep_mesh
 
 __all__ = [
@@ -315,15 +316,15 @@ def sharded_pareto_dominated(hi, lo, cand, sharding=None,
     columns and `cand` the (B,) candidate mask.  The dominator axis is
     padded to identical per-slot slabs (padding rows carry cand=False,
     so they dominate nothing) and each slot tests its slab against the
-    full batch in `block`-row sub-blocks (`dse.dominated_by`, the
-    sequential loop's body); the slots' verdicts OR together (`|=` within
-    a process, `all_reduce(MAX)` on uint8 across a group).  Dominance is
+    full batch (`kernels.ops.pareto_dominated`: the dominance kernel on
+    a CUDA slot, `block`-row sub-blocks of the plain version on a CPU
+    one); the slots' verdicts OR together (`|=` within a process,
+    `all_reduce(MAX)` on uint8 across a group).  Dominance is
     comparisons and boolean algebra, with no rounding, and OR does not
     depend on order, so the mask is bit-identical to the sequential one.
     NaN objectives compare False in every direction, so NaN rows neither
     dominate nor get dominated.
     """
-    from ..core import dse
     mesh = _as_mesh(sharding)
     out = hi.device
     b = int(hi.shape[0])
@@ -333,9 +334,9 @@ def sharded_pareto_dominated(hi, lo, cand, sharding=None,
                 put_global(_pad_rows(cand, total, False), mesh), mesh.slots)
     dominated = torch.zeros((b,), dtype=torch.bool, device=out)
     for hi_d, lo_d, cand_d, dev in slabs:
-        dominated |= dse.dominated_by(hi_d, lo_d, cand_d, hi.to(dev),
-                                      lo.to(dev), cand.to(dev),
-                                      block).to(out)
+        dominated |= ops.pareto_dominated(hi_d, lo_d, cand_d, hi.to(dev),
+                                          lo.to(dev), cand.to(dev),
+                                          block).to(out)
     if mesh.group is not None:
         import torch.distributed as dist
         buf = dominated.to(torch.uint8).to(_collective_device(mesh, out))
